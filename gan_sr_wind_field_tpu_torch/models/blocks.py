@@ -1,11 +1,12 @@
-"""Generator building blocks (eval mode), channels-last in and out.
+"""Building blocks, channels-last in and out.
 
-Counterparts of ``ConvLReLU``, ``RDB`` and ``RRDB`` in
-``gan_sr_wind_field_tpu/models/blocks.py``, ``conv_mode="3D"`` only. Weights
-are held in PyTorch's ``(O, I, kx, ky, kz)`` layout and kept float32; each
-forward casts them to the block's compute ``dtype``, as the flax modules
-do. Growth convs carry no bias; the LFF 1³ conv keeps its bias. Padding is
-zeros, SAME.
+Counterparts of ``ConvLReLU``, ``RDB``, ``RRDB`` and ``DiscriminatorBlock``
+in ``gan_sr_wind_field_tpu/models/blocks.py``, ``conv_mode="3D"`` only.
+Weights are held in PyTorch's ``(O, I, kx, ky, kz)`` layout and kept
+float32; each forward casts them to the block's compute ``dtype``, as the
+flax modules do. Growth convs carry no bias; the LFF 1³ conv keeps its
+bias. Padding is zeros. ``BatchNorm`` is flax's ``nn.BatchNorm``, not
+PyTorch's: it keeps the biased batch variance in its running statistics.
 """
 
 from __future__ import annotations
@@ -28,42 +29,110 @@ def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
                          generator=generator)
 
 
-def conv3d_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
+def conv3d_cl(x: torch.Tensor, w: torch.Tensor, pad: int,
+              stride=1) -> torch.Tensor:
     """3D conv of a channels-last ``(N, X, Y, Z, C)`` tensor with a
-    ``(O, C, kx, ky, kz)`` weight; zero SAME padding ``pad``. The permutes
-    are views, so cuDNN runs it in NDHWC without copies."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=pad)
+    ``(O, C, kx, ky, kz)`` weight; zero padding ``pad`` on every face. The
+    permutes are views, so cuDNN runs it in NDHWC without copies."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=pad, stride=stride)
     return y.permute(0, 2, 3, 4, 1)
 
 
-class ConvLReLU(nn.Module):
-    """Bias-free (unless ``use_bias``) conv, optional LeakyReLU."""
+def channel_dropout(x: torch.Tensor, p: float,
+                    keep: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """Dropout of whole channels of a channels-last tensor (torch
+    Dropout3d, flax ``Dropout(broadcast_dims=(1, 2, 3))``): ``keep`` is a
+    boolean (N, 1, 1, 1, C) mask, drawn with keep probability 1 − p from
+    ``generator`` when not given; kept channels are scaled by 1/(1 − p),
+    in x's dtype."""
+    if keep is None:
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        keep = torch.rand(shape, generator=generator,
+                          device=x.device) < 1.0 - p
+    return torch.where(keep.to(x.device), x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+
+def _triple(v):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last
+    (channel) axis, as the JAX package's blocks use it. Statistics in
+    float32 (variance E[x²] − E[x]², clipped at 0); in training the batch
+    statistics normalise, and with ``update_stats`` the running ones move
+    as r ← 0.9·r + 0.1·batch, in place. The result is rounded to ``dtype``
+    once, at the end."""
+
+    MOMENTUM = 0.9
+    EPSILON = 1e-5
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if update_stats:
+                m = self.MOMENTUM
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.EPSILON) * self.scale)
+        return (y + self.bias).to(self.dtype)
+
+
+class ConvLReLU(nn.Module):
+    """Bias-free (unless ``use_bias``) conv, optional batch norm, optional
+    LeakyReLU (the CNA order)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=3,
                  padding: int = 1, lrelu: bool = True,
                  negative_slope: float = 0.2, use_bias: bool = False,
                  init_scale: float = 1.0, dtype: torch.dtype = torch.float32,
-                 conv_mode: str = "3D",
+                 conv_mode: str = "3D", strides=1, norm: str = "",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if conv_mode != "3D":
             raise NotImplementedError(
-                f"conv_mode={conv_mode!r} is not ported; only '3D'"
+                f"conv_mode={conv_mode!r} is not ported (ROADMAP.md); "
+                "only '3D'"
             )
-        k = kernel_size
-        self.weight = nn.Parameter(torch.empty(features, in_channels, k, k, k))
+        if norm not in ("", "batch"):
+            raise NotImplementedError(f"norm={norm!r} is not ported "
+                                      "(ROADMAP.md); only '' and 'batch'")
+        self.weight = nn.Parameter(torch.empty(features, in_channels,
+                                               *_triple(kernel_size)))
         kaiming_scaled_(self.weight, init_scale, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.bn = BatchNorm(features, dtype=dtype) if norm else None
         self.padding = padding
+        self.strides = _triple(strides)
         self.lrelu = lrelu
         self.negative_slope = negative_slope
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
         y = conv3d_cl(x.to(self.dtype), self.weight.to(self.dtype),
-                      self.padding)
+                      self.padding, self.strides)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
+        if self.bn is not None:
+            y = self.bn(y, train, update_stats)
         if self.lrelu:
             y = F.leaky_relu(y, self.negative_slope)
         return y
@@ -128,3 +197,33 @@ class RRDB(nn.Module):
         for rdb in self.rdbs:
             out = rdb(out)
         return out * self.rrdb_residual_scaling + x
+
+
+class DiscriminatorBlock(nn.Module):
+    """conv (+norm) + LeakyReLU, then a strided (4, 4, feat_kern_size) conv
+    (+norm) + LeakyReLU with padding 1 and stride (2, 2, 2) when
+    ``halve_z``, else (2, 2, 1). ``drop_first_norm`` skips the first
+    conv's norm (block 0)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 feat_kern_size: int = 3, norm: str = "batch",
+                 drop_first_norm: bool = False, halve_z: bool = False,
+                 negative_slope: float = 0.2, init_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32, conv_mode: str = "3D",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        kw = dict(negative_slope=negative_slope, init_scale=init_scale,
+                  dtype=dtype, conv_mode=conv_mode, generator=generator)
+        self.conv = ConvLReLU(in_channels, features,
+                              kernel_size=feat_kern_size,
+                              padding=(feat_kern_size - 1) // 2,
+                              norm="" if drop_first_norm else norm, **kw)
+        self.strided_conv = ConvLReLU(
+            features, features, kernel_size=(4, 4, feat_kern_size),
+            strides=(2, 2, 2) if halve_z else (2, 2, 1), padding=1,
+            norm=norm, **kw)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                update_stats: bool = False) -> torch.Tensor:
+        x = self.conv(x, train, update_stats)
+        return self.strided_conv(x, train, update_stats)

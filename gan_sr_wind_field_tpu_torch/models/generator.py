@@ -1,4 +1,4 @@
-"""Generator3D — RRDB ESRGAN-3D super-resolution generator, eval mode.
+"""Generator3D — RRDB ESRGAN-3D super-resolution generator.
 
 Counterpart of ``gan_sr_wind_field_tpu/models/generator.py:Generator3D``
 with ``conv_mode="3D"``, the split ``hr_conv0_x``/``hr_conv0_t`` and a
@@ -10,8 +10,9 @@ biased ``hr_conv1``:
     Z (N, X, Y, zl, 1) → conv3 + lrelu → conv3
     lrelu(hr_conv0_x(x) + hr_conv0_t(t)) → hr_conv1 (+ bias) → 3 channels
 
-Channel dropout is off in eval mode, so there is none here. Parameters are
-float32; ``dtype`` is the compute dtype. The output is float32.
+Channel dropout (``dropout_probability``) after lrelu(hr_conv0) acts only
+with ``train=True``. Parameters are float32; ``dtype`` is the compute
+dtype. The output is float32.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.blocks import ConvLReLU, RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_apply import generator_forward
+from gan_sr_wind_field_tpu_torch.models.fused_train import trainable_trunk_fn
 
 
 class Generator3D(nn.Module):
@@ -35,7 +37,7 @@ class Generator3D(nn.Module):
                  lff_kern_size: int = 1, rdb_residual_scaling: float = 0.2,
                  rrdb_residual_scaling: float = 0.2,
                  negative_slope: float = 0.2, terrain_features: int = 16,
-                 init_scale: float = 0.1,
+                 dropout_probability: float = 0.0, init_scale: float = 0.1,
                  dtype: torch.dtype = torch.float32, conv_mode: str = "3D",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -50,6 +52,7 @@ class Generator3D(nn.Module):
         self.rdb_residual_scaling = rdb_residual_scaling
         self.rrdb_residual_scaling = rrdb_residual_scaling
         self.negative_slope = negative_slope
+        self.dropout_probability = dropout_probability
         self.conv_mode = conv_mode
         self.dtype = dtype
 
@@ -86,9 +89,26 @@ class Generator3D(nn.Module):
             x = rrdb(x)
         return x
 
-    def forward(self, lr: torch.Tensor, z_terrain: torch.Tensor):
-        """lr: (N, x, y, zl, C_in); z_terrain: (N, x·s, y·s, zl, 1)."""
-        return generator_forward(self, lr, z_terrain, self.trunk)
+    def forward(self, lr: torch.Tensor, z_terrain: torch.Tensor, *,
+                train: bool = False, trunk: str = "modules",
+                dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """lr: (N, x, y, zl, C_in); z_terrain: (N, x·s, y·s, zl, 1).
+        ``trunk`` picks how the RRDB trunk runs: "modules" (the RRDB
+        modules, autograd through them) or "kernel" (the trunk kernels,
+        ``models/fused_train.py:trainable_trunk_fn``: with its backward
+        kernel where a gradient is needed, one launch without residuals
+        where not). ``train`` turns on channel dropout, with
+        ``dropout_mask`` or drawn from ``generator``."""
+        if trunk == "modules":
+            trunk_fn = self.trunk
+        elif trunk == "kernel":
+            trunk_fn = trainable_trunk_fn(self)
+        else:
+            raise ValueError(f"unknown trunk {trunk!r}")
+        return generator_forward(self, lr, z_terrain, trunk_fn, train=train,
+                                 dropout_mask=dropout_mask,
+                                 generator=generator)
 
 
 def _act_slope(act_type: str) -> float:
@@ -113,8 +133,13 @@ def generator_from_config(cfg, device=None, seed: int = 0) -> Generator3D:
     (mirrors ``WindFieldGAN.__init__``,
     gan_sr_wind_field_tpu/train/gan.py:113-132)."""
     dev = resolve_device(device)
+    return build_generator(cfg, seed).to(dev).eval()
+
+
+def build_generator(cfg, seed: int = 0) -> Generator3D:
+    """The config's generator on the CPU, weights drawn from ``seed``."""
     g = cfg.generator
-    G = Generator3D(
+    return Generator3D(
         in_channels=cfg.lr_num_channels,
         out_channels=g.out_num_ch,
         num_features=g.num_features,
@@ -127,6 +152,7 @@ def generator_from_config(cfg, device=None, seed: int = 0) -> Generator3D:
         rdb_residual_scaling=g.RDB_res_scaling,
         rrdb_residual_scaling=g.RRDB_res_scaling,
         terrain_features=g.terrain_number_of_features,
+        dropout_probability=g.dropout_probability,
         init_scale=g.weight_init_scale,
         dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                else torch.float32),
@@ -134,4 +160,3 @@ def generator_from_config(cfg, device=None, seed: int = 0) -> Generator3D:
         negative_slope=_act_slope(g.act_type),
         generator=torch.Generator().manual_seed(seed),
     )
-    return G.to(dev).eval()

@@ -1,7 +1,9 @@
 // RRDB trunk forward for NVIDIA Hopper (sm_90a), plain C ABI for ctypes.
 //
 // Replaces the TPU kernel gan_sr_wind_field_tpu/ops/pallas/rdb_trunk.py:
-// fused_rrdb_trunk -> _trunk_kernel (the forward, with_residuals=False).
+// fused_rrdb_trunk -> _trunk_kernel, the forward in both of its modes:
+// without residuals (serving, the D step's G forward) and with residuals
+// (the G step, whose backward, rdb_trunk_bwd.cu, reads them).
 //
 // What it computes. The state is channels-last (N, R, nf), R = X*Y*Z rows
 // with z fastest. J = 3 * num_rrdb residual dense blocks (RDBs) run in
@@ -24,7 +26,10 @@
 // + 256*128) MACs = 78.8 G MACs = 157.5 GFLOP, against ~61 MB of bf16
 // weights read once per call and 0.66 MB of activations per sample: the
 // trunk is compute-bound, about 0.16 ms per sample at the card's dense
-// bf16 tensor-core peak (989 TFLOP/s).
+// bf16 tensor-core peak (989 TFLOP/s). The residual mode adds writes of
+// J * rows * (nf + K*gc) values (2.0 GB of bf16 at the training batch of
+// 32), 0.60 ms at 3.35 TB/s against the 5.10 ms of operations: still
+// bound by operations.
 //
 // Design of this first version: every conv is an implicit GEMM (rows x
 // output channels, reduction over taps x input channels) on the CUDA cores
@@ -36,47 +41,22 @@
 // the growth buffer, into which each growth conv writes its gc channels.
 // The host loop launches K growth convs and one LFF per RDB on the caller's
 // stream, rotating three state buffers so the RRDB input stays readable.
+// In residual mode the per-RDB input states and growth buffers are the
+// J-major residual outputs themselves, so the mode costs no extra pass:
+// only the copy of x into states[0].
 // The tensor cores (wgmma fed by TMA, bf16 in, f32 accumulate) are what
 // the bound above assumes; they are the work of a later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "trunk_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BN = 32;        // output channels per block
-constexpr int BK = 32;        // input channels per reduction step
-constexpr int THREADS = 128;  // 16 row groups x 8 channel groups, 4x4 each
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// v rounded to the storage type, as a float
-template <typename T>
-__device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
+using namespace windsr;
 
 enum Epilogue { kGrowth = 0, kLff = 1 };
 
-// One conv of the trunk as an implicit GEMM over the virtual concat
-// [state (nf channels), growth (first cin - nf channels)].
+// One conv of the trunk over the virtual concat [state (nf channels),
+// growth (first cin - nf channels)].
 //   TAPS = 27: 3x3x3 growth conv; w is (27, cin, cout), taps x-major.
 //   TAPS = 1 : the 1x1x1 LFF;      w is (cin, cout).
 // kGrowth writes LeakyReLU(acc) into growth[:, gout_off : gout_off + cout];
@@ -89,92 +69,14 @@ __global__ void __launch_bounds__(THREADS)
                int gout_off, const T* __restrict__ bias,
                const T* __restrict__ rres, T* __restrict__ sout,
                float rdb_scale, float rrdb_scale, int rrdb_end) {
-  __shared__ float As[BM][BK + 1];              // [row][channel], padded
-  __shared__ __align__(16) float Bs[BK][BN];    // [channel][out]
-  __shared__ int sx[BM], sy[BM], sz[BM];        // coordinates of the rows
-
-  const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
   const int o0 = blockIdx.y * BN;
-  const int YZ = Y * Z;
-  const int R = X * YZ;
-
-  if (tid < BM) {
-    const int r = row0 + tid;
-    if (r < rows) {
-      const int rem = r % R;
-      sx[tid] = rem / YZ;
-      sy[tid] = (rem / Z) % Y;
-      sz[tid] = rem % Z;
-    } else {
-      sx[tid] = -4;  // never inside the volume, whatever the tap
-      sy[tid] = 0;
-      sz[tid] = 0;
-    }
-  }
-
-  const int tx = tid & 7;   // output channels o0 + 4*tx .. +3
-  const int ty = tid >> 3;  // rows row0 + 4*ty .. +3
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  conv_tile<T, TAPS>(state, nf, nf, growth, gct, w, cin, cout, X, Y, Z, rows,
+                     row0, o0, acc);
 
-  __syncthreads();
-
-  for (int t = 0; t < TAPS; ++t) {
-    const int dx = TAPS == 27 ? t / 9 - 1 : 0;
-    const int dy = TAPS == 27 ? (t / 3) % 3 - 1 : 0;
-    const int dz = TAPS == 27 ? t % 3 - 1 : 0;
-    const int shift = dx * YZ + dy * Z + dz;
-    const T* wt = w + (size_t)t * cin * cout;
-
-    for (int c0 = 0; c0 < cin; c0 += BK) {
-      // A: each warp gathers whole rows, one channel per lane (coalesced)
-      const int c = c0 + lane;
-#pragma unroll 4
-      for (int i = 0; i < BM / 4; ++i) {
-        const int rl = warp + 4 * i;
-        const int x = sx[rl] + dx, y = sy[rl] + dy, z = sz[rl] + dz;
-        float v = 0.f;
-        if (c < cin && x >= 0 && x < X && y >= 0 && y < Y && z >= 0 &&
-            z < Z) {
-          const size_t src = (size_t)(row0 + rl + shift);
-          v = c < nf ? to_f(state[src * nf + c])
-                     : to_f(growth[src * gct + (c - nf)]);
-        }
-        As[rl][lane] = v;
-      }
-      // B: the weight slice [c0, c0 + BK) x [o0, o0 + BN)
-#pragma unroll
-      for (int i = 0; i < BK * BN / THREADS; ++i) {
-        const int e = tid + THREADS * i;
-        const int k = e / BN, o = e % BN;
-        const int ck = c0 + k, oo = o0 + o;
-        Bs[k][o] = (ck < cin && oo < cout) ? to_f(wt[(size_t)ck * cout + oo])
-                                           : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = As[4 * ty + i][k];
-          acc[i][0] = fmaf(a, b.x, acc[i][0]);
-          acc[i][1] = fmaf(a, b.y, acc[i][1]);
-          acc[i][2] = fmaf(a, b.z, acc[i][2]);
-          acc[i][3] = fmaf(a, b.w, acc[i][3]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
+  const int tx = threadIdx.x & 7;
+  const int ty = threadIdx.x >> 3;
   const float s1 = rnd<T>(rdb_scale);
   const float s2 = rnd<T>(rrdb_scale);
 #pragma unroll
@@ -199,34 +101,46 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // The whole trunk: J RDBs, K growth convs + one LFF each, on `stream`.
-// scratch holds 3 state buffers (rows x nf) then the growth buffer
-// (rows x K*gc). Returns the first CUDA error, or 0.
+// Serving mode (states == nullptr): scratch holds 3 state buffers
+// (rows x nf) that rotate so the RRDB input stays readable, then the
+// growth buffer (rows x K*gc). Residual mode: states (J, rows, nf) holds
+// each RDB's input state, so RDB j reads states[j] and its LFF writes
+// states[j + 1] (out for the last RDB); growths (J, rows, K*gc) receives
+// RDB j's growths straight from its growth convs; scratch is unused.
+// Returns the first CUDA error, or 0.
 template <typename T>
 int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
-                  const T* blff, T* scratch, int N, int X, int Y, int Z,
-                  int nf, int gc, int num_convs, int J, int per,
-                  float rdb_scale, float rrdb_scale, float slope,
+                  const T* blff, T* scratch, T* states, T* growths, int N,
+                  int X, int Y, int Z, int nf, int gc, int num_convs, int J,
+                  int per, float rdb_scale, float rrdb_scale, float slope,
                   cudaStream_t stream) {
   const int rows = N * X * Y * Z;
   const int K = num_convs - 1;
   const int gct = gc * K;
   const int cin_lff = nf + gct;
   const size_t S = (size_t)rows * nf;
-  T* bufs[3] = {scratch, scratch + S, scratch + 2 * S};
-  T* growth = scratch + 3 * S;
+  const size_t G = (size_t)rows * gct;
   if (J == 0) {
     return (int)cudaMemcpyAsync(out, x, S * sizeof(T),
                                 cudaMemcpyDeviceToDevice, stream);
   }
+  T* bufs[3] = {scratch, scratch + S, scratch + 2 * S};
   const dim3 block(THREADS);
   const dim3 grid_g((rows + BM - 1) / BM, (gc + BN - 1) / BN);
   const dim3 grid_l((rows + BM - 1) / BM, (nf + BN - 1) / BN);
 
   const T* cur = x;
-  const T* rres = x;
+  if (states != nullptr) {
+    const cudaError_t e = cudaMemcpyAsync(
+        states, x, S * sizeof(T), cudaMemcpyDeviceToDevice, stream);
+    if (e != cudaSuccess) return (int)e;
+    cur = states;
+  }
+  const T* rres = cur;
   const T* wc = wconv;
   for (int j = 0; j < J; ++j) {
     if (j % per == 0) rres = cur;
+    T* growth = states != nullptr ? growths + j * G : scratch + 3 * S;
     for (int k = 0; k < K; ++k) {
       const int cin = nf + gc * k;
       trunk_conv<T, 27, kGrowth><<<grid_g, block, 0, stream>>>(
@@ -237,7 +151,9 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
       wc += (size_t)27 * cin * gc;
     }
     T* nxt = out;
-    if (j < J - 1) {
+    if (j < J - 1 && states != nullptr) {
+      nxt = states + (j + 1) * S;
+    } else if (j < J - 1) {
       for (T* b : bufs) {
         if (b != cur && b != rres) {
           nxt = b;
@@ -261,13 +177,15 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
 #define WINDSR_TRUNK_ENTRY(NAME, T)                                          \
   extern "C" int NAME(const void* x, void* out, const void* wconv,           \
                       const void* wlff, const void* blff, void* scratch,     \
-                      int N, int X, int Y, int Z, int nf, int gc,            \
+                      void* states, void* growths, int N, int X, int Y,      \
+                      int Z, int nf, int gc,                                 \
                       int num_convs, int J, int per, float rdb_scale,        \
                       float rrdb_scale, float slope, void* stream) {          \
     return trunk_forward<T>(                                                 \
         static_cast<const T*>(x), static_cast<T*>(out),                      \
         static_cast<const T*>(wconv), static_cast<const T*>(wlff),           \
-        static_cast<const T*>(blff), static_cast<T*>(scratch), N, X, Y, Z,   \
+        static_cast<const T*>(blff), static_cast<T*>(scratch),               \
+        static_cast<T*>(states), static_cast<T*>(growths), N, X, Y, Z,       \
         nf, gc, num_convs, J, per, rdb_scale, rrdb_scale, slope,             \
         static_cast<cudaStream_t>(stream));                                  \
   }

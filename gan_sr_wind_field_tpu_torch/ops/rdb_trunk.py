@@ -1,17 +1,28 @@
-"""The RRDB trunk forward: CUDA kernel wrapper, plain PyTorch version and
-weight packing.
+"""The RRDB trunk, forward and backward-dx: CUDA kernel wrappers, plain
+PyTorch versions and weight packing.
 
-Counterpart of ``fused_rrdb_trunk`` / ``trunk_fusable`` in
-``gan_sr_wind_field_tpu/ops/pallas/rdb_trunk.py``. The kernel
-(``ops/kernels/csrc/rdb_trunk.cu``) runs the whole trunk, all J = 3·num_rrdb
-residual dense blocks, in one call. ``rrdb_trunk`` launches it for CUDA
-tensors and takes ``rrdb_trunk_reference`` only for CPU tensors.
+Counterpart of ``fused_rrdb_trunk``, ``fused_rrdb_trunk_bwd`` and
+``trunk_fusable`` in ``gan_sr_wind_field_tpu/ops/pallas/rdb_trunk.py``. The
+forward kernel (``ops/kernels/csrc/rdb_trunk.cu``) runs the whole trunk, all
+J = 3·num_rrdb residual dense blocks, in one call, optionally saving each
+RDB's input state and growths; the backward kernel
+(``ops/kernels/csrc/rdb_trunk_bwd.cu``) runs back over the RDBs from those
+growths. ``rrdb_trunk`` and ``rrdb_trunk_bwd`` launch them for CUDA tensors
+and take ``rrdb_trunk_reference`` / ``rrdb_trunk_bwd_reference`` only for
+CPU tensors.
 
 Packed weights (``pack_trunk_weights``), all in the storage dtype:
   conv : flat; per RDB j, per growth conv k, the (3, 3, 3, nf + gc·k, gc)
          kernel with taps x-major (the flax DHWIO layout)
   lff  : (J, nf + gc·K, nf) LFF weights, K = num_convs - 1
   bias : (J, nf)            LFF bias
+Transposed weights for the backward (``pack_trunk_weights_bwd``):
+  conv : flat; per RDB j, per growth conv k, the (27, gc, nf + gc·k) kernel
+         with the taps flipped and in/out swapped
+  lff  : (J, nf, nf + gc·K)
+
+Residual streams are J-major: states (J, N, R, nf) and growths, dU
+(J, N, R, gc·K), dLFF (J, N, R, nf), R = X·Y·Zl rows, as in the JAX kernels.
 """
 
 from __future__ import annotations
@@ -21,9 +32,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-# kernel launches through `rrdb_trunk` (one per trunk forward); chip runs
-# reset it and read it to show the main path went through the kernel
+# kernel launches through `rrdb_trunk` (one per trunk forward, either mode)
+# and `rrdb_trunk_bwd`; chip runs reset them and read them to show the main
+# path went through the kernels
 launches = 0
+bwd_launches = 0
 
 _STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -34,19 +47,26 @@ def trunk_fusable(num_convs: int, lff_kern_size: int, conv_mode: str) -> bool:
     return conv_mode == "3D" and lff_kern_size == 1 and num_convs >= 2
 
 
-def pack_trunk_weights(rrdbs, dtype: torch.dtype, device=None) -> dict:
+def pack_trunk_weights(rrdbs, dtype: torch.dtype, device=None,
+                       detach: bool = True) -> dict:
     """Stack the trunk parameters of ``Generator3D.rrdbs`` (a sequence of
-    ``RRDB`` modules) into the kernel's layout."""
+    ``RRDB`` modules) into the kernel's layout. With ``detach=False`` the
+    packing is differentiable, so gradients in the packed layout flow back
+    to the modules' parameters."""
     conv, lff, bias = [], [], []
+
+    def take(p):
+        return p.detach() if detach else p
+
     for rrdb in rrdbs:
         for rdb in rrdb.rdbs:
             for blk in rdb.convs:
                 # (gc, cin, kx, ky, kz) -> (kx, ky, kz, cin, gc)
-                conv.append(blk.weight.detach().permute(2, 3, 4, 1, 0)
+                conv.append(take(blk.weight).permute(2, 3, 4, 1, 0)
                             .reshape(-1))
-            w = rdb.lff.weight.detach()
+            w = take(rdb.lff.weight)
             lff.append(w.reshape(w.shape[0], w.shape[1]).t())
-            bias.append(rdb.lff.bias.detach())
+            bias.append(take(rdb.lff.bias))
 
     def put(t):
         return t.to(device=device, dtype=dtype).contiguous()
@@ -105,11 +125,12 @@ def _conv_kernels(conv, J: int, nf: int, gc: int, K: int):
 
 def rrdb_trunk_reference(packed, x, *, gc: int, num_convs: int,
                          rdb_scale: float = 0.2, rrdb_scale: float = 0.2,
-                         rdbs_per_rrdb: int = 3,
-                         negative_slope: float = 0.2) -> torch.Tensor:
+                         rdbs_per_rrdb: int = 3, negative_slope: float = 0.2,
+                         with_residuals: bool = False):
     """Plain PyTorch trunk with the kernel's rounding points: convolutions
     in float32, LeakyReLU in float32 then rounded to x's dtype, the LFF
-    rounded before the scaled residual adds, which run in x's dtype."""
+    rounded before the scaled residual adds, which run in x's dtype.
+    With ``with_residuals`` it returns ``(out, states, growths)``."""
     J, nf, K = _check(packed, x, gc, num_convs, rdbs_per_rrdb)
     dt = x.dtype
     s1 = torch.tensor(rdb_scale, dtype=dt, device=x.device)
@@ -117,6 +138,7 @@ def rrdb_trunk_reference(packed, x, *, gc: int, num_convs: int,
     kernels = _conv_kernels(packed["conv"], J, nf, gc, K)
     state = x.permute(0, 4, 1, 2, 3)  # NCDHW view
     rres = state
+    states, growths = [], []
     for j in range(J):
         if j % rdbs_per_rrdb == 0:
             rres = state
@@ -125,58 +147,243 @@ def rrdb_trunk_reference(packed, x, *, gc: int, num_convs: int,
             y = F.leaky_relu(F.conv3d(feats, w.float(), padding=1),
                              negative_slope)
             feats = torch.cat([feats, y.to(dt).float()], dim=1)
+        if with_residuals:
+            states.append(state)
+            growths.append(feats[:, nf:].to(dt))
         w_lff = packed["lff"][j].t().float()[:, :, None, None, None]
         lff = F.conv3d(feats, w_lff, bias=packed["bias"][j].float())
         new = state + lff.to(dt) * s1
         if j % rdbs_per_rrdb == rdbs_per_rrdb - 1:
             new = rres + new * s2
         state = new
-    return state.permute(0, 2, 3, 4, 1).contiguous()
+    out = state.permute(0, 2, 3, 4, 1).contiguous()
+    if not with_residuals:
+        return out
+
+    def stream(ts):  # per-RDB NCDHW -> J-major (J, N, R, C)
+        t = torch.stack(ts).permute(0, 1, 3, 4, 5, 2)
+        return t.reshape(J, x.shape[0], -1, t.shape[-1]).contiguous()
+
+    return out, stream(states), stream(growths)
+
+
+def _ctypes_fn(lib: str, name: str, n_ptr: int, n_int: int):
+    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
+
+    fn = getattr(load_library(lib), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+def _check_cuda(x, tensors, what: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for device {x.device}")
+    if x.dtype not in _STORAGE:
+        raise ValueError(f"{what} kernel stores float32 or bfloat16, "
+                         f"not {x.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel needs contiguous inputs")
+    rows = x.numel() // x.shape[-1]
+    if rows >= 2 ** 31:
+        raise ValueError(f"{rows} rows overflow the kernel's 32-bit row index")
+    return rows
 
 
 def rrdb_trunk(packed, x, *, gc: int, num_convs: int, rdb_scale: float = 0.2,
                rrdb_scale: float = 0.2, rdbs_per_rrdb: int = 3,
-               negative_slope: float = 0.2) -> torch.Tensor:
+               negative_slope: float = 0.2, with_residuals: bool = False):
     """The trunk on ``x`` (N, X, Y, Zl, nf): the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor. Returns a new tensor of
-    x's shape and dtype (float32 or bfloat16)."""
+    x's shape and dtype (float32 or bfloat16); with ``with_residuals``,
+    ``(out, states, growths)`` for the backward."""
     global launches
     kw = dict(gc=gc, num_convs=num_convs, rdb_scale=rdb_scale,
               rrdb_scale=rrdb_scale, rdbs_per_rrdb=rdbs_per_rrdb,
-              negative_slope=negative_slope)
+              negative_slope=negative_slope, with_residuals=with_residuals)
     if x.device.type == "cpu":
         return rrdb_trunk_reference(packed, x, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"no trunk kernel for device {x.device}")
     J, nf, K = _check(packed, x, gc, num_convs, rdbs_per_rrdb)
-    if x.dtype not in _STORAGE:
-        raise ValueError(f"trunk kernel stores float32 or bfloat16, "
-                         f"not {x.dtype}")
-    tensors = (x, packed["conv"], packed["lff"], packed["bias"])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("trunk kernel needs contiguous x and packed weights")
+    rows = _check_cuda(x, (x, packed["conv"], packed["lff"], packed["bias"]),
+                       "trunk")
     N, X, Y, Z, _ = x.shape
-    rows = N * X * Y * Z
-    if rows >= 2 ** 31:
-        raise ValueError(f"{rows} rows overflow the kernel's 32-bit row index")
-
-    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
-
-    fn = getattr(load_library("rdb_trunk"),
-                 f"windsr_rrdb_trunk_{_STORAGE[x.dtype]}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn = _ctypes_fn("rdb_trunk", f"windsr_rrdb_trunk_{_STORAGE[x.dtype]}",
+                    8, 9)
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
-        scratch = torch.empty(rows * (3 * nf + gc * K), dtype=x.dtype,
-                              device=x.device)
+        if with_residuals:
+            scratch = None
+            states = torch.empty(J, N, X * Y * Z, nf, dtype=x.dtype,
+                                 device=x.device)
+            growths = torch.empty(J, N, X * Y * Z, gc * K, dtype=x.dtype,
+                                  device=x.device)
+        else:
+            scratch = torch.empty(rows * (3 * nf + gc * K), dtype=x.dtype,
+                                  device=x.device)
+            states = growths = None
+        ptr = [None if t is None else t.data_ptr()
+               for t in (scratch, states, growths)]
         rc = fn(x.data_ptr(), out.data_ptr(), packed["conv"].data_ptr(),
-                packed["lff"].data_ptr(), packed["bias"].data_ptr(),
-                scratch.data_ptr(), N, X, Y, Z, nf, gc, num_convs, J,
-                rdbs_per_rrdb, rdb_scale, rrdb_scale, negative_slope,
+                packed["lff"].data_ptr(), packed["bias"].data_ptr(), *ptr,
+                N, X, Y, Z, nf, gc, num_convs, J, rdbs_per_rrdb, rdb_scale,
+                rrdb_scale, negative_slope,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"RRDB trunk kernel launch failed: CUDA error {rc}")
     launches += 1
-    return out
+    return (out, states, growths) if with_residuals else out
+
+
+# ------------------------------------------------------------- backward
+def pack_trunk_weights_bwd(packed, *, nf: int, gc: int,
+                           num_convs: int) -> dict:
+    """The backward kernel's transposed weights from a forward pack: per
+    growth conv the (27, gc, nf + gc·k) kernel with flipped taps (tap t of
+    the forward becomes tap 26 - t, its offset negated), and the LFF as
+    (J, nf, nf + gc·K)."""
+    K = num_convs - 1
+    J = packed["lff"].shape[0]
+    conv = []
+    for ws in _conv_kernels(packed["conv"], J, nf, gc, K):
+        for w in ws:  # (gc, cin, 3, 3, 3)
+            conv.append(w.flip(2, 3, 4).permute(2, 3, 4, 0, 1).reshape(-1))
+    return {"conv": torch.cat(conv).contiguous(),
+            "lff": packed["lff"].transpose(1, 2).contiguous()}
+
+
+def _check_bwd(packed_t, growths, d_out, gc: int, num_convs: int,
+               rdbs_per_rrdb: int, negative_slope: float):
+    if d_out.dim() != 5:
+        raise ValueError(f"d_out must be (N, X, Y, Zl, nf), got "
+                         f"{tuple(d_out.shape)}")
+    N, X, Y, Z, nf = d_out.shape
+    K = num_convs - 1
+    lff = packed_t["lff"]
+    J = lff.shape[0]
+    if K < 1 or J % rdbs_per_rrdb:
+        raise ValueError(f"need num_convs >= 2 and whole RRDBs, got "
+                         f"num_convs={num_convs}, J={J}")
+    if not negative_slope > 0:
+        raise ValueError("the trunk backward recovers the LeakyReLU sign "
+                         "from the stored growths: needs negative_slope > 0")
+    if tuple(lff.shape) != (J, nf, nf + gc * K):
+        raise ValueError(f"packed LFF {tuple(lff.shape)} does not match "
+                         f"nf={nf}, gc={gc}, num_convs={num_convs}")
+    n_conv = J * sum(27 * (nf + gc * k) * gc for k in range(K))
+    if packed_t["conv"].numel() != n_conv:
+        raise ValueError(f"packed conv has {packed_t['conv'].numel()} "
+                         f"weights, expected {n_conv}")
+    if tuple(growths.shape) != (J, N, X * Y * Z, gc * K):
+        raise ValueError(f"growths {tuple(growths.shape)} do not match "
+                         f"{(J, N, X * Y * Z, gc * K)}")
+    for name, t in (("conv", packed_t["conv"]), ("lff", lff),
+                    ("growths", growths)):
+        if t.dtype != d_out.dtype or t.device != d_out.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; d_out is "
+                             f"{d_out.dtype} on {d_out.device}")
+    return J, nf, K
+
+
+def rrdb_trunk_bwd_reference(packed_t, growths, d_out, *, gc: int,
+                             num_convs: int, rdb_scale: float = 0.2,
+                             rrdb_scale: float = 0.2, rdbs_per_rrdb: int = 3,
+                             negative_slope: float = 0.2):
+    """Plain PyTorch backward-dx with the kernel's rounding points: sums
+    in float32; d_r, d_lff, ds and dg in d_out's dtype; each conv's
+    contribution rounded before it is added. Returns (d_x, dU, dLFF)."""
+    J, nf, K = _check_bwd(packed_t, growths, d_out, gc, num_convs,
+                          rdbs_per_rrdb, negative_slope)
+    dt = d_out.dtype
+    N, X, Y, Z, _ = d_out.shape
+    per = rdbs_per_rrdb
+    s1 = torch.tensor(rdb_scale, dtype=dt, device=d_out.device)
+    s2 = torch.tensor(rrdb_scale, dtype=dt, device=d_out.device)
+    slope = torch.tensor(negative_slope, dtype=torch.float32).to(dt)
+    kernels, off = [], 0
+    for _ in range(J):
+        ws = []
+        for k in range(K):
+            cin = nf + gc * k
+            n = 27 * gc * cin
+            # (27, gc, cin) -> conv weight (cin, gc, 3, 3, 3)
+            ws.append(packed_t["conv"][off:off + n].view(3, 3, 3, gc, cin)
+                      .permute(4, 3, 0, 1, 2))
+            off += n
+        kernels.append(ws)
+
+    def ncdhw(t):  # (N, R, C) -> (N, C, X, Y, Z) view
+        return t.view(N, X, Y, Z, -1).permute(0, 4, 1, 2, 3)
+
+    ds = d_out.reshape(N, -1, nf)
+    pend = torch.zeros_like(ds)
+    dU = torch.empty_like(growths)
+    dLFF = torch.empty(J, N, X * Y * Z, nf, dtype=dt, device=d_out.device)
+    for j in range(J - 1, -1, -1):
+        d_r = ds
+        if j % per == per - 1:
+            pend = ds
+            d_r = ds * s2
+        d_lff = d_r * s1
+        dLFF[j] = d_lff
+        d_catl = d_lff.float() @ packed_t["lff"][j].float()
+        d_s = d_r + d_catl[..., :nf].to(dt)
+        dg = d_catl[..., nf:].to(dt)
+        for k in range(K - 1, -1, -1):
+            g_k = growths[j][..., k * gc:(k + 1) * gc].float()
+            lmask = torch.where(g_k >= 0, torch.ones_like(g_k),
+                                slope.float()).to(dt)
+            d_u = dg[..., k * gc:(k + 1) * gc] * lmask
+            dU[j][..., k * gc:(k + 1) * gc] = d_u
+            back = F.conv3d(ncdhw(d_u).float(), kernels[j][k].float(),
+                            padding=1)
+            back = back.permute(0, 2, 3, 4, 1).reshape(N, -1, nf + gc * k)
+            d_s = d_s + back[..., :nf].to(dt)
+            if k:
+                dg = torch.cat([dg[..., :gc * k] + back[..., nf:].to(dt),
+                                dg[..., gc * k:]], dim=-1)
+        if j % per == 0:
+            d_s = d_s + pend
+        ds = d_s
+    return ds.reshape(d_out.shape).contiguous(), dU, dLFF
+
+
+def rrdb_trunk_bwd(packed_t, growths, d_out, *, gc: int, num_convs: int,
+                   rdb_scale: float = 0.2, rrdb_scale: float = 0.2,
+                   rdbs_per_rrdb: int = 3, negative_slope: float = 0.2):
+    """Backward-dx of the trunk: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. ``packed_t`` from
+    ``pack_trunk_weights_bwd``, ``growths`` as the forward saved them,
+    ``d_out`` (N, X, Y, Zl, nf) the trunk output's cotangent. Returns
+    (d_x, dU, dLFF)."""
+    global bwd_launches
+    kw = dict(gc=gc, num_convs=num_convs, rdb_scale=rdb_scale,
+              rrdb_scale=rrdb_scale, rdbs_per_rrdb=rdbs_per_rrdb,
+              negative_slope=negative_slope)
+    if d_out.device.type == "cpu":
+        return rrdb_trunk_bwd_reference(packed_t, growths, d_out, **kw)
+    J, nf, K = _check_bwd(packed_t, growths, d_out, gc, num_convs,
+                          rdbs_per_rrdb, negative_slope)
+    rows = _check_cuda(d_out, (d_out, growths, packed_t["conv"],
+                               packed_t["lff"]), "trunk backward")
+    N, X, Y, Z, _ = d_out.shape
+    fn = _ctypes_fn("rdb_trunk_bwd",
+                    f"windsr_rrdb_trunk_bwd_{_STORAGE[d_out.dtype]}", 8, 9)
+    dev = d_out.device
+    with torch.cuda.device(dev):
+        d_x = torch.empty_like(d_out)
+        dU = torch.empty_like(growths)
+        dLFF = torch.empty(J, N, X * Y * Z, nf, dtype=d_out.dtype, device=dev)
+        scratch = torch.empty(rows * (nf + gc * K), dtype=d_out.dtype,
+                              device=dev)
+        rc = fn(growths.data_ptr(), d_out.data_ptr(),
+                packed_t["conv"].data_ptr(), packed_t["lff"].data_ptr(),
+                d_x.data_ptr(), dU.data_ptr(), dLFF.data_ptr(),
+                scratch.data_ptr(), N, X, Y, Z, nf, gc, num_convs, J,
+                rdbs_per_rrdb, rdb_scale, rrdb_scale, negative_slope,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"RRDB trunk backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    bwd_launches += 1
+    return d_x, dU, dLFF

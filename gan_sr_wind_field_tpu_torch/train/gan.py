@@ -1,0 +1,565 @@
+"""WindFieldGAN — the 3D ESRGAN trainer core, one training step at a time.
+
+Counterpart of ``gan_sr_wind_field_tpu/train/gan.py``:
+
+- the G/D alternation ``(it // d_g_train_period) % (ratio + 1) == 0``,
+  label ramps, annealed instance noise, the physics losses with their
+  global-max normalisation, Adam with the multistep schedule and the
+  skip-update-on-non-finite-loss guard of the G step;
+- relativistic-average BCE losses with the ``-0.1985`` D-loss bias when
+  the one-sided-smoothed labels are exactly 0.9; physics terms dropped
+  from the total on NaN/Inf; the signed-max z-gradient factor; instance
+  noise σ=2 for the G step's D forwards and σ=1 for the D step's;
+- an EMA of G with the warmup decay ``min(d, (1+n)/(10+n))`` over the
+  G-step count n.
+
+Parameters are held outside the modules: ``GANTrainState`` keeps plain
+dicts of float32 tensors (and the discriminator's running statistics), and
+the models run on them through ``torch.func.functional_call``. Unlike the
+JAX package, whose arrays are immutable, ``train_step`` and ``val_step``
+update the state's tensors in place and return the same state. Randomness
+(dropout masks, instance noise, noisy labels) comes from the state's
+``torch.Generator``; it differs from JAX's draws for the same seed.
+
+With ``use_fused_trunk`` (and a LeakyReLU slope > 0) the G step's trunk
+runs as the trunk kernel with residuals and the backward kernel
+(``models/fused_train.py``), and the D step's G forward as the trunk
+kernel. The port has no rematerialisation: ``use_remat`` is read but
+changes nothing here. With ``use_pallas_stencil`` the physics gradients run as the
+stencil kernel and its adjoint (``ops/stencil.py``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from gan_sr_wind_field_tpu_torch.device import resolve_device
+from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
+from gan_sr_wind_field_tpu_torch.models.generator import (
+    _act_slope,
+    build_generator,
+)
+from gan_sr_wind_field_tpu_torch.ops.metrics import psnr
+from gan_sr_wind_field_tpu_torch.ops.physics import (
+    divergence_3d,
+    divergence_xy,
+    gradient_norm_factors,
+    wind_field_gradient,
+)
+from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import trunk_fusable
+from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
+from gan_sr_wind_field_tpu_torch.ops.stencil import WindFieldGradient
+from gan_sr_wind_field_tpu_torch.train import tricks
+from gan_sr_wind_field_tpu_torch.train.schedule import (
+    label_values,
+    multistep_lr,
+)
+from gan_sr_wind_field_tpu_torch.utils.jax_params import (
+    d_params_from_jax,
+    params_from_jax,
+)
+
+Params = Dict[str, torch.Tensor]
+
+_NOT_PORTED = "is not ported yet (see ROADMAP.md)"
+_LOSS_KEYS = ("total", "adversarial", "pix", "xy_gradient", "z_gradient",
+              "divergence", "xy_divergence", "feature_D")
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor):
+    """Mean binary cross-entropy on logits (torch BCEWithLogitsLoss)."""
+    return torch.mean(torch.clamp_min(logits, 0.0) - logits * targets
+                      + torch.log1p(torch.exp(-logits.abs())))
+
+
+@dataclass
+class AdamState:
+    """optax ``scale_by_adam`` state: the step count and both moments."""
+    count: int
+    mu: Params
+    nu: Params
+
+
+@dataclass
+class GANTrainState:
+    params_G: Params
+    params_D: Params
+    batch_stats_D: Params
+    params_D_frozen: Params  # frozen feature extractor ({} if unused)
+    opt_state_G: AdamState
+    opt_state_D: AdamState
+    it: int  # completed iterations
+    rng: torch.Generator
+    params_G_ema: Optional[Params] = None
+
+
+def _clone(params: Params) -> Params:
+    return {k: v.detach().clone() for k, v in params.items()}
+
+
+def _adam_init(params: Params) -> AdamState:
+    return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+                     {k: torch.zeros_like(v) for k, v in params.items()})
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+class WindFieldGAN:
+    """Builds the models from a Config and runs the training steps.
+
+        gan = WindFieldGAN(cfg, x, y)                # on the card
+        state = gan.init_state(seed, lr_shape, hr_shape)
+        state, metrics = gan.train_step(state, lr, hr, z)
+        metrics, batch_stats = gan.val_step(state, lr, hr, z)
+        sr = gan.generate(state, lr, z)
+
+    ``x`` and ``y`` are the HR grid's coordinate vectors; lr, hr and z are
+    channels-last (N, X, Y, Zl, C) tensors or arrays.
+    """
+
+    def __init__(self, cfg, x, y, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(f"training on a mesh {_NOT_PORTED}")
+        t = cfg.training
+        g = cfg.gan_config
+        if g.conv_mode != "3D":
+            raise NotImplementedError(f"conv_mode={g.conv_mode!r} "
+                                      f"{_NOT_PORTED}")
+        if getattr(t, "optimizer_state_dtype", "float32") == "bfloat16_sr":
+            raise NotImplementedError(
+                f"optimizer_state_dtype='bfloat16_sr' {_NOT_PORTED}")
+        if getattr(cfg, "use_pallas_head", False):
+            raise NotImplementedError(f"use_pallas_head (the HR-head "
+                                      f"kernel) {_NOT_PORTED}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        self.G = build_generator(cfg).to(self.device)
+        # D is built by init_state / state_from_jax, which know the HR shape
+        self.D = None
+        self.x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        self.y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
+        self.niter = float(t.niter)
+
+        self.gan_type = t.gan_type
+        self.d_g_train_ratio = t.d_g_train_ratio
+        self.d_g_train_period = t.d_g_train_period
+        self.pixel_criterion = (t.pixel_criterion or "none").lower()
+        self.use_instance_noise = t.use_instance_noise
+        self.use_noisy_labels = t.use_noisy_labels
+        self.use_one_sided_label_smoothing = t.use_one_sided_label_smoothing
+        self.flip_labels = t.flip_labels
+        self.use_feature_D = g.use_D_feature_extractor_cost
+        self.feature_D_update_period = t.feature_D_update_period
+        self.w_adv = t.adversarial_loss_weight
+        self.w_feat = t.feature_D_loss_weight
+        self.default_weights = {
+            "pix": t.pixel_loss_weight, "gxy": t.gradient_xy_loss_weight,
+            "gz": t.gradient_z_loss_weight, "div": t.divergence_loss_weight,
+            "xydiv": t.xy_divergence_loss_weight,
+        }
+        self.use_adv = (self.w_adv != 0.0) or (t.d_g_train_ratio > 0)
+
+        # the trunk kernels need a slope > 0 (the backward reads the sign
+        # from the growths) and a geometry the kernels cover
+        G = self.G
+        self.use_fused_trunk = (
+            getattr(cfg, "use_fused_trunk", False)
+            and G.negative_slope > 0
+            and trunk_fusable(G.num_rdb_convs, G.lff_kern_size, g.conv_mode)
+        )
+        self._trunk = "kernel" if self.use_fused_trunk else "modules"
+        self._wind_gradient = (
+            WindFieldGradient.apply
+            if getattr(cfg, "use_pallas_stencil", False)
+            else wind_field_gradient
+        )
+
+        if self.gan_type not in ("relativistic", "relativisticavg"):
+            raise NotImplementedError(
+                f"Only relativistic and relativisticavg GAN are implemented, "
+                f"not {self.gan_type}")
+        if self.pixel_criterion not in ("l1", "l2", "none"):
+            raise NotImplementedError(
+                f"Only l1 and l2 pixel losses are implemented, "
+                f"not {self.pixel_criterion}")
+
+        self.clip_norm = (cfg.generator.max_norm
+                          if getattr(t, "use_grad_clipping", False) else None)
+        self.ema_decay = float(getattr(t, "g_ema_decay", 0.0))
+        self.opt_G = (t.adam_beta1_g, t.adam_weight_decay_g)
+        self.opt_D = (t.adam_beta1_d, t.adam_weight_decay_d)
+        if t.multistep_lr and t.multistep_lr_steps:
+            self.lr_G = multistep_lr(t.learning_rate_g, t.multistep_lr_steps,
+                                     t.lr_gamma, t.d_g_train_period)
+            self.lr_D = multistep_lr(t.learning_rate_d, t.multistep_lr_steps,
+                                     t.lr_gamma, t.d_g_train_period)
+        else:
+            self.lr_G = lambda it: float(np.float32(t.learning_rate_g))
+            self.lr_D = lambda it: float(np.float32(t.learning_rate_d))
+
+    # ------------------------------------------------------------ state
+    def _build_D(self, hr_shape, seed: int = 0) -> Discriminator3D:
+        cfg, d = self.cfg, self.cfg.discriminator
+        return Discriminator3D(
+            in_channels=d.in_num_ch, base_features=d.num_features,
+            feat_kern_size=d.feat_kern_size, norm=d.norm_type,
+            number_of_z_layers=cfg.gan_config.number_of_z_layers,
+            enable_slicing=cfg.gan_config.enable_slicing,
+            dropout_probability=d.dropout_probability,
+            init_scale=d.weight_init_scale, dtype=self.dtype,
+            conv_mode=cfg.gan_config.conv_mode,
+            negative_slope=_act_slope(d.act_type),
+            spatial=tuple(hr_shape[1:3]),
+            generator=torch.Generator().manual_seed(seed),
+        ).to(self.device)
+
+    def _new_state(self, params_G: Params, D: Discriminator3D, it: int,
+                   seed: int, params_G_ema: Optional[Params] = None
+                   ) -> GANTrainState:
+        self.D = D
+        params_D = _clone(dict(D.named_parameters()))
+        return GANTrainState(
+            params_G=params_G,
+            params_D=params_D,
+            batch_stats_D=_clone(dict(D.named_buffers())),
+            params_D_frozen=_clone(params_D) if self.use_feature_D else {},
+            opt_state_G=_adam_init(params_G),
+            opt_state_D=_adam_init(params_D),
+            it=it,
+            rng=torch.Generator(device=self.device).manual_seed(seed),
+            params_G_ema=(params_G_ema if params_G_ema is not None
+                          else _clone(params_G) if self.ema_decay > 0.0
+                          else None),
+        )
+
+    def init_state(self, seed: int, lr_shape, hr_shape) -> GANTrainState:
+        """Fresh parameters and optimizer state, drawn from ``seed``; the
+        shapes are (N, x, y, z, C) of an LR and an HR batch."""
+        G = build_generator(self.cfg, seed).to(self.device)
+        return self._new_state(_clone(dict(G.named_parameters())),
+                               self._build_D(hr_shape, seed + 1), 0, seed + 2)
+
+    def state_from_jax(self, jax_state, hr_shape, seed: int = 0
+                       ) -> GANTrainState:
+        """A state from the JAX package's ``GANTrainState``: G and D
+        parameters, D's batch statistics, the EMA and the frozen feature
+        extractor where present, and ``it``. The Adam moments start at
+        zero."""
+        def to_dev(sd):
+            return {k: v.to(self.device) for k, v in sd.items()}
+
+        D = self._build_D(hr_shape)
+        D.load_state_dict(d_params_from_jax(jax_state.params_D,
+                                            jax_state.batch_stats_D))
+        ema = getattr(jax_state, "params_G_ema", None)
+        state = self._new_state(
+            to_dev(params_from_jax(jax_state.params_G)), D,
+            int(np.asarray(jax_state.it)), seed,
+            None if ema is None else to_dev(params_from_jax(ema)))
+        if self.use_feature_D and jax_state.params_D_frozen:
+            state.params_D_frozen = to_dev(d_params_from_jax(
+                jax_state.params_D_frozen))
+        return state
+
+    # ----------------------------------------------------------- models
+    def _as_input(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+    def _g_apply(self, params: Params, lr, z, **kw) -> torch.Tensor:
+        return functional_call(self.G, params, (lr, z), kw)
+
+    def _d_apply(self, params: Params, stats: Params, x, **kw):
+        return functional_call(self.D, {**params, **stats}, (x,), kw)
+
+    def _g_forward_nograd(self, params_G: Params, lr, z) -> torch.Tensor:
+        """Eval-mode G forward, no gradient: the trunk kernel if enabled."""
+        with torch.no_grad():
+            return self._g_apply(params_G, lr, z, trunk=self._trunk)
+
+    def _g_forward_train(self, params_G: Params, lr, z, train: bool,
+                         gen: torch.Generator, dropout_mask=None):
+        return self._g_apply(
+            params_G, lr, z, train=train, trunk=self._trunk,
+            dropout_mask=dropout_mask, generator=gen)
+
+    def generate(self, state: GANTrainState, lr, z) -> torch.Tensor:
+        """SR of an LR batch with the state's G: float32 (N, X, Y, Zl, 3)."""
+        return self._g_forward_nograd(state.params_G, self._as_input(lr),
+                                      self._as_input(z))
+
+    # ----------------------------------------------------------- losses
+    def _make_labels(self, it: int, batch: int, gen: torch.Generator):
+        real, fake, pred_real, pred_fake = label_values(
+            it, self.niter, self.use_one_sided_label_smoothing,
+            self.flip_labels)
+        std = 0.05 if self.use_noisy_labels else 0.0
+        kw = dict(noise_stddev=std, true_label_val=real,
+                  false_label_val=fake, device=self.device, generator=gen)
+        return (tricks.noisy_labels(pred_real, batch, **kw),
+                tricks.noisy_labels(pred_fake, batch, **kw))
+
+    def _noisy_d_input(self, x, sigma: float, it: int, gen):
+        if not self.use_instance_noise:
+            return x
+        return x + tricks.instance_noise(sigma, x.shape, it, self.niter,
+                                         device=self.device, generator=gen)
+
+    def _g_losses(self, params_G: Params, state: GANTrainState, lr, hr, z,
+                  it: int, gen: torch.Generator, train: bool,
+                  w: Optional[dict] = None, dropout_mask=None):
+        """Weighted G losses: (total, (losses dict, fake HR))."""
+        w = w or self.default_weights
+        fake = self._g_forward_train(params_G, lr, z, train, gen,
+                                     dropout_mask)
+        hr3 = hr[..., :3]
+        zero = torch.zeros((), device=self.device)
+        losses = {k: zero for k in _LOSS_KEYS}
+
+        if self.use_adv:
+            hr_labels, fake_labels = self._make_labels(it, hr.shape[0], gen)
+            # D eval-mode forwards with σ=2 instance noise
+            real_in = self._noisy_d_input(hr3, 2.0, it, gen)
+            fake_in = self._noisy_d_input(fake, 2.0, it, gen)
+            with torch.no_grad():
+                y_pred = self._d_apply(state.params_D, state.batch_stats_D,
+                                       real_in, train=False)
+            fake_y_pred = self._d_apply(state.params_D, state.batch_stats_D,
+                                        fake_in, train=False)
+            if self.gan_type == "relativistic":
+                adv = bce_with_logits(fake_y_pred - y_pred, hr_labels)
+            else:
+                adv = (bce_with_logits(fake_y_pred - y_pred.mean(), hr_labels)
+                       + bce_with_logits(y_pred - fake_y_pred.mean(),
+                                         fake_labels)) / 2.0
+            losses["adversarial"] = adv * self.w_adv
+
+        if self.use_feature_D:
+            frozen = (state.params_D_frozen, state.batch_stats_D)
+            with torch.no_grad():
+                feats_hr = self._d_apply(*frozen, hr3, train=False,
+                                         features_only=True)
+            feats_fake = self._d_apply(*frozen, fake, train=False,
+                                       features_only=True)
+            losses["feature_D"] = (((feats_hr - feats_fake) ** 2).mean()
+                                   * self.w_feat)
+
+        if self.pixel_criterion == "l1":
+            losses["pix"] = (hr3 - fake).abs().mean() * w["pix"]
+        elif self.pixel_criterion == "l2":
+            losses["pix"] = ((hr3 - fake) ** 2).mean() * w["pix"]
+
+        hr_grad = self._wind_gradient(hr3, self.x, self.y, z)
+        sr_grad = self._wind_gradient(fake, self.x, self.y, z)
+        f_xy, f_z, f_div, f_xydiv = gradient_norm_factors(hr_grad, sr_grad)
+        losses["xy_gradient"] = ((sr_grad[..., :6] / f_xy
+                                  - hr_grad[..., :6] / f_xy) ** 2
+                                 ).mean() * w["gxy"]
+        losses["z_gradient"] = ((sr_grad[..., 6:] / f_z
+                                 - hr_grad[..., 6:] / f_z) ** 2
+                                ).mean() * w["gz"]
+        losses["divergence"] = ((divergence_3d(hr_grad) / f_div
+                                 - divergence_3d(sr_grad) / f_div) ** 2
+                                ).mean() * w["div"]
+        losses["xy_divergence"] = ((divergence_xy(hr_grad) / f_xydiv
+                                    - divergence_xy(sr_grad) / f_xydiv) ** 2
+                                   ).mean() * w["xydiv"]
+        physics = (losses["xy_gradient"] + losses["z_gradient"]
+                   + losses["divergence"] + losses["xy_divergence"])
+        # NaN/Inf guard: physics terms leave the total
+        total = (losses["adversarial"] + losses["pix"] + losses["feature_D"]
+                 + torch.where(torch.isfinite(physics), physics, zero))
+        losses["total"] = total
+        return total, (losses, fake)
+
+    def _d_loss(self, params_D: Params, stats: Params, hr3, fake, it: int,
+                gen: torch.Generator, update_stats: bool):
+        """D loss on train-mode forwards (σ=1 instance noise, batch
+        statistics, dropout); with ``update_stats`` the running statistics
+        in ``stats`` move, real batch first. Returns (loss, y_pred,
+        fake_y_pred)."""
+        hr_labels, fake_labels = self._make_labels(it, hr3.shape[0], gen)
+        real_in = self._noisy_d_input(hr3, 1.0, it, gen)
+        fake_in = self._noisy_d_input(fake.detach(), 1.0, it, gen)
+        kw = dict(train=True, update_stats=update_stats, generator=gen)
+        y_pred = self._d_apply(params_D, stats, real_in, **kw)
+        fake_y_pred = self._d_apply(params_D, stats, fake_in, **kw)
+        if self.gan_type == "relativistic":
+            loss = bce_with_logits(y_pred - fake_y_pred, hr_labels)
+        else:
+            loss = (bce_with_logits(y_pred - fake_y_pred.mean(), hr_labels)
+                    + bce_with_logits(fake_y_pred - y_pred.mean(),
+                                      fake_labels)) / 2.0
+            # bias when the one-sided-smoothed labels are exactly 0.9
+            loss = torch.where(torch.all(hr_labels == 0.9), loss - 0.1985,
+                               loss)
+        return loss, y_pred, fake_y_pred
+
+    # -------------------------------------------------------- optimizer
+    def _adam_step(self, params: Params, grads, opt: AdamState, lr_t: float,
+                   beta1: float, wd: float):
+        """optax chain (clip_by_global_norm, add_decayed_weights,
+        scale_by_adam(b2=0.999, eps=1e-8), scale(-1)), then p += u · lr,
+        in place. Returns the pre-clip global gradient norm."""
+        norm = _global_norm(grads)
+        if self.clip_norm is not None:
+            grads = [torch.where(norm < self.clip_norm, g,
+                                 g / norm * self.clip_norm) for g in grads]
+        if wd:
+            grads = [g + wd * p for g, p in zip(grads, params.values())]
+        opt.count += 1
+        f32 = torch.float32
+        bc1 = 1.0 - torch.tensor(beta1, dtype=f32) ** opt.count
+        bc2 = 1.0 - torch.tensor(0.999, dtype=f32) ** opt.count
+        with torch.no_grad():
+            for (k, p), g in zip(params.items(), grads):
+                mu = opt.mu[k].mul_(beta1).add_((1 - beta1) * g)
+                nu = opt.nu[k].mul_(0.999).add_((1 - 0.999) * (g * g))
+                u = (mu / bc1.item()) / (torch.sqrt(nu / bc2.item()) + 1e-8)
+                p.add_(-u * lr_t)
+        return norm
+
+    def _grads(self, loss, params: Params):
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for g, p in zip(grads, params.values())]
+
+    # ----------------------------------------------------------- steps
+    def g_grads(self, state: GANTrainState, lr, hr, z, it: int,
+                generator: torch.Generator, weights=None, dropout_mask=None):
+        """The losses of a G step at iteration ``it`` and the gradients of
+        its total w.r.t. ``state.params_G`` (a list in the dict's order),
+        without the update: (total, losses, grads)."""
+        params = {k: v.detach().requires_grad_() for k, v in
+                  state.params_G.items()}
+        loss, (losses, _) = self._g_losses(params, state, lr, hr, z, it,
+                                           generator, True, weights,
+                                           dropout_mask)
+        grads = self._grads(loss, params)
+        return loss.detach(), {k: v.detach() for k, v in losses.items()}, \
+            grads
+
+    def _g_branch(self, state: GANTrainState, lr, hr, z, it: int, w):
+        loss, metrics, grads = self.g_grads(state, lr, hr, z, it, state.rng,
+                                            w)
+        if bool(torch.isfinite(loss)):
+            norm = self._adam_step(state.params_G, grads, state.opt_state_G,
+                                   self.lr_G(it), *self.opt_G)
+        else:  # skip the whole optimizer step, Adam's count included
+            norm = _global_norm(grads)
+        metrics["D_train_loss"] = torch.zeros((), device=self.device)
+        if self.clip_norm is not None:
+            metrics["G_grad_norm"] = norm
+        return metrics
+
+    def _d_branch(self, state: GANTrainState, lr, hr, z, it: int):
+        # G eval, no dropout, no gradient: the trunk kernel if enabled
+        fake = self._g_forward_nograd(state.params_G, lr, z)
+        params = {k: v.detach().requires_grad_() for k, v in
+                  state.params_D.items()}
+        loss_D, _, _ = self._d_loss(params, state.batch_stats_D,
+                                    hr[..., :3], fake, it, state.rng, True)
+        grads = self._grads(loss_D, params)
+        self._adam_step(state.params_D, grads, state.opt_state_D,
+                        self.lr_D(it), *self.opt_D)
+        zero = torch.zeros((), device=self.device)
+        metrics = {k: zero for k in _LOSS_KEYS}
+        metrics["D_train_loss"] = loss_D.detach()
+        if self.clip_norm is not None:
+            metrics["G_grad_norm"] = zero
+        return metrics
+
+    def _n_g_steps(self, it: int) -> int:
+        """G steps among iterations 1..it under the block alternation."""
+        if self.d_g_train_ratio == 0:
+            return it
+        r1 = self.d_g_train_ratio + 1
+        p = self.d_g_train_period
+        blk, pos = divmod(it, p)
+        return (blk + r1 - 1) // r1 * p + (pos + 1 if blk % r1 == 0 else 0) - 1
+
+    def is_g_step(self, it: int) -> bool:
+        """Whether iteration ``it`` (counted from 1) is a G step."""
+        if self.d_g_train_ratio == 0:
+            return True
+        return (it // self.d_g_train_period) % (self.d_g_train_ratio + 1) == 0
+
+    def train_step(self, state: GANTrainState, lr, hr, z,
+                   augment: bool = False, weights=None):
+        """One iteration, G or D by the alternation; updates ``state`` in
+        place and returns ``(state, metrics)``."""
+        if augment:
+            raise NotImplementedError(f"augment=True {_NOT_PORTED}")
+        lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
+        w = weights or self.default_weights
+        it = state.it + 1
+        if self.use_feature_D and it % self.feature_D_update_period == 0:
+            state.params_D_frozen = _clone(state.params_D)
+        g_step = self.is_g_step(it)
+        if g_step:
+            metrics = self._g_branch(state, lr, hr, z, it, w)
+        else:
+            metrics = self._d_branch(state, lr, hr, z, it)
+        # the EMA moves on G steps only (params_G is unchanged on D steps)
+        if g_step and self.ema_decay > 0.0 and state.params_G_ema is not None:
+            n = np.float32(max(self._n_g_steps(it), 1))
+            d_eff = min(np.float32(self.ema_decay),
+                        (np.float32(1.0) + n) / (np.float32(10.0) + n))
+            a = float(np.float32(1.0) - d_eff)
+            with torch.no_grad():
+                for k, e in state.params_G_ema.items():
+                    e.add_(a * (state.params_G[k] - e))
+        metrics["is_g_step"] = torch.tensor(float(g_step))
+        metrics["lr_G"] = torch.tensor(self.lr_G(it))
+        state.it = it
+        return state, metrics
+
+    def train_chunk(self, *args, **kwargs):
+        raise NotImplementedError(f"train_chunk {_NOT_PORTED}")
+
+    def val_step(self, state: GANTrainState, lr, hr, z,
+                 generator: Optional[torch.Generator] = None, weights=None):
+        """Validation losses and metrics. As the reference does, the D
+        forwards run in train mode and move D's running statistics; they
+        are written into ``state.batch_stats_D``, which is returned beside
+        the metrics."""
+        lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
+        gen = state.rng if generator is None else generator
+        w = weights or self.default_weights
+        it = state.it
+        hr3 = hr[..., :3]
+        with torch.no_grad():
+            _, (losses, fake) = self._g_losses(state.params_G, state, lr, hr,
+                                               z, it, gen, False, w)
+            metrics = {f"G_val_{k}": v for k, v in losses.items()}
+            zero = torch.zeros((), device=self.device)
+            if self.use_adv:
+                loss_D, y_pred, fake_y_pred = self._d_loss(
+                    state.params_D, state.batch_stats_D, hr3, fake, it, gen,
+                    update_stats=True)
+                metrics["D_val_loss"] = loss_D
+                metrics["D_pred_HR"] = torch.sigmoid(y_pred).mean()
+                metrics["D_pred_SR"] = torch.sigmoid(fake_y_pred).mean()
+            else:
+                metrics.update(D_val_loss=zero, D_pred_HR=zero,
+                               D_pred_SR=zero)
+            trilinear = upsample_trilinear_xy(lr[..., :3], self.cfg.scale)
+            metrics["val_PSNR"] = psnr(hr3, fake)
+            metrics["Trilinear_PSNR"] = psnr(hr3, trilinear)
+            if self.pixel_criterion == "l2":
+                metrics["trilinear_pix_loss"] = ((hr3 - trilinear) ** 2).mean()
+            else:
+                metrics["trilinear_pix_loss"] = (hr3 - trilinear).abs().mean()
+            metrics["pix_loss_unscaled"] = (
+                losses["pix"] / max(w["pix"], 1e-30) if w["pix"] != 0.0
+                else losses["pix"])
+        return metrics, state.batch_stats_D

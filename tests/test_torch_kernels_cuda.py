@@ -11,10 +11,15 @@ import pytest
 import torch
 
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
-from gan_sr_wind_field_tpu_torch.ops import rdb_trunk
+from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
+from gan_sr_wind_field_tpu_torch.ops import rdb_trunk, stencil
+from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
+    pack_trunk_weights_bwd,
     rrdb_trunk,
+    rrdb_trunk_bwd,
+    rrdb_trunk_bwd_reference,
     rrdb_trunk_reference,
 )
 
@@ -61,3 +66,144 @@ def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, dtype,
     err = (torch.linalg.vector_norm(inc - inc_ref)
            / torch.linalg.vector_norm(inc_ref)).item()
     assert err <= tol, err
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item()
+
+
+def _trunk_setup(nf, gc, num_convs, shape, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    rrdbs = [RRDB(nf, gc, num_convs=num_convs, init_scale=1.0,
+                  generator=gen) for _ in range(2)]
+    for r in rrdbs:
+        for rdb in r.rdbs:
+            rdb.lff.bias.data.normal_(0.0, 0.1, generator=gen)
+    x = torch.randn(*shape, nf, generator=gen).to(device)
+    d_out = torch.randn(*shape, nf, generator=gen).to(device)
+    return rrdbs, x, d_out
+
+
+TRUNK_GEOMS = [
+    (8, 4, 3, (2, 4, 3, 5)),
+    (40, 12, 5, (1, 5, 3, 7)),
+    (128, 32, 5, (2, 16, 16, 10)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("nf,gc,num_convs,shape", TRUNK_GEOMS)
+def test_residual_mode_matches_plain_version_on_card(
+        cuda_device, monkeypatch, dtype, tol, nf, gc, num_convs, shape):
+    """out, states and growths of the residual mode against
+    rrdb_trunk_reference(with_residuals=True) on the same inputs, in the
+    same dtype (the rounding points are the same; the sums' order is
+    not)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    rrdbs, x, _ = _trunk_setup(nf, gc, num_convs, shape, nf + gc + 1,
+                               cuda_device)
+    packed = pack_trunk_weights(rrdbs, dtype, cuda_device)
+    x = x.to(dtype)
+    before = rdb_trunk.launches
+    got = rrdb_trunk(packed, x, gc=gc, num_convs=num_convs,
+                     with_residuals=True)
+    torch.cuda.synchronize()
+    assert rdb_trunk.launches == before + 1
+    want = rrdb_trunk_reference(packed, x, gc=gc, num_convs=num_convs,
+                                with_residuals=True)
+    assert _rel(got[0].float() - x.float(), want[0].float() - x.float()) \
+        <= tol
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _rel(g.float(), w.float()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("nf,gc,num_convs,shape", TRUNK_GEOMS)
+def test_backward_kernel_matches_plain_version_on_card(
+        cuda_device, monkeypatch, dtype, tol, nf, gc, num_convs, shape):
+    """d_x, dU and dLFF of the backward kernel against
+    rrdb_trunk_bwd_reference on the same growths and cotangent."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rrdbs, x, d_out = _trunk_setup(nf, gc, num_convs, shape, nf + gc + 2,
+                                   cuda_device)
+    packed = pack_trunk_weights(rrdbs, dtype, cuda_device)
+    _, _, growths = rrdb_trunk_reference(
+        packed, x.to(dtype), gc=gc, num_convs=num_convs, with_residuals=True)
+    packed_t = pack_trunk_weights_bwd(packed, nf=nf, gc=gc,
+                                      num_convs=num_convs)
+    d_out = d_out.to(dtype)
+    before = rdb_trunk.bwd_launches
+    got = rrdb_trunk_bwd(packed_t, growths, d_out, gc=gc,
+                         num_convs=num_convs)
+    torch.cuda.synchronize()
+    assert rdb_trunk.bwd_launches == before + 1
+    want = rrdb_trunk_bwd_reference(packed_t, growths, d_out, gc=gc,
+                                    num_convs=num_convs)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _rel(g.float(), w.float()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 4, 3), (32, 64, 64, 10)])
+def test_stencil_kernels_match_plain_versions_on_card(cuda_device, shape):
+    """Gradient and adjoint against their plain versions (1e-5: the same
+    arithmetic, only fused multiply-adds differ), and the adjoint
+    identity <L u, g> = <u, L^T g> to 1e-5 relative."""
+    N, X, Y, Zl = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    uvw = torch.randn(N, X, Y, Zl, 3, generator=gen)
+    g9 = torch.randn(N, X, Y, Zl, 9, generator=gen)
+    x = torch.cumsum(torch.rand(X, generator=gen) + 0.5, 0)
+    y = torch.cumsum(torch.rand(Y, generator=gen) + 0.5, 0)
+    Z = torch.cumsum(torch.rand(N, X, Y, Zl, 1, generator=gen) + 0.05, 3)
+    uvw, g9, x, y, Z = (t.to(cuda_device) for t in (uvw, g9, x, y, Z))
+    b_f, b_a = stencil.launches, stencil.adjoint_launches
+    grad = stencil.wind_gradient(uvw, x, y, Z)
+    adj = stencil.wind_gradient_adjoint(g9, x, y, Z)
+    torch.cuda.synchronize()
+    assert (stencil.launches, stencil.adjoint_launches) == (b_f + 1, b_a + 1)
+    assert _rel(grad, wind_field_gradient(uvw, x, y, Z)) <= 1e-5
+    assert _rel(adj, stencil.wind_gradient_adjoint_reference(g9, x, y, Z)) \
+        <= 1e-5
+    lhs = (grad.double() * g9.double()).sum().item()
+    rhs = (uvw.double() * adj.double()).sum().item()
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf,gc,num_convs,shape", TRUNK_GEOMS[:2])
+def test_trainable_trunk_grads_match_autograd_on_card(
+        cuda_device, monkeypatch, nf, gc, num_convs, shape):
+    """TrainableTrunk (both trunk kernels and the cuDNN dW stage) against
+    torch.autograd through the plain trunk, float32, TF32 off: 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rrdbs, x, tgt = _trunk_setup(nf, gc, num_convs, shape, nf + gc + 3,
+                                 cuda_device)
+    geom = dict(gc=gc, num_convs=num_convs, rdb_scale=0.2, rrdb_scale=0.2,
+                negative_slope=0.2)
+    grads = []
+    for kernel in (True, False):
+        packed = {k: v.clone().requires_grad_() for k, v in
+                  pack_trunk_weights(rrdbs, torch.float32,
+                                     cuda_device).items()}
+        xv = x.clone().requires_grad_()
+        if kernel:
+            out = TrainableTrunk.apply(packed["conv"], packed["lff"],
+                                       packed["bias"], xv, geom)
+        else:
+            out = rrdb_trunk_reference(packed, xv, **geom)
+        (out * tgt).sum().backward()
+        grads.append([packed["conv"].grad, packed["lff"].grad,
+                      packed["bias"].grad, xv.grad])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4

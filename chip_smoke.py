@@ -19,29 +19,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the plain trunk, float32: its backward on the plain forward's
      residuals <= 1e-4, end to end <= 2e-3; the gradient stencil and its
      adjoint at the training shape (32, 64, 64, 10, 3) with a
-     terrain-following Z, <= 1e-5, and the adjoint identity to 1e-5;
+     terrain-following Z, <= 1e-5, and the adjoint identity to 1e-5; the
+     HR head (batch 2, HR 64x64x10, 128 + 16 channels -> 144, k = 5,
+     about 10 % of the channels dropped) float32 <= 1e-4, bf16 <= 1e-2,
+     and HRHead's four gradients against autograd, float32: its backward
+     on the plain output <= 1e-4, end to end <= 5e-3;
   4. serve configs/milestone9k.ini (seeded random weights, bf16) through
      WindFieldServer on 127.0.0.1: 4 single-sample and one 8-sample HTTP
      request plus 6 concurrent MicroBatcher.submit calls; every output
-     (64, 64, 10, 3) and finite, and the trunk kernel's launch count rose;
-     then one batch against the same model with the plain trunk, <= 3e-2;
+     (64, 64, 10, 3) and finite, the trunk kernel's launch count rose and
+     the head kernel's did not; then one batch against the same model
+     with the plain trunk, <= 3e-2; then a copy with
+     use_pallas_head_nograd serves one batch of 8 through the head kernel
+     (one launch), within 3e-2 of the module head;
   5. train configs/milestone9k.ini as it stands (seeded weights at the
      config's init scales, bf16, batch 32): one G step's gradients through
      the kernels against the same step with the RRDB modules and the plain
      stencil (<= 5e-2 relative L2), and, to split that gap, against the
-     same step with autograd through the trunk's plain version;
+     same step with autograd through the trunk's plain version, then
+     stage by stage on that step's trunk input and output cotangent
+     (residual mode, backward, dW stage, printed);
      then from it = 47 four train_steps (48, 49 G; 50, 51 D) and one
      val_step: finite losses and metrics, G and its EMA move on G steps
      only, D and its batch statistics on D steps only, and each kernel's
-     launch count rises by what one step predicts;
+     launch count rises by what one step predicts (no head launches);
+     then the same on a copy with use_pallas_head, after its G step's
+     gradients against the module head's (<= 2e-2);
   6. CUDA-event times (1 warm-up, 5 repeats): the serving forward at batch
      8 with each layer alone, the trunk kernel, its plain version and a
-     bf16 cuDNN chain; at batch 32 the G and D steps with their parts, and
-     each training kernel beside its plain version, its bound and, for
-     the trunk backward, a bf16 cuDNN/cuBLAS chain. Before they are timed,
-     the residual mode and the trunk backward are held against their bf16
-     plain versions at batch 32 on the trunk input of a training batch
-     (<= 3e-2), with the count of growths on the other side of 0.
+     bf16 cuDNN chain; at batch 32 the G and D steps with their parts
+     (the rest of the G step split into its layers, D, losses and Adam),
+     and each training kernel beside its plain version, its bound and a
+     bf16 cuDNN/cuBLAS chain (for the residual mode one that keeps its
+     states and growths). Before they are timed, the residual mode and
+     the trunk backward are held against their bf16 plain versions at
+     batch 32 on the trunk input of a training batch (<= 3e-2), with the
+     count of growths on the other side of 0. Then the head kernel at
+     batch 8 and 32 beside its plain version, bound and bf16 cuDNN, and
+     the head path's serving forward and G and D steps.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -63,9 +78,13 @@ H100_HBM_BYTES_S = 3.35e12
 TIMEOUT_S = 120.0
 CSRC = "gan_sr_wind_field_tpu_torch/ops/kernels/csrc"
 TPU = "gan_sr_wind_field_tpu/ops/pallas"
-# one step's launches of (trunk, trunk backward, gradient, adjoint)
-G_STEP_LAUNCHES = (1, 1, 2, 1)
-D_STEP_LAUNCHES = (1, 0, 0, 0)
+# one step's launches of (trunk, trunk backward, gradient, adjoint, head)
+# on milestone9k as committed (head flags off) and with use_pallas_head
+G_STEP_LAUNCHES = (1, 1, 2, 1, 0)
+D_STEP_LAUNCHES = (1, 0, 0, 0, 0)
+G_STEP_LAUNCHES_HEAD = (1, 1, 2, 1, 1)
+D_STEP_LAUNCHES_HEAD = (1, 0, 0, 0, 1)
+LAUNCH_LABELS = "trunk/bwd/gradient/adjoint/head"
 # limits set from measurements, reasons in PERF.md (section 6): the trainable
 # trunk end to end, float32 (5.5e-4 measured, from LeakyReLU sign flips of
 # pre-activations within rounding of 0), and one G step's bf16 gradients,
@@ -73,6 +92,11 @@ D_STEP_LAUNCHES = (1, 0, 0, 0)
 # the trunk's plain version, the rest the RRDB modules' own rounding)
 TRAINABLE_TOL = 2e-3
 G_GRAD_TOL = 5e-2
+# HRHead's gradients end to end, float32 (7.843e-4 measured, from 6 of
+# 11.8M head pre-activations within float32 rounding of 0 that take the
+# other LeakyReLU slope; its backward on the plain output is held at 1e-4);
+# reasons in PERF.md (section 6)
+HEAD_GRAD_TOL = 5e-3
 
 
 def log(msg=""):
@@ -113,22 +137,26 @@ def cuda_ms(fn, reps=5):
 
 
 def counters():
-    from gan_sr_wind_field_tpu_torch.ops import rdb_trunk, stencil
+    from gan_sr_wind_field_tpu_torch.ops import hr_head, rdb_trunk, stencil
 
     return (rdb_trunk.launches, rdb_trunk.bwd_launches, stencil.launches,
-            stencil.adjoint_launches)
+            stencil.adjoint_launches, hr_head.launches)
 
 
 def reset_counters():
-    from gan_sr_wind_field_tpu_torch.ops import rdb_trunk, stencil
+    from gan_sr_wind_field_tpu_torch.ops import hr_head, rdb_trunk, stencil
 
     rdb_trunk.launches = rdb_trunk.bwd_launches = 0
     stencil.launches = stencil.adjoint_launches = 0
+    hr_head.launches = 0
 
 
-def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2):
+def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2,
+                keep=False):
     """The same trunk as one cuDNN call per conv in bfloat16 (the library
-    yardstick for `library_ms`; the port never calls this)."""
+    yardstick for `library_ms`; the port never calls this). With ``keep``
+    it also keeps every RDB's input state and growths, as the residual
+    mode does, and returns (out, states, growths)."""
     import torch
     import torch.nn.functional as F
 
@@ -136,6 +164,8 @@ def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2):
     s2 = torch.tensor(rrdb_scale, dtype=x.dtype, device=x.device)
     state = x.permute(0, 4, 1, 2, 3)
     rres = state
+    states, growths = [], []
+    nf = x.shape[-1]
     for j, (convs, w_lff, b_lff) in enumerate(weights):
         if j % per == 0:
             rres = state
@@ -143,11 +173,15 @@ def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2):
         for w in convs:
             y = F.leaky_relu(F.conv3d(feats, w, padding=1), slope)
             feats = torch.cat([feats, y], dim=1)
+        if keep:
+            states.append(state)
+            growths.append(feats[:, nf:])
         new = state + F.conv3d(feats, w_lff, b_lff) * s1
         if j % per == per - 1:
             new = rres + new * s2
         state = new
-    return state.permute(0, 2, 3, 4, 1)
+    out = state.permute(0, 2, 3, 4, 1)
+    return (out, states, growths) if keep else out
 
 
 def cudnn_trunk_bwd(weights, growths, d_out, per=3, rdb_scale=0.2,
@@ -393,12 +427,281 @@ def check_stencil_kernels(dev):
     return err_g, err_a
 
 
+def head_inputs(dev, n, xy, zl, nf, tc, C, k, seed, weights=None):
+    """Head inputs at full width: x, t, a dropout scale with about 10 % of
+    the channels zeroed, and (unless given) weights at init scale 1.0."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    if weights is None:
+        weights = [torch.randn(C, c, k, k, k, generator=gen)
+                   * math.sqrt(2.0 / (c * k ** 3)) for c in (nf, tc)]
+    x = torch.randn(n, xy, xy, zl, nf, generator=gen)
+    t = torch.randn(n, xy, xy, zl, tc, generator=gen)
+    dm = torch.where(torch.rand(n, C, generator=gen) < 0.9, 1 / 0.9, 0.0)
+    return [w.to(dev) for w in weights] + [v.to(dev) for v in (x, t, dm)]
+
+
+def plain_head(wx, wt, x, t, dm, k, slope=0.2):
+    """Autograd's head: the two convs, LeakyReLU and the scale."""
+    import torch.nn.functional as F
+
+    hp = (k - 1) // 2
+    pre = (F.conv3d(x.permute(0, 4, 1, 2, 3), wx, padding=hp)
+           + F.conv3d(t.permute(0, 4, 1, 2, 3), wt, padding=hp))
+    return (F.leaky_relu(pre, slope).permute(0, 2, 3, 4, 1)
+            * dm[:, None, None, None, :])
+
+
+def check_head_kernel(dev, xy, zl, nf, tc, C, k):
+    """Phase 3, kernel 5: the HR-head kernel against its plain version at
+    full width, batch 2, float32 and bf16, and HRHead's four gradients
+    against autograd of the plain head. Returns the bf16 max abs error."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.ops.hr_head import (
+        hr_head,
+        hr_head_conv,
+        hr_head_conv_reference,
+        hr_head_vjp,
+        pack_head_weights,
+    )
+
+    wx, wt, x, t, dm = head_inputs(dev, 2, xy, zl, nf, tc, C, k, 2003)
+    log(f"HR head at {tuple(x.shape)} + {tuple(t.shape)} -> C={C}, k={k}, "
+        f"{(dm == 0).sum().item()} of {dm.numel()} channels dropped:")
+    max_abs = 0.0
+    for name, dt, tol in (("fp32", torch.float32, 1e-4),
+                          ("bf16", torch.bfloat16, 1e-2)):
+        packed = pack_head_weights(wx, wt, dt, dev)
+        args = (packed, x.to(dt), t.to(dt), dm.to(dt))
+        got = hr_head_conv(*args, k=k, negative_slope=0.2)
+        want = hr_head_conv_reference(*args, k=k, negative_slope=0.2)
+        check(f"{name} kernel vs {name} plain", rel_l2(got.float(),
+                                                      want.float()), tol)
+        if dt == torch.bfloat16:
+            max_abs = (got.float() - want.float()).abs().max().item()
+            log(f"  bf16 max abs {max_abs:.3e} of max |h| "
+                f"{want.float().abs().max().item():.3e}")
+        del got, want, args
+    cot = torch.randn(x.shape[:4] + (C,), generator=torch.Generator()
+                      .manual_seed(6)).to(dev)
+    grads = []
+    for kernel in (True, False):
+        leaves = [v.clone().requires_grad_() for v in (wx, wt, x, t)]
+        h = (hr_head(*leaves, dm, k=k, negative_slope=0.2) if kernel
+             else plain_head(*leaves, dm, k))
+        (h * cot).sum().backward()
+        grads.append([v.grad for v in leaves])
+        if kernel:
+            h_kernel = h.detach()
+    labels = ("dWx", "dWt", "dx", "dt")
+    with torch.no_grad():
+        # HRHead's backward on the plain forward's output: the same
+        # LeakyReLU sides as autograd's, so only the sums' order differs
+        h_plain = plain_head(wx, wt, x, t, dm, k)
+        vjp = hr_head_vjp(wx, wt, x, t, dm, h_plain, cot, k=k,
+                          negative_slope=0.2)
+        for label, g, w in zip(labels, vjp, grads[1]):
+            check(f"HRHead backward on the plain output, {label} (fp32)",
+                  rel_l2(g, w), 1e-4)
+        # end to end, a pre-activation within float32 rounding of 0 can
+        # take the other LeakyReLU slope in the kernel than in cuDNN
+        flips = ((h_kernel >= 0) != (h_plain >= 0)).sum().item()
+        log(f"  head outputs on the other side of 0, kernel vs plain "
+            f"forward: {flips} of {h_plain.numel()}")
+    for label, g, w in zip(labels, *grads):
+        check(f"HRHead end to end, {label} vs autograd (fp32)", rel_l2(g, w),
+              HEAD_GRAD_TOL)
+    return max_abs
+
+
+def drive_steps(gan, state, batch, g_want, d_want, card, label):
+    """From it = 47 four train_steps (48, 49 G; 50, 51 D) and one
+    val_step, with the counts set to 0 just before: finite losses and
+    metrics, G and its EMA move on G steps only, D and its batch
+    statistics on D steps only, and each kernel's launch count rises by
+    what one step predicts. Returns the counts after the val step."""
+    import torch
+
+    state.it = 47
+    reset_counters()
+    for _ in range(4):
+        lr, hr, z = batch()
+        it = state.it + 1
+        g_step = gan.is_g_step(it)
+        snap = {name: {k: v.clone() for k, v in tree.items()} for name, tree
+                in (("G", state.params_G), ("EMA", state.params_G_ema),
+                    ("D", state.params_D), ("BN", state.batch_stats_D))}
+        before = counters()
+        t = time.monotonic()
+        state, metrics = gan.train_step(state, lr, hr, z)
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t
+        rose = tuple(a - b for a, b in zip(counters(), before))
+        kind = "G" if g_step else "D"
+        vals = {k: float(v) for k, v in metrics.items()}
+        log(f"  it {it} ({kind} step, {secs:.2f} s): "
+            + ", ".join(f"{k} {v:.4e}" for k, v in sorted(vals.items()))
+            + f"; launches {LAUNCH_LABELS} {rose}")
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"non-finite metric at it {it}")
+        want = g_want if g_step else d_want
+        if rose != want:
+            fail(f"{kind} step launched {rose}, expected {want}")
+        for name, tree in (("G", state.params_G), ("EMA", state.params_G_ema),
+                           ("D", state.params_D), ("BN", state.batch_stats_D)):
+            moved = any(not torch.equal(v, snap[name][k])
+                        for k, v in tree.items())
+            should = g_step == (name in ("G", "EMA"))
+            if moved != should:
+                fail(f"{name} {'moved' if moved else 'stood still'} on the "
+                     f"{kind} step at it {it}")
+    lr, hr, z = batch()
+    metrics, _ = gan.val_step(state, lr, hr, z)
+    vals = {k: float(v) for k, v in metrics.items()}
+    log("  val: " + ", ".join(f"{k} {v:.4e}" for k, v in sorted(vals.items())))
+    if not all(math.isfinite(v) for v in vals.values()):
+        fail("non-finite validation metric")
+    total = counters()
+    log(f"  {label} launches (4 steps + val) {LAUNCH_LABELS} {total} ({card})")
+    return total
+
+
+def plain_trunk_cotangents(packed, x, d_out, geom):
+    """Autograd through the trunk's plain version (the arithmetic of
+    rrdb_trunk_reference, with the same rounding points) on x with the
+    cotangent d_out. Returns d_x, the growth convs' pre-activation
+    cotangents dU and the LFF outputs' cotangents dLFF (J-major, as the
+    backward kernel writes them) and the packed weight gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import _conv_kernels
+
+    gc, K = geom["gc"], geom["num_convs"] - 1
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in packed.items()}
+    J, nf = leaves["lff"].shape[0], x.shape[-1]
+    dt = x.dtype
+    s1 = torch.tensor(geom["rdb_scale"], dtype=dt, device=x.device)
+    s2 = torch.tensor(geom["rrdb_scale"], dtype=dt, device=x.device)
+    kernels = _conv_kernels(leaves["conv"], J, nf, gc, K)
+    xv = x.detach().clone().requires_grad_()
+    state = xv.permute(0, 4, 1, 2, 3)
+    rres = state
+    pres, lffs = [], []
+    for j in range(J):
+        if j % 3 == 0:
+            rres = state
+        feats = state.float()
+        for w in kernels[j]:
+            pre = F.conv3d(feats, w.float(), padding=1)
+            pre.retain_grad()
+            pres.append(pre)
+            y = F.leaky_relu(pre, geom["negative_slope"])
+            feats = torch.cat([feats, y.to(dt).float()], dim=1)
+        w_lff = leaves["lff"][j].t().float()[:, :, None, None, None]
+        lff = F.conv3d(feats, w_lff, bias=leaves["bias"][j].float()).to(dt)
+        lff.retain_grad()
+        lffs.append(lff)
+        new = state + lff * s1
+        if j % 3 == 2:
+            new = rres + new * s2
+        state = new
+    state.permute(0, 2, 3, 4, 1).backward(d_out)
+
+    def stream(ts):  # per-RDB NCDHW -> J-major (J, N, R, C)
+        t = torch.stack(ts).permute(0, 1, 3, 4, 5, 2)
+        return t.reshape(J, x.shape[0], -1, t.shape[-1])
+
+    dU = stream([torch.cat([p.grad for p in pres[j * K:(j + 1) * K]], dim=1)
+                 for j in range(J)])
+    dLFF = stream([v.grad for v in lffs])
+    return (xv.grad, dU, dLFF,
+            (leaves["conv"].grad, leaves["lff"].grad, leaves["bias"].grad))
+
+
+def split_g_gap(packed, x, d_out, geom, nf, gc, nconv):
+    """The G-gradient gap, kernels vs autograd of the trunk's plain
+    version, stage by stage on the trunk input x and output cotangent
+    d_out captured in the kernels' G step, bf16: (a) the residual mode
+    against the plain forward, (b) the backward kernel against autograd on
+    the plain residuals, (c) the dW stage against autograd's weight
+    gradients."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.models.fused_train import (
+        _dw_stage,
+        trunk_vjp,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
+        pack_trunk_weights_bwd,
+        rrdb_trunk,
+        rrdb_trunk_bwd,
+        rrdb_trunk_bwd_reference,
+        rrdb_trunk_reference,
+    )
+
+    shape = tuple(x.shape[:4])
+    K = nconv - 1
+    log(f"G-gradient gap by stage, bf16, on the G step's trunk input "
+        f"{tuple(x.shape)} and output cotangent (|d_out| "
+        f"{torch.linalg.vector_norm(d_out.double()).item():.3e}):")
+    with torch.no_grad():
+        got = rrdb_trunk(packed, x, with_residuals=True, **geom)
+        want = rrdb_trunk_reference(packed, x, with_residuals=True, **geom)
+        for label, a, b in zip(("out", "states", "growths"), got, want):
+            log(f"  (a) residual mode vs plain forward, {label}: rel L2 "
+                f"{rel_l2(a.float(), b.float()):.3e}")
+        k_states, k_growths = got[1], got[2]
+        _, states, growths = want
+        del got, want
+    d_x_a, dU_a, dLFF_a, dW_a = plain_trunk_cotangents(packed, x, d_out,
+                                                       geom)
+    with torch.no_grad():
+        packed_t = pack_trunk_weights_bwd(packed, nf=nf, gc=gc,
+                                          num_convs=nconv)
+        k_bwd = rrdb_trunk_bwd(packed_t, growths, d_out, **geom)
+        p_bwd = rrdb_trunk_bwd_reference(packed_t, growths, d_out, **geom)
+        for label, kb, pb, a in zip(("d_x", "dU", "dLFF"), k_bwd, p_bwd,
+                                    (d_x_a, dU_a, dLFF_a)):
+            log(f"  (b) on the plain residuals, {label}: kernel vs autograd "
+                f"{rel_l2(kb.float(), a.float()):.3e}, plain version vs "
+                f"autograd {rel_l2(pb.float(), a.float()):.3e}, kernel vs "
+                f"plain version {rel_l2(kb.float(), pb.float()):.3e}")
+        # where the backward starts to part from autograd: RDB by RDB from
+        # the last (the first the backward runs) to the first
+        J = dLFF_a.shape[0]
+        for j in sorted({max(j, 0) for j in (J - 1, J - 2, J - 3, J - 4,
+                                             J // 2, 0)}, reverse=True):
+            log(f"  (b) RDB {j}, plain version vs autograd: dLFF "
+                f"{rel_l2(p_bwd[2][j].float(), dLFF_a[j].float()):.3e}, dU "
+                f"{rel_l2(p_bwd[1][j].float(), dU_a[j].float()):.3e}")
+        labels = ("conv weights", "LFF weights", "LFF bias")
+        dw_k = _dw_stage(states, growths, k_bwd[1], k_bwd[2], shape, nf, gc,
+                         K)
+        dw_a = _dw_stage(states, growths, dU_a.to(x.dtype), dLFF_a, shape,
+                         nf, gc, K)
+        for label, wk, wa, a in zip(labels, dw_k, dw_a, dW_a):
+            log(f"  (c) dW stage vs autograd, {label}: on the kernel's "
+                f"cotangents {rel_l2(wk.float(), a.float()):.3e}, on "
+                f"autograd's cotangents rounded to bf16 "
+                f"{rel_l2(wa.float(), a.float()):.3e}")
+        vjp = trunk_vjp(packed["conv"], packed["lff"], k_states, k_growths,
+                        d_out, geom)
+        for label, g, a in zip(labels + ("input",), vjp, dW_a + (d_x_a,)):
+            log(f"  the G step's trunk VJP (kernel residuals) vs autograd, "
+                f"{label}: {rel_l2(g.float(), a.float()):.3e}")
+
+
 def train_phase(cfg, dev, rng, card):
     """Phase 5: the milestone9k WindFieldGAN at batch 32 on the card.
     Returns what phase 6 times."""
     import numpy as np
     import torch
 
+    from gan_sr_wind_field_tpu_torch.models import fused_train
     from gan_sr_wind_field_tpu_torch.models.fused_apply import (
         generator_forward,
         trunk_geometry,
@@ -440,9 +743,24 @@ def train_phase(cfg, dev, rng, card):
     keep = torch.rand((n, 1, 1, 1, gan.G.hr_conv1.weight.shape[1]),
                       generator=gen, device=dev) < 0.9
     res = []
+    # the kernels' step keeps the trunk's input and output cotangent, on
+    # which the gap is split stage by stage below
+    captured = {}
+    real_vjp = fused_train.trunk_vjp
+
+    def capture_vjp(conv, lff, states, growths, d_out, geom):
+        captured.update(x=states[0].reshape(d_out.shape).clone(),
+                        d_out=d_out.detach().to(conv.dtype).clone())
+        return real_vjp(conv, lff, states, growths, d_out, geom)
+
     for g in (gan, plain):
         gen = torch.Generator(device=dev).manual_seed(12)
-        res.append(g.g_grads(state, lr, hr, z, 48, gen, dropout_mask=keep))
+        fused_train.trunk_vjp = capture_vjp if g is gan else real_vjp
+        try:
+            res.append(g.g_grads(state, lr, hr, z, 48, gen,
+                                 dropout_mask=keep))
+        finally:
+            fused_train.trunk_vjp = real_vjp
         torch.cuda.synchronize()
     # the plain path once more with autograd through the trunk's plain
     # version instead of the RRDB modules: it rounds where the kernels do,
@@ -455,8 +773,8 @@ def train_phase(cfg, dev, rng, card):
         return rrdb_trunk_reference(packed, x.contiguous(),
                                     **trunk_geometry(G_ref))
 
-    def ref_forward(lr, z, train=False, trunk=None, dropout_mask=None,
-                    generator=None):
+    def ref_forward(lr, z, train=False, trunk=None, head=None,
+                    dropout_mask=None, generator=None):
         return generator_forward(G_ref, lr, z, ref_trunk, train=train,
                                  dropout_mask=dropout_mask,
                                  generator=generator)
@@ -479,52 +797,78 @@ def train_phase(cfg, dev, rng, card):
     log(f"  G gradients, kernels vs autograd of the trunk's plain version: "
         f"rel L2 {rel_l2(flat(grads_k), flat(grads_r)):.3e}; that vs the "
         f"module path: {rel_l2(flat(grads_r), flat(grads_p)):.3e}")
+    names = list(state.params_G)
+    for group, pick in (("trunk (rrdbs.*)", True), ("the rest", False)):
+        idx = [i for i, k in enumerate(names)
+               if k.startswith("rrdbs.") == pick]
+        sub = [(grads_k[i], grads_r[i]) for i in idx]
+        share = (torch.linalg.vector_norm(flat([b for _, b in sub]).double())
+                 / torch.linalg.vector_norm(flat(grads_r).double())).item()
+        log(f"    {group}: kernels vs plain trunk version rel L2 "
+            f"{rel_l2(flat([a for a, _ in sub]), flat([b for _, b in sub])):.3e}"
+            f", {share:.3f} of the gradient's norm")
     check("G gradients, kernels vs plain path (bf16)", err, G_GRAD_TOL)
     del plain, res, grads_k, grads_p, grads_r, G_ref
+    G = gan.G
+    G.load_state_dict(state.params_G)
+    with torch.no_grad():
+        packed = pack_trunk_weights(G.rrdbs, G.dtype, dev)
+    g = cfg.generator
+    split_g_gap(packed, captured["x"], captured["d_out"], trunk_geometry(G),
+                g.num_features, g.RDB_growth_chan, g.num_RDB_convs)
+    del packed, captured
+    torch.cuda.empty_cache()
 
-    state.it = 47
-    reset_counters()
-    for _ in range(4):
-        lr, hr, z = batch()
-        it = state.it + 1
-        g_step = gan.is_g_step(it)
-        snap = {name: {k: v.clone() for k, v in tree.items()} for name, tree
-                in (("G", state.params_G), ("EMA", state.params_G_ema),
-                    ("D", state.params_D), ("BN", state.batch_stats_D))}
-        before = counters()
-        t = time.monotonic()
-        state, metrics = gan.train_step(state, lr, hr, z)
-        torch.cuda.synchronize()
-        secs = time.monotonic() - t
-        rose = tuple(a - b for a, b in zip(counters(), before))
-        kind = "G" if g_step else "D"
-        vals = {k: float(v) for k, v in metrics.items()}
-        log(f"  it {it} ({kind} step, {secs:.2f} s): "
-            + ", ".join(f"{k} {v:.4e}" for k, v in sorted(vals.items()))
-            + f"; launches trunk/bwd/gradient/adjoint {rose}")
-        if not all(math.isfinite(v) for v in vals.values()):
-            fail(f"non-finite metric at it {it}")
-        want = G_STEP_LAUNCHES if g_step else D_STEP_LAUNCHES
-        if rose != want:
-            fail(f"{kind} step launched {rose}, expected {want}")
-        for name, tree in (("G", state.params_G), ("EMA", state.params_G_ema),
-                           ("D", state.params_D), ("BN", state.batch_stats_D)):
-            moved = any(not torch.equal(v, snap[name][k])
-                        for k, v in tree.items())
-            should = g_step == (name in ("G", "EMA"))
-            if moved != should:
-                fail(f"{name} {'moved' if moved else 'stood still'} on the "
-                     f"{kind} step at it {it}")
-    lr, hr, z = batch()
-    metrics, _ = gan.val_step(state, lr, hr, z)
-    vals = {k: float(v) for k, v in metrics.items()}
-    log("  val: " + ", ".join(f"{k} {v:.4e}" for k, v in sorted(vals.items())))
-    if not all(math.isfinite(v) for v in vals.values()):
-        fail("non-finite validation metric")
-    total = counters()
-    log(f"  train path launches (4 steps + val) trunk/bwd/gradient/adjoint "
-        f"{total} ({card})")
+    total = drive_steps(gan, state, batch, G_STEP_LAUNCHES, D_STEP_LAUNCHES,
+                        card, "train path")
     return gan, state, batch, total
+
+
+def head_train_phase(cfg, gan, state, batch, dev, card):
+    """Phase 5, head path: a copy of milestone9k with use_pallas_head at
+    batch 32. One G step's gradients with the head kernel against the
+    same step with the module head (trunk kernels on both sides), then
+    two G and two D steps and a val step through the head kernel.
+    Returns the head-path gan, its state and its launch counts."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    hcfg = copy.deepcopy(cfg)
+    hcfg.use_pallas_head = True
+    gan_h = WindFieldGAN(hcfg, gan.x.cpu().numpy(), gan.y.cpu().numpy(),
+                         device=dev)
+    if (gan_h._head_train, gan_h._head_nograd) != ("kernel", "kernel"):
+        fail("use_pallas_head does not route milestone9k through the head")
+    n = cfg.dataset_train.batch_size
+    log(f"train, head path: milestone9k with use_pallas_head, batch {n}, "
+        f"bf16")
+    gan_h.D = gan.D  # the same D module; its parameters come from the state
+    lr, hr, z = batch()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    keep = torch.rand((n, 1, 1, 1, gan.G.hr_conv1.weight.shape[1]),
+                      generator=gen, device=dev) < 0.9
+    res = []
+    for g in (gan_h, gan):
+        gen = torch.Generator(device=dev).manual_seed(14)
+        res.append(g.g_grads(state, lr, hr, z, 48, gen, dropout_mask=keep))
+        torch.cuda.synchronize()
+    (loss_h, _, grads_h), (loss_m, _, grads_m) = res
+    flat_h = torch.cat([g.flatten() for g in grads_h])
+    flat_m = torch.cat([g.flatten() for g in grads_m])
+    worst = max((rel_l2(a, b), name) for a, b, name in
+                zip(grads_h, grads_m, state.params_G))
+    log(f"  G step total loss: head kernel {loss_h.item():.6e}, module head "
+        f"{loss_m.item():.6e}; worst single tensor {worst[1]} rel L2 "
+        f"{worst[0]:.3e}")
+    check("G gradients, head kernel vs module head (bf16)",
+          rel_l2(flat_h, flat_m), 2e-2)
+    del res, grads_h, grads_m, flat_h, flat_m
+    state_h = gan_h.init_state(2001, (n,) + tuple(lr.shape[1:]),
+                               (n,) + tuple(hr.shape[1:]))
+    total = drive_steps(gan_h, state_h, batch, G_STEP_LAUNCHES_HEAD,
+                        D_STEP_LAUNCHES_HEAD, card, "head path")
+    return gan_h, state_h, total
 
 
 def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
@@ -606,6 +950,7 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
         k2_plain_ms = cuda_ms(lambda: rrdb_trunk_bwd_reference(
             packed_t, growths, d_out, **kw))
         k2_lib_ms = cuda_ms(lambda: cudnn_trunk_bwd(lib_w, growths, d_out))
+        k1r_lib_ms = cuda_ms(lambda: cudnn_trunk(lib_w, x, keep=True))
         _, dU, dLFF = rrdb_trunk_bwd(packed_t, growths, d_out, **kw)
         dw_ms = cuda_ms(lambda: _dw_stage(states, growths, dU, dLFF,
                                           tuple(x.shape[:4]), nf, gc,
@@ -648,11 +993,21 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
                        rest_g)):
         log(f"  G step part {label:<48} {ms:9.3f} ms "
             f"{100 * ms / g_ms:5.1f} %")
+    parts = g_step_rest_parts(gan, state, lr, hr, z)
+    for label, ms in parts:
+        log(f"    rest part {label:<46} {ms:9.3f} ms "
+            f"{100 * ms / g_ms:5.1f} %")
+    gap = rest_g - sum(ms for _, ms in parts)
+    log(f"    rest parts sum {rest_g - gap:.3f} ms of the rest's "
+        f"{rest_g:.3f} ms; all parts {g_ms - gap:.3f} ms of the G step's "
+        f"{g_ms:.3f} ms ({100 * (g_ms - gap) / g_ms:.1f} %)"
+        + (f"; the parts miss {gap:.3f} ms" if abs(gap) > 0.1 * g_ms
+           else ""))
     log(f"  D step part no-grad G forward {gen_ms:9.3f} ms "
         f"{100 * gen_ms / d_ms:5.1f} %, rest (D fwd+bwd twice, Adam) "
         f"{d_ms - gen_ms:9.3f} ms")
     for label, ms, plain_ms, b, lib in (
-            ("trunk residual mode", k1r_ms, k1r_plain_ms, b1, None),
+            ("trunk residual mode", k1r_ms, k1r_plain_ms, b1, k1r_lib_ms),
             ("trunk backward", k2_ms, k2_plain_ms, b2, k2_lib_ms),
             ("gradient", k3_ms, k3_plain_ms, b3, None),
             ("adjoint", k4_ms, k4_plain_ms, b4, None)):
@@ -660,12 +1015,223 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
             f"library {'n/a' if lib is None else f'{lib:.3f} ms'}, bound "
             f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f})")
     times = dict(g_ms=g_ms, d_ms=d_ms, k1r=(k1r_ms, k1r_plain_ms, b1),
+                 k1r_lib=k1r_lib_ms,
                  k2=(k2_ms, k2_plain_ms, b2, k2_lib_ms),
                  k3=(k3_ms, k3_plain_ms, b3), k4=(k4_ms, k4_plain_ms, b4))
     if not all(math.isfinite(v) for v in (g_ms, d_ms, gen_ms, k1r_ms, k2_ms,
-                                           dw_ms, k3_ms, k4_ms, k2_lib_ms)):
+                                           dw_ms, k3_ms, k4_ms, k2_lib_ms,
+                                           k1r_lib_ms)):
         fail("a timing is not finite")
     return times
+
+
+def g_step_rest_parts(gan, state, lr, hr, z):
+    """(name, ms) of the G step's parts outside the trunk and stencil
+    kernels, each timed alone (forward and backward, input and weight
+    gradients where the G step takes them) on the tensors a G step on
+    this batch gives it. G holds state.params_G."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan_sr_wind_field_tpu_torch.models.blocks import channel_dropout
+    from gan_sr_wind_field_tpu_torch.models.fused_apply import (
+        kernel_trunk_fn,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
+        pack_trunk_weights,
+        pack_trunk_weights_bwd,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.resize import upsample_nearest_xy
+    from gan_sr_wind_field_tpu_torch.train.gan import AdamState
+
+    G = gan.G
+    dt = G.dtype
+    slope = G.negative_slope
+    p = G.dropout_probability
+    it = 48
+    with torch.no_grad():
+        f = G.feature_conv(lr.to(dt))
+        tr = kernel_trunk_fn(G)(f)
+        h0 = f + G.lr_conv(tr)
+        h = h0
+        for up in G.upconvs:
+            h = up(upsample_nearest_xy(h, 2))
+        zt = z.to(dt)
+        t = G.terrain_conv1(G.terrain_conv0(zt))
+        px, pt = G.hr_conv0_x(h), G.hr_conv0_t(t)
+        a = F.leaky_relu(px + pt, slope)
+        fake = G.hr_conv1(a).float()
+        keep = torch.rand((lr.shape[0], 1, 1, 1, a.shape[-1]),
+                          device=a.device) < 1.0 - p
+        hr3 = hr[..., :3]
+        y_pred = gan._d_apply(state.params_D, state.batch_stats_D, hr3,
+                              train=False)
+        fake_pred = gan._d_apply(state.params_D, state.batch_stats_D, fake,
+                                 train=False)
+        hr_grad = gan._wind_gradient(hr3, gan.x, gan.y, z)
+        sr_grad = gan._wind_gradient(fake, gan.x, gan.y, z)
+
+    def fwd_bwd(fn, modules, *inputs):
+        leaves = [v.detach().requires_grad_() for v in inputs]
+        params = [q for m in modules for q in m.parameters()]
+
+        def run():
+            out = fn(*leaves)
+            torch.autograd.grad(out, leaves + params, torch.ones_like(out),
+                                allow_unused=True)
+        return run
+
+    def ups(x):
+        for up in G.upconvs:
+            x = up(upsample_nearest_xy(x, 2))
+        return x
+
+    def small_convs(lr_, tr_, z_):
+        return (G.feature_conv(lr_).float().sum()
+                + G.lr_conv(tr_).float().sum()
+                + G.terrain_conv1(G.terrain_conv0(z_)).float().sum())
+
+    def packing():
+        packed = pack_trunk_weights(G.rrdbs, dt, lr.device, detach=False)
+        with torch.no_grad():
+            pack_trunk_weights_bwd(packed, nf=G.num_features,
+                                   gc=G.rdb_growth_channels,
+                                   num_convs=G.num_rdb_convs)
+        return torch.cat([v.flatten() for v in packed.values()])
+
+    fake_l = fake.detach().requires_grad_()
+
+    def d_part():
+        real_in = gan._noisy_d_input(hr3, 2.0, it, state.rng)
+        fake_in = gan._noisy_d_input(fake_l, 2.0, it, state.rng)
+        with torch.no_grad():
+            gan._d_apply(state.params_D, state.batch_stats_D, real_in,
+                         train=False)
+        out = gan._d_apply(state.params_D, state.batch_stats_D, fake_in,
+                           train=False)
+        torch.autograd.grad(out.sum(), fake_l)
+
+    def losses():
+        # _g_losses with the G forward, the D forwards and the stencils
+        # replaced by their outputs: the loss arithmetic alone
+        fy_l = fake_pred.detach().requires_grad_()
+        sg_l = sr_grad.detach().requires_grad_()
+        preds = iter([y_pred, fy_l])
+        saved = gan._wind_gradient
+        gan._g_forward_train = lambda *a, **k: fake_l
+        gan._d_apply = lambda *a, **k: next(preds)
+        gan._wind_gradient = (lambda u, *a: sg_l if u.requires_grad
+                              else hr_grad)
+        try:
+            total, _ = gan._g_losses(state.params_G, state, lr, hr, z, it,
+                                     state.rng, True)
+        finally:
+            del gan._g_forward_train, gan._d_apply
+            gan._wind_gradient = saved
+        torch.autograd.grad(total, [fake_l, fy_l, sg_l], allow_unused=True)
+
+    params = {k: v.clone() for k, v in state.params_G.items()}
+    grads = [torch.randn_like(v) * 1e-4 for v in params.values()]
+    opt = AdamState(1, {k: torch.zeros_like(v) for k, v in params.items()},
+                    {k: torch.zeros_like(v) for k, v in params.items()})
+    ema = {k: v.clone() for k, v in params.items()}
+
+    def adam_ema():
+        gan._adam_step(params, grads, opt, 1e-4, *gan.opt_G)
+        with torch.no_grad():
+            for k, e in ema.items():
+                e.add_(0.01 * (params[k] - e))
+
+    parts = [
+        ("hr_conv0_x fwd+bwd", fwd_bwd(G.hr_conv0_x, [G.hr_conv0_x], h)),
+        ("hr_conv0_t fwd+bwd", fwd_bwd(G.hr_conv0_t, [G.hr_conv0_t], t)),
+        ("hr_conv0 sum, LeakyReLU, dropout fwd+bwd", fwd_bwd(
+            lambda u, v: channel_dropout(F.leaky_relu(u + v, slope), p,
+                                         keep), [], px, pt)),
+        ("hr_conv1 fwd+bwd", fwd_bwd(lambda v: G.hr_conv1(v).float(),
+                                     [G.hr_conv1], a)),
+        ("upsampling convs fwd+bwd", fwd_bwd(ups, G.upconvs, h0)),
+        ("feature, lr_conv, terrain convs fwd+bwd", fwd_bwd(
+            small_convs, [G.feature_conv, G.lr_conv, G.terrain_conv0,
+                          G.terrain_conv1], lr.to(dt), tr, zt)),
+        ("trunk weight packing fwd+bwd", fwd_bwd(packing, G.rrdbs)),
+        ("D eval forwards x2, input gradient", d_part),
+        ("losses fwd+bwd (no stencils)", losses),
+        ("Adam and EMA", adam_ema),
+    ]
+    return [(name, cuda_ms(fn)) for name, fn in parts]
+
+
+def library_head(wx, wt, x, t, dm, k, slope=0.2):
+    """The head as bf16 cuDNN calls: both convs, their sum, LeakyReLU and
+    the scale (the library yardstick for kernel 5's `library_ms`; the port
+    never calls this)."""
+    import torch.nn.functional as F
+
+    hp = (k - 1) // 2
+    pre = (F.conv3d(x.permute(0, 4, 1, 2, 3), wx, padding=hp)
+           + F.conv3d(t.permute(0, 4, 1, 2, 3), wt, padding=hp))
+    return F.leaky_relu(pre, slope) * dm[:, :, None, None, None]
+
+
+def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
+    """Phase 6, kernel 5: its time at batch 8 and 32 beside its plain
+    version, bound and library call; then the head path's serving forward
+    at batch 8 and its G and D steps at batch 32."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.ops.hr_head import (
+        hr_head_conv,
+        hr_head_conv_reference,
+        pack_head_weights,
+    )
+
+    xy, zl, nf, tc, C, k = dims
+    G = sr.G
+    w = [G.hr_conv0_x.weight.detach(), G.hr_conv0_t.weight.detach()]
+    packed = pack_head_weights(*w, torch.bfloat16, dev)
+    wb = [v.to(torch.bfloat16) for v in w]
+    res = {}
+    for n in (8, 32):
+        _, _, x, t, dm = head_inputs(dev, n, xy, zl, nf, tc, C, k, 2004 + n,
+                                     weights=w)
+        x, t, dm = (v.to(torch.bfloat16) for v in (x, t, dm))
+        kw = dict(k=k, negative_slope=0.2)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: hr_head_conv(packed, x, t, dm, **kw))
+            plain_ms = cuda_ms(lambda: hr_head_conv_reference(packed, x, t,
+                                                              dm, **kw))
+            lib_ms = cuda_ms(lambda: library_head(*wb, x, t, dm, k))
+        rows = x.numel() // nf
+        b = bound(2 * k ** 3 * (nf + tc) * C * rows,
+                  2 * (x.numel() + t.numel() + rows * C + packed.numel()
+                       + dm.numel()), H100_BF16_FLOPS)
+        log(f"HR-head kernel at batch {n}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, cuDNN bf16 {lib_ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f}); "
+            f"{2 * k ** 3 * (nf + tc) * C * rows / ms / 1e9:.3f} TFLOP/s "
+            f"({card})")
+        res[n] = (ms, plain_ms, b, lib_ms)
+        del x, t, dm
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: sr_h._generate(lr_d, z_d))
+    lr, hr, z = batch()
+
+    def step(it):
+        def fn():
+            state_h.it = it - 1
+            gan_h.train_step(state_h, lr, hr, z)
+        return fn
+
+    g_ms, d_ms = cuda_ms(step(48)), cuda_ms(step(50))
+    log(f"head path: serving forward {fwd_ms:.3f} ms per batch of 8, G step "
+        f"{g_ms:.3f} ms, D step {d_ms:.3f} ms at batch "
+        f"{lr.shape[0]} ({card})")
+    if not all(math.isfinite(v) for v in (fwd_ms, g_ms, d_ms, *res[8][:2],
+                                          *res[32][:2], res[8][3],
+                                          res[32][3])):
+        fail("a timing is not finite")
+    return res
 
 
 def main():
@@ -735,17 +1301,23 @@ def main():
     max_abs16, max_abs_bwd = check_trunk_kernels(rrdbs, x, d_out, geom, nf,
                                                  gc, nconv, dev)
     err_grad, err_adj = check_stencil_kernels(dev)
+    hr_xy = lr_xy * cfg.scale
+    tc = g.terrain_number_of_features
+    head_dims = (hr_xy, zl, nf, tc, nf + tc, g.hr_kern_size)
+    err_head = check_head_kernel(dev, *head_dims)
     torch.cuda.synchronize()
     del rrdbs, x, d_out
 
     # ------------------------------------------------------------ 4. serve
     G0 = generator_from_config(cfg, device=dev, seed=2001)
-    sr = WindFieldSR(cfg, G0.state_dict(), device=dev)
+    params = G0.state_dict()
+    sr = WindFieldSR(cfg, params, device=dev)
     del G0
     if sr.packed is None:
         fail("milestone9k geometry does not take the trunk kernel")
+    if sr.head_packed is not None:
+        fail("milestone9k as committed takes the head kernel in serving")
     rng = np.random.default_rng(2001)
-    hr_xy = lr_xy * cfg.scale
     C = cfg.lr_num_channels
 
     import io
@@ -779,10 +1351,13 @@ def main():
     finally:
         pool.shutdown(wait=False, cancel_futures=True)
         srv.close()
-    serve_launches = counters()[0]
+    serve_launches, head_launches = counters()[0], counters()[4]
     log(f"served {len(outs)} samples in {stats['batches']} batches "
         f"(max batch {stats['max_batch_seen']}, errors {stats['errors']}); "
-        f"trunk kernel launches {serve_launches}")
+        f"trunk kernel launches {serve_launches}, head kernel launches "
+        f"{head_launches}")
+    if head_launches:
+        fail("milestone9k as committed launched the head kernel in serving")
     for o in outs:
         if o.shape != (hr_xy, hr_xy, zl, 3) or not np.isfinite(o).all():
             fail(f"bad output: shape {o.shape}, "
@@ -805,9 +1380,32 @@ def main():
     if not err_srv <= 3e-2:
         fail(f"served output disagrees with the plain trunk: {err_srv:.3e}")
 
+    # the head path: a copy of milestone9k with use_pallas_head_nograd, the
+    # same weights, one batch of 8 against the module head
+    hcfg = copy.deepcopy(cfg)
+    hcfg.use_pallas_head_nograd = True
+    sr_h = WindFieldSR(hcfg, params, device=dev)
+    if sr_h.head_packed is None:
+        fail("use_pallas_head_nograd does not route serving through the head")
+    lr, z = sample(np.random.default_rng(2002), 8, lr_xy, hr_xy, zl, C)
+    reset_counters()
+    got = sr_h.upscale(lr, z)
+    head_serve = counters()
+    log(f"head path: served 8 samples; launches {LAUNCH_LABELS} "
+        f"{head_serve}")
+    if head_serve != (1, 0, 0, 0, 1):
+        fail(f"the head path's serving launched {head_serve}")
+    if got.shape != (8, hr_xy, hr_xy, zl, 3) or not np.isfinite(got).all():
+        fail(f"bad head-path output: shape {got.shape}")
+    err_head_srv = rel_l2(torch.from_numpy(got),
+                          torch.from_numpy(sr.upscale(lr, z)))
+    check("served output, head kernel vs module head", err_head_srv, 3e-2)
+
     # ------------------------------------------------------------ 5. train
     gan, state, batch, train_launches = train_phase(
         copy.deepcopy(cfg), dev, rng, card)
+    gan_h, state_h, head_train = head_train_phase(cfg, gan, state, batch,
+                                                  dev, card)
 
     # ------------------------------------------------------------ 6. times
     xb = torch.randn(8, lr_xy, lr_xy, zl, nf, generator=gen).to(
@@ -841,10 +1439,13 @@ def main():
     nbytes = 2 * (2 * xb.numel()
                   + sum(t.numel() for t in sr.packed.values()))
     b1 = bound(2 * trunk_macs(rows, J, nf, gc, K), nbytes, H100_BF16_FLOPS)
-    del lib_w, sr
+    del lib_w
     log(f"trunk bound at batch 8: {b1[0]:.4f} ms by {b1[1]} (ops "
         f"{b1[2]:.4f} ms, bytes {b1[3]:.4f} ms)")
     tt = time_training(gan, state, batch, geom, nf, gc, nconv, dev, card)
+    th = time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, head_dims,
+                   dev, card)
+    del sr, sr_h
     if not all(math.isfinite(v) for v in (ms, plain_ms, lib_ms, fwd_ms)):
         fail("a timing is not finite")
 
@@ -861,13 +1462,19 @@ def main():
             serve_launches + tl[0], max_abs16, (ms, plain_ms, b1), lib_ms,
             launches_serve=serve_launches, launches_train=tl[0],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
-            residual_bound_ms=tt["k1r"][2][0]),
+            residual_bound_ms=tt["k1r"][2][0],
+            residual_library_ms=tt["k1r_lib"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429", tl[1],
             max_abs_bwd, tt["k2"][:3], tt["k2"][3]),
         row("wind_gradient", "stencil.cu", "stencil.py:78", tl[2], err_grad,
             tt["k3"], None),
         row("wind_gradient_adjoint", "stencil.cu", "stencil.py:166", tl[3],
             err_adj, tt["k4"], None),
+        row("hr_head", "hr_head.cu", "hr_head.py:122",
+            head_serve[4] + head_train[4], err_head, th[8][:3], th[8][3],
+            launches_serve=head_serve[4], launches_train=head_train[4],
+            ms_b32=th[32][0], plain_ms_b32=th[32][1],
+            bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3]),
     ]}
     log(f"total {time.monotonic() - T0:.1f} s")
     log(json.dumps(table))

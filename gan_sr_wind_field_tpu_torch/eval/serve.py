@@ -6,7 +6,12 @@
 
 Counterpart of ``gan_sr_wind_field_tpu/eval/serve.py:WindFieldSR``. The
 forward runs the RRDB trunk as the trunk kernel (``models/fused_apply.py``)
-whenever the geometry allows it (3D convs, 1×1×1 LFF).
+whenever the geometry allows it (3D convs, 1×1×1 LFF), and hr_conv0 as the
+HR-head kernel (``ops/hr_head.py``) when the configuration sets
+``use_pallas_head`` or ``use_pallas_head_nograd`` beside
+``use_fused_trunk``: serving is a forward without a gradient. On a CUDA
+device the constructor builds the kernels it will launch, so the first
+request pays no build.
 """
 
 from __future__ import annotations
@@ -20,8 +25,13 @@ from gan_sr_wind_field_tpu_torch.data.transform import (
     physical_to_model_inputs,
 )
 from gan_sr_wind_field_tpu_torch.device import resolve_device
-from gan_sr_wind_field_tpu_torch.models.fused_apply import generate_fused
+from gan_sr_wind_field_tpu_torch.models.fused_apply import (
+    generate_fused,
+    head_kernel_flags,
+)
 from gan_sr_wind_field_tpu_torch.models.generator import generator_from_config
+from gan_sr_wind_field_tpu_torch.ops.hr_head import pack_head_weights
+from gan_sr_wind_field_tpu_torch.ops.kernels import build
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     trunk_fusable,
@@ -48,11 +58,20 @@ class WindFieldSR:
         )
         self.G = generator_from_config(cfg, device=self.device)
         self.G.load_state_dict(params, strict=True)
+        G = self.G
         self.packed = None
-        if trunk_fusable(self.G.num_rdb_convs, self.G.lff_kern_size,
-                         self.G.conv_mode):
-            self.packed = pack_trunk_weights(self.G.rrdbs, self.G.dtype,
-                                             self.device)
+        if trunk_fusable(G.num_rdb_convs, G.lff_kern_size, G.conv_mode):
+            self.packed = pack_trunk_weights(G.rrdbs, G.dtype, self.device)
+        self.head_packed = None
+        if (self.packed is not None and head_kernel_flags(cfg)[1]
+                and G.negative_slope > 0):
+            self.head_packed = pack_head_weights(
+                G.hr_conv0_x.weight, G.hr_conv0_t.weight, G.dtype,
+                self.device)
+        if self.device.type == "cuda":
+            build.warm((["rdb_trunk"] if self.packed is not None else [])
+                       + (["hr_head"] if self.head_packed is not None
+                          else []))
 
     @classmethod
     def from_continuation(cls, cfg, path: str, use_ema: bool = True,
@@ -70,7 +89,8 @@ class WindFieldSR:
     def _generate(self, lr: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         if self.packed is None:
             return self.G(lr, z)
-        return generate_fused(self.G, lr, z, self.packed)
+        return generate_fused(self.G, lr, z, self.packed, self.head_packed,
+                              head=self.head_packed is not None)
 
     def upscale(self, lr, z_terrain) -> np.ndarray:
         """lr: (x, y, zl, C) or batched; returns (X, Y, zl, 3) float32."""

@@ -24,7 +24,7 @@ Serve a continuation pack on the card:
     python -m gan_sr_wind_field_tpu_torch.eval.server \
         --cfg configs/milestone9k.ini \
         --continuation docs/evidence/milestone9k_continuation_9000.npz \
-        --port 8000
+        --port 8000 --warmup 1,8
 """
 
 from __future__ import annotations
@@ -529,6 +529,23 @@ class WindFieldServer(ThreadingHTTPServer):
         self.batcher.close()
 
 
+def warmup(backend, lr_shape, z_shape, batch_sizes, log=None) -> None:
+    """Run the serving forward once at each batch size before traffic
+    arrives, so that no request pays for first-call set-up (cuDNN's
+    algorithm search, the allocator's first blocks; the kernels were
+    built when the backend was made). ``lr_shape``/``z_shape`` are
+    single-sample shapes (x, y, zl, C) / (X, Y, zl, 1); zeros are enough."""
+    for b in batch_sizes:
+        t0 = time.monotonic()
+        backend.upscale(
+            np.zeros((int(b),) + tuple(lr_shape), np.float32),
+            np.zeros((int(b),) + tuple(z_shape), np.float32),
+        )
+        if log is not None:
+            log.info(f"warmup: batch {b} ran in "
+                     f"{time.monotonic() - t0:.1f}s")
+
+
 def serve(backend, host: str = "127.0.0.1", port: int = 0,
           max_batch: int = 128, max_wait_ms: float = 5.0,
           pad_pow2: bool = True, log=None,
@@ -590,6 +607,9 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=128)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--warmup", metavar="B1,B2,...", default="",
+                   help="run the forward at these batch sizes before "
+                        "accepting traffic")
     args = p.parse_args(argv)
 
     from gan_sr_wind_field_tpu_torch.config import load_config
@@ -600,6 +620,15 @@ def main(argv=None) -> int:
                                             device=args.device)
     g = cfg.gan_config
     tile = (g.slice_size if g.enable_slicing else 64) // cfg.scale
+    if args.warmup:
+        import logging
+
+        logging.basicConfig(level=logging.INFO)
+        hr = tile * cfg.scale
+        zl = g.number_of_z_layers
+        warmup(backend, (tile, tile, zl, cfg.lr_num_channels),
+               (hr, hr, zl, 1), [int(b) for b in args.warmup.split(",")],
+               log=logging.getLogger("windsr-serve"))
     print(f"serving {args.continuation} (scale {backend.scale}) on "
           f"{args.host}:{args.port} ({backend.device})", flush=True)
     serve(backend, host=args.host, port=args.port,

@@ -48,10 +48,26 @@ def channel_dropout(x: torch.Tensor, p: float,
     in x's dtype."""
     if keep is None:
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        keep = torch.rand(shape, generator=generator,
-                          device=x.device) < 1.0 - p
+        keep = _draw_keep(shape, p, generator, x.device)
     return torch.where(keep.to(x.device), x / (1.0 - p),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _draw_keep(shape, p: float, generator, device):
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+
+
+def dropout_scale(n: int, c: int, p: float, dtype: torch.dtype, device,
+                  keep: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+    """The channel-dropout scale (n, c) in ``dtype`` for the HR-head
+    kernel: 1/(1 − p) where ``keep`` is true, else 0. ``keep`` is the
+    boolean (n, 1, 1, 1, c) mask, drawn as ``channel_dropout`` draws it
+    (the same numbers from the same generator) when not given."""
+    if keep is None:
+        keep = _draw_keep((n, 1, 1, 1, c), p, generator, device)
+    scale = torch.where(keep.to(device).reshape(n, c), 1.0 / (1.0 - p), 0.0)
+    return scale.to(dtype)
 
 
 def _triple(v):

@@ -1,14 +1,17 @@
-"""Generator forward with a pluggable trunk, and the eval-mode forward
-with the RRDB-trunk kernel.
+"""Generator forward with a pluggable trunk and head, and the eval-mode
+forward with the RRDB-trunk kernel (and optionally the HR-head kernel).
 
 ``generate_fused(G, lr, z)`` computes what ``Generator3D.forward`` computes
 in eval mode, but runs the trunk, the dominant cost, as the one-call trunk
 kernel (``ops/rdb_trunk.py``). Counterpart of
-``gan_sr_wind_field_tpu/models/fused_apply.py``. The layers around the
-trunk (feature conv, lr_conv and the long skip, upsampling convs, terrain
-branch, hr_conv0, channel dropout and hr_conv1) are plain ``F.conv3d``
-calls; the JAX package's lane tricks for them (split_hr_out, tap-stacked
-hr_conv1) are the same math and need no counterpart here.
+``gan_sr_wind_field_tpu/models/fused_apply.py``. With a head function
+(``kernel_head_fn``) hr_conv0, its LeakyReLU and the channel dropout run as
+the HR-head kernel (``ops/hr_head.py``), as the JAX package's
+``pallas_head`` does. The other layers around the trunk (feature conv,
+lr_conv and the long skip, upsampling convs, terrain branch and hr_conv1)
+are plain ``F.conv3d`` calls; the JAX package's lane tricks for them
+(split_hr_out, tap-stacked hr_conv1) are the same math and need no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -18,7 +21,11 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from gan_sr_wind_field_tpu_torch.models.blocks import channel_dropout
+from gan_sr_wind_field_tpu_torch.models.blocks import (
+    channel_dropout,
+    dropout_scale,
+)
+from gan_sr_wind_field_tpu_torch.ops.hr_head import hr_head
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     rrdb_trunk,
@@ -41,19 +48,54 @@ def _head_features(G, lr: torch.Tensor, z_terrain: torch.Tensor,
 def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                       trunk_fn: Callable, train: bool = False,
                       dropout_mask: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None
-                      ) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      head_fn: Optional[Callable] = None) -> torch.Tensor:
     """Generator forward with a pluggable trunk; returns float32
     (N, x·s, y·s, zl, out_channels). With ``train`` and a dropout
     probability p > 0, whole channels after lrelu(hr_conv0) are dropped:
     ``dropout_mask`` is the boolean keep mask (N, 1, 1, 1, C), drawn with
-    keep probability 1 − p from ``generator`` when not given."""
+    keep probability 1 − p from ``generator`` when not given. ``head_fn``
+    (x, t, scale) -> h, when given, computes hr_conv0, its LeakyReLU and
+    the dropout scale (N, C) or None in one (``kernel_head_fn``); the same
+    channels are drawn from the same generator either way."""
     x, t = _head_features(G, lr, z_terrain, trunk_fn)
-    x = F.leaky_relu(G.hr_conv0_x(x) + G.hr_conv0_t(t), G.negative_slope)
-    if train and G.dropout_probability > 0.0:
-        x = channel_dropout(x, G.dropout_probability, dropout_mask,
-                            generator)
+    p = G.dropout_probability if train else 0.0
+    if head_fn is None:
+        x = F.leaky_relu(G.hr_conv0_x(x) + G.hr_conv0_t(t), G.negative_slope)
+        if p > 0.0:
+            x = channel_dropout(x, p, dropout_mask, generator)
+    else:
+        scale = None
+        if p > 0.0:
+            scale = dropout_scale(x.shape[0], G.hr_conv0_x.weight.shape[0], p,
+                                  G.dtype, x.device, dropout_mask, generator)
+        x = head_fn(x, t.to(G.dtype), scale)
     return G.hr_conv1(x).float()
+
+
+def kernel_head_fn(G, packed: Optional[torch.Tensor] = None) -> Callable:
+    """hr_conv0 with its LeakyReLU and dropout scale as the HR-head kernel
+    (``ops/hr_head.py:hr_head``): differentiable where a gradient is
+    needed, one launch on ``packed`` (``pack_head_weights`` of G's
+    hr_conv0 weights in G.dtype on the input's device) where not."""
+    def head_fn(x, t, scale):
+        dt = G.dtype
+        return hr_head(G.hr_conv0_x.weight.to(dt), G.hr_conv0_t.weight.to(dt),
+                       x, t, scale, k=G.hr_kern_size,
+                       negative_slope=G.negative_slope, packed=packed)
+
+    return head_fn
+
+
+def head_kernel_flags(cfg) -> tuple:
+    """(differentiable forwards, no-grad forwards) that take the HR-head
+    kernel: ``use_pallas_head`` sets both, ``use_pallas_head_nograd`` the
+    no-grad ones (D steps, validation, generate, serving) only. Both need
+    ``use_fused_trunk``, as in the JAX package."""
+    fused = bool(getattr(cfg, "use_fused_trunk", False))
+    both = fused and bool(getattr(cfg, "use_pallas_head", False))
+    return both, both or (fused and bool(
+        getattr(cfg, "use_pallas_head_nograd", False)))
 
 
 def trunk_geometry(G) -> dict:
@@ -78,8 +120,13 @@ def kernel_trunk_fn(G, packed: Optional[dict] = None) -> Callable:
 
 
 def generate_fused(G, lr: torch.Tensor, z_terrain: torch.Tensor,
-                   packed: Optional[dict] = None) -> torch.Tensor:
-    """``G.forward`` with the trunk kernel. ``packed`` is
-    ``pack_trunk_weights(G.rrdbs, G.dtype)`` on lr's device; pass it to
-    skip repacking on every call."""
-    return generator_forward(G, lr, z_terrain, kernel_trunk_fn(G, packed))
+                   packed: Optional[dict] = None,
+                   head_packed: Optional[torch.Tensor] = None,
+                   head: bool = False) -> torch.Tensor:
+    """``G.forward`` with the trunk kernel, and with ``head`` the HR-head
+    kernel. ``packed`` is ``pack_trunk_weights(G.rrdbs, G.dtype)`` and
+    ``head_packed`` ``pack_head_weights`` of G's hr_conv0 weights, both on
+    lr's device; pass them to skip repacking on every call."""
+    return generator_forward(
+        G, lr, z_terrain, kernel_trunk_fn(G, packed),
+        head_fn=kernel_head_fn(G, head_packed) if head else None)

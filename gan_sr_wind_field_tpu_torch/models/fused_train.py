@@ -31,6 +31,7 @@ from torch.nn.grad import conv3d_weight
 
 from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     generator_forward,
+    kernel_head_fn,
     kernel_trunk_fn,
     trunk_geometry,
 )
@@ -125,10 +126,13 @@ def trainable_trunk_fn(G):
 def apply_trainable(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                     train: bool = True,
                     dropout_mask: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None):
-    """Differentiable generator forward with the trunk kernels: gradients
-    flow into G's parameters (the trunk's through ``TrainableTrunk``, the
+                    generator: Optional[torch.Generator] = None,
+                    head: bool = False):
+    """Differentiable generator forward with the trunk kernels (and with
+    ``head`` the HR-head kernel): gradients flow into G's parameters (the
+    trunk's through ``TrainableTrunk``, the head's through ``HRHead``, the
     rest through autograd) and match those of the module path."""
     return generator_forward(G, lr, z_terrain, trainable_trunk_fn(G),
                              train=train, dropout_mask=dropout_mask,
-                             generator=generator)
+                             generator=generator,
+                             head_fn=kernel_head_fn(G) if head else None)

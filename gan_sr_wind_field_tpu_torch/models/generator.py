@@ -25,7 +25,10 @@ from torch import nn
 
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.blocks import ConvLReLU, RRDB
-from gan_sr_wind_field_tpu_torch.models.fused_apply import generator_forward
+from gan_sr_wind_field_tpu_torch.models.fused_apply import (
+    generator_forward,
+    kernel_head_fn,
+)
 from gan_sr_wind_field_tpu_torch.models.fused_train import trainable_trunk_fn
 
 
@@ -91,6 +94,7 @@ class Generator3D(nn.Module):
 
     def forward(self, lr: torch.Tensor, z_terrain: torch.Tensor, *,
                 train: bool = False, trunk: str = "modules",
+                head: str = "modules",
                 dropout_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         """lr: (N, x, y, zl, C_in); z_terrain: (N, x·s, y·s, zl, 1).
@@ -98,17 +102,23 @@ class Generator3D(nn.Module):
         modules, autograd through them) or "kernel" (the trunk kernels,
         ``models/fused_train.py:trainable_trunk_fn``: with its backward
         kernel where a gradient is needed, one launch without residuals
-        where not). ``train`` turns on channel dropout, with
-        ``dropout_mask`` or drawn from ``generator``."""
+        where not). ``head`` picks how hr_conv0 and the channel dropout
+        run: "modules" or "kernel" (the HR-head kernel,
+        ``models/fused_apply.py:kernel_head_fn``). ``train`` turns on
+        channel dropout, with ``dropout_mask`` or drawn from
+        ``generator``."""
         if trunk == "modules":
             trunk_fn = self.trunk
         elif trunk == "kernel":
             trunk_fn = trainable_trunk_fn(self)
         else:
             raise ValueError(f"unknown trunk {trunk!r}")
-        return generator_forward(self, lr, z_terrain, trunk_fn, train=train,
-                                 dropout_mask=dropout_mask,
-                                 generator=generator)
+        if head not in ("modules", "kernel"):
+            raise ValueError(f"unknown head {head!r}")
+        return generator_forward(
+            self, lr, z_terrain, trunk_fn, train=train,
+            dropout_mask=dropout_mask, generator=generator,
+            head_fn=kernel_head_fn(self) if head == "kernel" else None)
 
 
 def _act_slope(act_type: str) -> float:

@@ -102,3 +102,13 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib_path, _, _ = build([name])[name]
     return ctypes.CDLL(str(lib_path))
+
+
+def warm(names) -> None:
+    """Build the named sources together and load them, so that the first
+    call that launches one of their kernels pays for neither."""
+    names = list(names)
+    if names:
+        build(names)
+        for name in names:
+            load_library(name)

@@ -57,11 +57,11 @@ enum Epilogue { kGrowth = 0, kLff = 1 };
 
 // One conv of the trunk over the virtual concat [state (nf channels),
 // growth (first cin - nf channels)].
-//   TAPS = 27: 3x3x3 growth conv; w is (27, cin, cout), taps x-major.
-//   TAPS = 1 : the 1x1x1 LFF;      w is (cin, cout).
+//   KS = 3: 3x3x3 growth conv; w is (27, cin, cout), taps x-major.
+//   KS = 1: the 1x1x1 LFF;      w is (cin, cout).
 // kGrowth writes LeakyReLU(acc) into growth[:, gout_off : gout_off + cout];
 // kLff writes the RDB (and, at RRDB ends, RRDB) residual update to sout.
-template <typename T, int TAPS, int MODE>
+template <typename T, int KS, int MODE>
 __global__ void __launch_bounds__(THREADS)
     trunk_conv(const T* __restrict__ state, const T* growth,
                const T* __restrict__ w, int nf, int gct, int cin, int cout,
@@ -72,8 +72,8 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.x * BM;
   const int o0 = blockIdx.y * BN;
   float acc[4][4];
-  conv_tile<T, TAPS>(state, nf, nf, growth, gct, w, cin, cout, X, Y, Z, rows,
-                     row0, o0, acc);
+  conv_tile<T, KS>(state, nf, nf, growth, gct, w, cin, cout, X, Y, Z, rows,
+                   row0, o0, acc);
 
   const int tx = threadIdx.x & 7;
   const int ty = threadIdx.x >> 3;
@@ -143,7 +143,7 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
     T* growth = states != nullptr ? growths + j * G : scratch + 3 * S;
     for (int k = 0; k < K; ++k) {
       const int cin = nf + gc * k;
-      trunk_conv<T, 27, kGrowth><<<grid_g, block, 0, stream>>>(
+      trunk_conv<T, 3, kGrowth><<<grid_g, block, 0, stream>>>(
           cur, growth, wc, nf, gct, cin, gc, X, Y, Z, rows, slope, growth,
           k * gc, nullptr, nullptr, nullptr, 0.f, 0.f, 0);
       const cudaError_t e = cudaGetLastError();

@@ -57,7 +57,7 @@ enum Epilogue { kLffBack = 0, kConvBack = 1 };
 
 // ds (rows, nf) += the first nf output channels, rounded; the rest go to
 // dg (rows, gct): overwritten (kLffBack) or accumulated (kConvBack).
-template <typename T, int TAPS, int MODE>
+template <typename T, int KS, int MODE>
 __global__ void __launch_bounds__(THREADS)
     bwd_conv(const T* __restrict__ a, int s_a, const T* __restrict__ w,
              int cin, int cout, int X, int Y, int Z, int rows, int nf,
@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.x * BM;
   const int o0 = blockIdx.y * BN;
   float acc[4][4];
-  conv_tile<T, TAPS>(a, cin, s_a, a, s_a, w, cin, cout, X, Y, Z, rows, row0,
-                     o0, acc);
+  conv_tile<T, KS>(a, cin, s_a, a, s_a, w, cin, cout, X, Y, Z, rows, row0,
+                   o0, acc);
 
   const int tx = threadIdx.x & 7;
   const int ty = threadIdx.x >> 3;
@@ -187,7 +187,7 @@ int trunk_backward(const T* growths, const T* dout, const T* wconv_t,
       const int cout = nf + gc * k;
       bwd_mask<T><<<ew_blocks((size_t)rows * gc), 256, 0, stream>>>(
           dg, growths + j * G, du_j, rows, gc, gct, k, slope);
-      bwd_conv<T, 27, kConvBack>
+      bwd_conv<T, 3, kConvBack>
           <<<dim3(row_blocks, (cout + BN - 1) / BN), block, 0, stream>>>(
               du_j + k * gc, gct, wconv_t + off, gc, cout, X, Y, Z, rows, nf,
               gct, dx, dg);

@@ -1,10 +1,11 @@
 // Implicit-GEMM tile shared by the RRDB trunk kernels (rdb_trunk.cu, the
-// forward, and rdb_trunk_bwd.cu, the backward-dx).
+// forward, and rdb_trunk_bwd.cu, the backward-dx) and the HR head
+// (hr_head.cu).
 //
-// A trunk conv over channels-last rows (R = X*Y*Z rows per sample, z
-// fastest) is a GEMM: rows x output channels, reduced over taps x input
-// channels. A block owns a BM-row x BN-column output tile; for each tap
-// and each BK-channel slice of the input it gathers the shifted input rows
+// A conv over channels-last rows (R = X*Y*Z rows per sample, z fastest)
+// is a GEMM: rows x output channels, reduced over taps x input channels.
+// A block owns a BM-row x BN-column output tile; for each tap and each
+// BK-channel slice of the input it gathers the shifted input rows
 // (zeros outside the volume) and the matching weight slice into shared
 // memory, then each of the THREADS threads accumulates a 4x4 register tile
 // with f32 FMAs on the CUDA cores.
@@ -51,11 +52,11 @@ __device__ __forceinline__ float rnd(float v) {
 //   Input channel c of row r is a0[r*s0 + c] for c < n0, else
 //   a1[r*s1 + c - n0] (a virtual concat of two buffers), zero where the
 //   tap leaves the volume.
-//   TAPS = 27: 3x3x3 conv, w is (27, cin, cout), taps x-major
-//              (t = (dx+1)*9 + (dy+1)*3 + (dz+1), row offset dx*Y*Z+dy*Z+dz);
-//   TAPS = 1 : 1x1x1 conv, w is (cin, cout).
+//   KS is the odd kernel size: w is (KS^3, cin, cout), taps x-major
+//   (t = (dx+hp)*KS^2 + (dy+hp)*KS + (dz+hp), hp = (KS-1)/2, row offset
+//   dx*Y*Z + dy*Z + dz); KS = 1 is a 1x1x1 conv, w (cin, cout).
 // a1 may alias the buffer the caller's epilogue writes; a0 may not.
-template <typename T, int TAPS>
+template <typename T, int KS>
 __device__ __forceinline__ void conv_tile(
     const T* __restrict__ a0, int n0, int s0, const T* a1, int s1,
     const T* __restrict__ w, int cin, int cout, int X, int Y, int Z,
@@ -63,6 +64,9 @@ __device__ __forceinline__ void conv_tile(
   __shared__ float As[BM][BK + 1];            // [row][channel], padded
   __shared__ __align__(16) float Bs[BK][BN];  // [channel][out]
   __shared__ int sx[BM], sy[BM], sz[BM];      // coordinates of the rows
+  static_assert(KS % 2 == 1, "odd kernel sizes only");
+  constexpr int HP = (KS - 1) / 2;
+  constexpr int TAPS = KS * KS * KS;
 
   const int tid = threadIdx.x;
   const int YZ = Y * Z;
@@ -76,7 +80,7 @@ __device__ __forceinline__ void conv_tile(
       sy[tid] = (rem / Z) % Y;
       sz[tid] = rem % Z;
     } else {
-      sx[tid] = -4;  // never inside the volume, whatever the tap
+      sx[tid] = -KS;  // -KS + HP < 0: never inside the volume, any tap
       sy[tid] = 0;
       sz[tid] = 0;
     }
@@ -95,9 +99,9 @@ __device__ __forceinline__ void conv_tile(
   __syncthreads();
 
   for (int t = 0; t < TAPS; ++t) {
-    const int dx = TAPS == 27 ? t / 9 - 1 : 0;
-    const int dy = TAPS == 27 ? (t / 3) % 3 - 1 : 0;
-    const int dz = TAPS == 27 ? t % 3 - 1 : 0;
+    const int dx = t / (KS * KS) - HP;
+    const int dy = (t / KS) % KS - HP;
+    const int dz = t % KS - HP;
     const int shift = dx * YZ + dy * Z + dz;
     const T* wt = w + (size_t)t * cin * cout;
 

@@ -24,9 +24,14 @@ update the state's tensors in place and return the same state. Randomness
 With ``use_fused_trunk`` (and a LeakyReLU slope > 0) the G step's trunk
 runs as the trunk kernel with residuals and the backward kernel
 (``models/fused_train.py``), and the D step's G forward as the trunk
-kernel. The port has no rematerialisation: ``use_remat`` is read but
-changes nothing here. With ``use_pallas_stencil`` the physics gradients run as the
-stencil kernel and its adjoint (``ops/stencil.py``).
+kernel. With ``use_pallas_head`` as well, hr_conv0 runs as the HR-head
+kernel (``ops/hr_head.py``) in every G forward; with
+``use_pallas_head_nograd`` only in those without a gradient (the D step,
+validation, ``generate``). The port has no rematerialisation:
+``use_remat`` is read but changes nothing here. With
+``use_pallas_stencil`` the physics gradients run as the stencil kernel
+and its adjoint (``ops/stencil.py``). On a CUDA device the constructor
+builds the kernels the configuration needs.
 """
 
 from __future__ import annotations
@@ -40,10 +45,12 @@ from torch.func import functional_call
 
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
+from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
 from gan_sr_wind_field_tpu_torch.models.generator import (
     _act_slope,
     build_generator,
 )
+from gan_sr_wind_field_tpu_torch.ops.kernels import build
 from gan_sr_wind_field_tpu_torch.ops.metrics import psnr
 from gan_sr_wind_field_tpu_torch.ops.physics import (
     divergence_3d,
@@ -135,9 +142,6 @@ class WindFieldGAN:
         if getattr(t, "optimizer_state_dtype", "float32") == "bfloat16_sr":
             raise NotImplementedError(
                 f"optimizer_state_dtype='bfloat16_sr' {_NOT_PORTED}")
-        if getattr(cfg, "use_pallas_head", False):
-            raise NotImplementedError(f"use_pallas_head (the HR-head "
-                                      f"kernel) {_NOT_PORTED}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -177,11 +181,21 @@ class WindFieldGAN:
             and trunk_fusable(G.num_rdb_convs, G.lff_kern_size, g.conv_mode)
         )
         self._trunk = "kernel" if self.use_fused_trunk else "modules"
-        self._wind_gradient = (
-            WindFieldGradient.apply
-            if getattr(cfg, "use_pallas_stencil", False)
-            else wind_field_gradient
-        )
+        # the HR-head kernel rides on the trunk kernels, as in the JAX
+        # package; with use_pallas_head_nograd alone only forwards without
+        # a gradient (D step, validation, generate) take it
+        head_train, head_nograd = head_kernel_flags(cfg)
+        fused = self.use_fused_trunk
+        self._head_train = "kernel" if fused and head_train else "modules"
+        self._head_nograd = "kernel" if fused and head_nograd else "modules"
+        use_stencil = getattr(cfg, "use_pallas_stencil", False)
+        self._wind_gradient = (WindFieldGradient.apply if use_stencil
+                               else wind_field_gradient)
+        if self.device.type == "cuda":  # the first step pays no build
+            build.warm(
+                (["rdb_trunk", "rdb_trunk_bwd"] if fused else [])
+                + (["stencil"] if use_stencil else [])
+                + (["hr_head"] if self._head_nograd == "kernel" else []))
 
         if self.gan_type not in ("relativistic", "relativisticavg"):
             raise NotImplementedError(
@@ -281,14 +295,18 @@ class WindFieldGAN:
         return functional_call(self.D, {**params, **stats}, (x,), kw)
 
     def _g_forward_nograd(self, params_G: Params, lr, z) -> torch.Tensor:
-        """Eval-mode G forward, no gradient: the trunk kernel if enabled."""
+        """Eval-mode G forward, no gradient: the trunk kernel if enabled,
+        the HR-head kernel if either head flag is on."""
         with torch.no_grad():
-            return self._g_apply(params_G, lr, z, trunk=self._trunk)
+            return self._g_apply(params_G, lr, z, trunk=self._trunk,
+                                 head=self._head_nograd)
 
     def _g_forward_train(self, params_G: Params, lr, z, train: bool,
                          gen: torch.Generator, dropout_mask=None):
+        head = (self._head_train if torch.is_grad_enabled()
+                else self._head_nograd)
         return self._g_apply(
-            params_G, lr, z, train=train, trunk=self._trunk,
+            params_G, lr, z, train=train, trunk=self._trunk, head=head,
             dropout_mask=dropout_mask, generator=gen)
 
     def generate(self, state: GANTrainState, lr, z) -> torch.Tensor:

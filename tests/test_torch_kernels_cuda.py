@@ -9,10 +9,18 @@ Each test skips where there is no card.
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
+from gan_sr_wind_field_tpu_torch.ops import hr_head as head_mod
 from gan_sr_wind_field_tpu_torch.ops import rdb_trunk, stencil
+from gan_sr_wind_field_tpu_torch.ops.hr_head import (
+    hr_head,
+    hr_head_conv,
+    hr_head_conv_reference,
+    pack_head_weights,
+)
 from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
@@ -205,5 +213,82 @@ def test_trainable_trunk_grads_match_autograd_on_card(
         (out * tgt).sum().backward()
         grads.append([packed["conv"].grad, packed["lff"].grad,
                       packed["bias"].grad, xv.grad])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4
+
+
+def _head_setup(nf, tc, C, k, shape, masked, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    wx = torch.randn(C, nf, k, k, k, generator=gen) * (2 / (nf * k ** 3)) ** .5
+    wt = torch.randn(C, tc, k, k, k, generator=gen) * (2 / (tc * k ** 3)) ** .5
+    x = torch.randn(*shape, nf, generator=gen)
+    t = torch.randn(*shape, tc, generator=gen)
+    dm = None
+    if masked:  # about 10 % of the channels dropped, the rest scaled
+        dm = torch.where(torch.rand(shape[0], C, generator=gen) < 0.9,
+                         1 / 0.9, 0.0)
+    return [None if v is None else v.to(device)
+            for v in (wx, wt, x, t, dm)]
+
+
+# (nf, tc, C, spatial): nf + tc = 40 and C = 24 straddle the 32-wide
+# channel slices and column tiles; 128 + 16 -> 144 are milestone9k's widths
+HEAD_GEOMS = [(24, 16, 24, (2, 6, 5, 4)), (128, 16, 144, (2, 16, 16, 10))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("nf,tc,C,shape", HEAD_GEOMS)
+def test_hr_head_kernel_matches_plain_version_on_card(
+        cuda_device, monkeypatch, dtype, tol, masked, k, nf, tc, C, shape):
+    """The HR-head kernel against hr_head_conv_reference on the same
+    inputs in the same dtype: both sum in float32 and round once, so only
+    the order of the sums differs."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    wx, wt, x, t, dm = _head_setup(nf, tc, C, k, shape, masked, cuda_device,
+                                   nf + C + k)
+    packed = pack_head_weights(wx, wt, dtype, cuda_device)
+    x, t = x.to(dtype), t.to(dtype)
+    dm = None if dm is None else dm.to(dtype)
+    before = head_mod.launches
+    got = hr_head_conv(packed, x, t, dm, k=k, negative_slope=0.2)
+    torch.cuda.synchronize()
+    assert head_mod.launches == before + 1
+    want = hr_head_conv_reference(packed, x, t, dm, k=k, negative_slope=0.2)
+    assert got.shape == want.shape == (*shape, C) and got.dtype == dtype
+    assert _rel(got.float(), want.float()) <= tol
+    if masked:
+        assert (got[(dm == 0)[:, None, None, None, :].expand_as(got)]
+                == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_hr_head_grads_match_autograd_on_card(cuda_device, monkeypatch,
+                                              masked):
+    """HRHead's four gradients against autograd of the plain head,
+    float32, TF32 off: 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    wx, wt, x, t, dm = _head_setup(24, 16, 24, 5, (2, 6, 5, 4), masked,
+                                   cuda_device, 7 + masked)
+    cot = torch.randn(2, 6, 5, 4, 24, device=cuda_device)
+    grads = []
+    for kernel in (True, False):
+        leaves = [v.clone().requires_grad_() for v in (wx, wt, x, t)]
+        if kernel:
+            h = hr_head(*leaves, dm, k=5, negative_slope=0.2)
+        else:
+            pre = (F.conv3d(leaves[2].permute(0, 4, 1, 2, 3), leaves[0],
+                            padding=2)
+                   + F.conv3d(leaves[3].permute(0, 4, 1, 2, 3), leaves[1],
+                              padding=2))
+            h = F.leaky_relu(pre, 0.2).permute(0, 2, 3, 4, 1)
+            if dm is not None:
+                h = h * dm[:, None, None, None, :]
+        (h * cot).sum().backward()
+        grads.append([v.grad for v in leaves])
     for got, want in zip(*grads):
         assert _rel(got, want) <= 1e-4

@@ -7,7 +7,10 @@ generator on one NVIDIA card through the hand-written CUDA kernels.
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA source of the port (one nvcc call each, in parallel),
-     with each one's seconds and ptxas registers and spills;
+     with each one's seconds and ptxas registers and spills; for the bf16
+     trunk kernels on the tensor cores (tc_growth_fwd, tc_lff_fwd,
+     tc_growth_bwd, tc_lff_bwd) their ptxas report and the HMMA/HGMMA
+     instructions cuobjdump -sass finds in each (a count of 0 fails);
   3. each kernel against its plain PyTorch version at full width (16 RRDB
      x 3 RDB, nf=128, gc=32, batch 2, LR 16x16x10, weights at init scale
      1.0, non-zero LFF bias), float32 with TF32 off and bfloat16 against
@@ -51,7 +54,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (the rest of the G step split into its layers, D, losses and Adam),
      and each training kernel beside its plain version, its bound and a
      bf16 cuDNN/cuBLAS chain (for the residual mode one that keeps its
-     states and growths). Before they are timed, the residual mode and
+     states and growths). The trunk kernels and their library chains are
+     timed in turns, kernel-library-library-kernel over 3 rounds, and the
+     medians kept (serving at batch 8, residual mode and backward at 32),
+     and one call of each under torch.profiler splits its time by kernel
+     against the time the card waits on the host loop.
+     Before they are timed, the residual mode and
      the trunk backward are held against their bf16 plain versions at
      batch 32 on the trunk input of a training batch (<= 3e-2), with the
      count of growths on the other side of 0. Then the head kernel at
@@ -65,6 +73,8 @@ import copy
 import json
 import math
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -85,6 +95,11 @@ D_STEP_LAUNCHES = (1, 0, 0, 0, 0)
 G_STEP_LAUNCHES_HEAD = (1, 1, 2, 1, 1)
 D_STEP_LAUNCHES_HEAD = (1, 0, 0, 0, 1)
 LAUNCH_LABELS = "trunk/bwd/gradient/adjoint/head"
+# the bf16 trunk kernels on the tensor cores, by library
+TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
+              "rdb_trunk_bwd": ("tc_growth_bwd", "tc_lff_bwd")}
+TC_MMA = "mma.sync"  # the tensor-core instruction trunk_mma.cuh issues
+TURN_ROUNDS = 3
 # limits set from measurements, reasons in PERF.md (section 6): the trainable
 # trunk end to end, float32 (5.5e-4 measured, from LeakyReLU sign flips of
 # pre-activations within rounding of 0), and one G step's bf16 gradients,
@@ -134,6 +149,128 @@ def cuda_ms(fn, reps=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def alternate(kernel, library, rounds=TURN_ROUNDS):
+    """A kernel and its library chain timed in turns, kernel-library-
+    library-kernel, each turn as cuda_ms: (median kernel ms, median
+    library ms, the kernel's and the library's turns)."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel))
+        ls.append(cuda_ms(library))
+        ls.append(cuda_ms(library))
+        ks.append(cuda_ms(kernel))
+    return statistics.median(ks), statistics.median(ls), ks, ls
+
+
+def log_turns(label, turns, card):
+    k_ms, l_ms, ks, ls = turns
+
+    def each(ts):
+        return ", ".join(f"{t:.3f}" for t in ts)
+
+    log(f"{label}: kernel median {k_ms:.3f} ms ({each(ks)}), library "
+        f"median {l_ms:.3f} ms ({each(ls)}); kernel "
+        f"{'faster' if k_ms < l_ms else 'slower'} by "
+        f"{max(k_ms, l_ms) / min(k_ms, l_ms):.2f}x ({card})")
+
+
+def kernel_split(label, fn, card):
+    """One call of fn under torch.profiler: the card's time by kernel
+    against the call's CUDA-event time; what is left is the card waiting
+    on the host loop."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    wall = start.elapsed_time(end)
+    parts = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        name = next((k for k in (*TC_KERNELS["rdb_trunk"],
+                                 *TC_KERNELS["rdb_trunk_bwd"], "bwd_prep",
+                                 "bwd_add", "Memcpy", "Memset")
+                     if k in e.key), "other")
+        ms, n = parts.get(name, (0.0, 0))
+        parts[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in parts.values())
+    if not busy:
+        log(f"{label}: the profiler saw no device time")
+        return
+    log(f"{label}: {wall:.3f} ms, the card busy {busy:.3f} ms "
+        f"({100 * busy / wall:.1f} %) ({card})")
+    for name, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {name:<14} {n:4d} launches {ms:9.3f} ms "
+            f"({1e3 * ms / n:8.1f} us each, {100 * ms / busy:5.1f} %)")
+
+
+def ptxas_reports(log_text):
+    """{kernel name: its ptxas lines} from an nvcc -Xptxas -v log."""
+    out, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+        elif fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.strip())
+    return out
+
+
+def sass_mma_counts(lib_path):
+    """{kernel name: HMMA/HGMMA instructions} in a built library, from
+    cuobjdump -sass of the toolkit that built it; None without cuobjdump."""
+    from gan_sr_wind_field_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            out[fn] += 1
+    return out
+
+
+def report_tc_kernels(built):
+    """Phase 2 for the bf16 trunk kernels: each one's ptxas report and
+    HMMA/HGMMA count. Returns {library: the count over its kernels}
+    (None where cuobjdump is missing); fails on a count of 0."""
+    counts = {}
+    for lib, names in TC_KERNELS.items():
+        path, _, report = built[lib]
+        ptxas = ptxas_reports(report)
+        sass = sass_mma_counts(path)
+        counts[lib] = None if sass is None else 0
+        for name in names:
+            for fn, lines in ptxas.items():
+                if name in fn:
+                    log(f"  {lib} {name} ptxas: {'; '.join(lines)}")
+            if sass is None:
+                log(f"  {lib} {name}: cuobjdump not found, no SASS count")
+                continue
+            n = sum(c for fn, c in sass.items() if name in fn)
+            log(f"  {lib} {name}: {n} HMMA/HGMMA instructions in its SASS")
+            if n == 0:
+                fail(f"{name} has no tensor-core instruction in its SASS")
+            counts[lib] += n
+    return counts
 
 
 def counters():
@@ -942,15 +1079,28 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
         for label, a, b in zip(("d_x", "dU", "dLFF"), got, want):
             check(f"backward, {label}", rel_l2(a.float(), b.float()), 3e-2)
         del got, want
-        k1r_ms = cuda_ms(lambda: rrdb_trunk(packed, x, with_residuals=True,
-                                            **kw))
+        turns1 = alternate(
+            lambda: rrdb_trunk(packed, x, with_residuals=True, **kw),
+            lambda: cudnn_trunk(lib_w, x, keep=True))
+        log_turns(f"trunk residual mode at batch {n} vs its bf16 cuDNN chain",
+                  turns1, card)
+        k1r_ms, k1r_lib_ms = turns1[:2]
         k1r_plain_ms = cuda_ms(lambda: rrdb_trunk_reference(
             packed, x, with_residuals=True, **kw))
-        k2_ms = cuda_ms(lambda: rrdb_trunk_bwd(packed_t, growths, d_out, **kw))
+        turns2 = alternate(
+            lambda: rrdb_trunk_bwd(packed_t, growths, d_out, **kw),
+            lambda: cudnn_trunk_bwd(lib_w, growths, d_out))
+        log_turns(f"trunk backward at batch {n} vs its bf16 cuDNN/cuBLAS "
+                  f"chain", turns2, card)
+        k2_ms, k2_lib_ms = turns2[:2]
         k2_plain_ms = cuda_ms(lambda: rrdb_trunk_bwd_reference(
             packed_t, growths, d_out, **kw))
-        k2_lib_ms = cuda_ms(lambda: cudnn_trunk_bwd(lib_w, growths, d_out))
-        k1r_lib_ms = cuda_ms(lambda: cudnn_trunk(lib_w, x, keep=True))
+        kernel_split(f"trunk residual mode at batch {n}, by kernel",
+                     lambda: rrdb_trunk(packed, x, with_residuals=True, **kw),
+                     card)
+        kernel_split(f"trunk backward at batch {n}, by kernel",
+                     lambda: rrdb_trunk_bwd(packed_t, growths, d_out, **kw),
+                     card)
         _, dU, dLFF = rrdb_trunk_bwd(packed_t, growths, d_out, **kw)
         dw_ms = cuda_ms(lambda: _dw_stage(states, growths, dU, dLFF,
                                           tuple(x.shape[:4]), nf, gc,
@@ -1013,7 +1163,10 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
             ("adjoint", k4_ms, k4_plain_ms, b4, None)):
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"library {'n/a' if lib is None else f'{lib:.3f} ms'}, bound "
-            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f})")
+            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f}); "
+            f"{100 * b[0] / ms:.2f} % of the bound"
+            + (f", {H100_BF16_FLOPS * b[2] / ms / 1e12:.1f} TFLOP/s"
+               if label.startswith("trunk") else ""))
     times = dict(g_ms=g_ms, d_ms=d_ms, k1r=(k1r_ms, k1r_plain_ms, b1),
                  k1r_lib=k1r_lib_ms,
                  k2=(k2_ms, k2_plain_ms, b2, k2_lib_ms),
@@ -1275,12 +1428,15 @@ def main():
 
     # ----------------------------------------------------------- 2. build
     t = time.monotonic()
-    for name, (path, secs, report) in build.build().items():
+    built = build.build()
+    for name, (path, secs, report) in built.items():
         log(f"built {name}: {os.path.relpath(path, REPO)} in {secs:.1f} s")
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"build total {time.monotonic() - t:.1f} s")
+    log("bf16 trunk kernels on the tensor cores:")
+    mma_counts = report_tc_kernels(built)
 
     # ------------------------------------------- 3. kernels vs plain versions
     cfg = load_config(CFG)
@@ -1411,7 +1567,6 @@ def main():
     xb = torch.randn(8, lr_xy, lr_xy, zl, nf, generator=gen).to(
         dev, torch.bfloat16)
     kw = dict(geom)
-    ms = cuda_ms(lambda: rrdb_trunk(sr.packed, xb, **kw))
     plain_ms = cuda_ms(lambda: rrdb_trunk_reference(sr.packed, xb, **kw))
     lib_w = []
     for r in sr.G.rrdbs:
@@ -1422,8 +1577,14 @@ def main():
                 rdb.lff.bias.detach().to(torch.bfloat16),
             ))
     with torch.inference_mode():
-        lib_ms = cuda_ms(lambda: cudnn_trunk(lib_w, xb))
+        turns = alternate(lambda: rrdb_trunk(sr.packed, xb, **kw),
+                          lambda: cudnn_trunk(lib_w, xb))
         fwd_ms = cuda_ms(lambda: sr._generate(lr_d, z_d))
+    log_turns("trunk kernel at batch 8 vs its bf16 cuDNN chain", turns, card)
+    ms, lib_ms = turns[:2]
+    with torch.inference_mode():
+        kernel_split("trunk kernel at batch 8, by kernel",
+                     lambda: rrdb_trunk(sr.packed, xb, **kw), card)
     vox = 8 * hr_xy * hr_xy * zl
     log(f"trunk kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN bf16 "
         f"chain {lib_ms:.3f} ms per batch-8 forward ({card})")
@@ -1441,7 +1602,9 @@ def main():
     b1 = bound(2 * trunk_macs(rows, J, nf, gc, K), nbytes, H100_BF16_FLOPS)
     del lib_w
     log(f"trunk bound at batch 8: {b1[0]:.4f} ms by {b1[1]} (ops "
-        f"{b1[2]:.4f} ms, bytes {b1[3]:.4f} ms)")
+        f"{b1[2]:.4f} ms, bytes {b1[3]:.4f} ms); the kernel at "
+        f"{100 * b1[0] / ms:.2f} % of it, "
+        f"{H100_BF16_FLOPS * b1[2] / ms / 1e12:.1f} TFLOP/s")
     tt = time_training(gan, state, batch, geom, nf, gc, nconv, dev, card)
     th = time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, head_dims,
                    dev, card)
@@ -1463,9 +1626,11 @@ def main():
             launches_serve=serve_launches, launches_train=tl[0],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
             residual_bound_ms=tt["k1r"][2][0],
-            residual_library_ms=tt["k1r_lib"]),
+            residual_library_ms=tt["k1r_lib"], mma=TC_MMA,
+            sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429", tl[1],
-            max_abs_bwd, tt["k2"][:3], tt["k2"][3]),
+            max_abs_bwd, tt["k2"][:3], tt["k2"][3], mma=TC_MMA,
+            sass_mma_count=mma_counts["rdb_trunk_bwd"]),
         row("wind_gradient", "stencil.cu", "stencil.py:78", tl[2], err_grad,
             tt["k3"], None),
         row("wind_gradient_adjoint", "stencil.cu", "stencil.py:166", tl[3],

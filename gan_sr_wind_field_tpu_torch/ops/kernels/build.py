@@ -58,8 +58,9 @@ def library_path(name: str) -> Path:
 def build(names=None) -> dict:
     """Compile the named sources (default: all) that have no library with a
     matching hash yet, one ``nvcc`` process per source, all started
-    together. Returns ``{name: (path, seconds, ptxas report)}``; raises on
-    the first failed or timed-out build."""
+    together. Returns ``{name: (path, seconds, ptxas report)}`` (seconds 0
+    and the report kept beside the library where it was built before);
+    raises on the first failed or timed-out build."""
     names = sources() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -67,7 +68,8 @@ def build(names=None) -> dict:
     for name in names:
         lib = library_path(name)
         if lib.exists():
-            report[name] = (lib, 0.0, "")
+            log = lib.with_suffix(".log")
+            report[name] = (lib, 0.0, log.read_text() if log.exists() else "")
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -85,6 +87,7 @@ def build(names=None) -> dict:
                 ) from None
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)  # atomic: concurrent builders never see half
             report[name] = (lib, time.monotonic() - t0, log)
     finally:

@@ -31,23 +31,37 @@
 // 32), 0.60 ms at 3.35 TB/s against the 5.10 ms of operations: still
 // bound by operations.
 //
-// Design of this first version: every conv is an implicit GEMM (rows x
-// output channels, reduction over taps x input channels) on the CUDA cores
-// with f32 FMAs. A block owns a 64-row x 32-channel output tile; for each
-// tap and each 32-channel slice of the concat it gathers the shifted input
-// rows (zeros outside the volume) and the matching weight slice into shared
-// memory, then every thread accumulates a 4x4 register tile. The concat
-// never exists: channels below nf come from the state buffer, the rest from
-// the growth buffer, into which each growth conv writes its gc channels.
-// The host loop launches K growth convs and one LFF per RDB on the caller's
-// stream, rotating three state buffers so the RRDB input stays readable.
-// In residual mode the per-RDB input states and growth buffers are the
-// J-major residual outputs themselves, so the mode costs no extra pass:
-// only the copy of x into states[0].
-// The tensor cores (wgmma fed by TMA, bf16 in, f32 accumulate) are what
-// the bound above assumes; they are the work of a later version.
+// Design. A host loop launches, per RDB, K growth convs and one LFF on the
+// caller's stream, rotating three state buffers so the RRDB input stays
+// readable. The concat never exists: channels below nf come from the
+// state buffer, the rest from the growth buffer, into which each growth
+// conv writes its gc channels. In residual mode the per-RDB input states
+// and growth buffers are the J-major residual outputs themselves, so the
+// mode costs no extra pass: only the copy of x into states[0].
+//
+// bf16 runs on the tensor cores (trunk_mma.cuh): mma.sync m16n8k16 with
+// f32 accumulation, operands by ldmatrix from swizzled shared memory that
+// a 3-slot cp.async ring fills. Each 32-channel slice of a growth conv's
+// input is loaded as three row windows, one per dx, each read by its 9
+// taps, so the input crosses L2 ~3.3 times per conv instead of 27.
+// Tiles per conv shape:
+//   growth conv (N = gc = 32, K = 27 (nf + gc k)): 256 rows x 32 columns
+//     per block, 8 warps of 32 x 32, 2 blocks per SM;
+//   LFF (N = nf = 128, K = nf + gc K = 256, no halo): 64 x 128 per block,
+//     4 warps of 32 x 64.
+// What bounds it on this card, short of the dense bf16 rate the bound
+// assumes: per warp, every 8 mma.sync wait on 4 ldmatrix and on address
+// arithmetic, and every thread also issues the cp.async copies of the
+// next stages, with 16 warps per SM to hide the latencies: this work, not
+// the tensor instruction's rate, sets the pace (PERF.md). The float32
+// instantiations stay on the CUDA cores (trunk_gemm.cuh: f32 FMAs, 64 x 32
+// tiles): the tensor cores take f32 only as TF32, which would break the
+// float32 checks.
+
+#include <type_traits>
 
 #include "trunk_gemm.cuh"
+#include "trunk_mma.cuh"
 
 namespace {
 
@@ -55,8 +69,8 @@ using namespace windsr;
 
 enum Epilogue { kGrowth = 0, kLff = 1 };
 
-// One conv of the trunk over the virtual concat [state (nf channels),
-// growth (first cin - nf channels)].
+// One conv of the float32 trunk over the virtual concat [state (nf
+// channels), growth (first cin - nf channels)], on the CUDA cores.
 //   KS = 3: 3x3x3 growth conv; w is (27, cin, cout), taps x-major.
 //   KS = 1: the 1x1x1 LFF;      w is (cin, cout).
 // kGrowth writes LeakyReLU(acc) into growth[:, gout_off : gout_off + cout];
@@ -100,6 +114,145 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------- bf16, on the tensor cores
+using tc::bf16;
+using tc::ld2;
+using tc::st2;
+using GrowthTile = tc::Tile<3, 256, 32, 8, 1, 3>;
+using LffTile = tc::Tile<1, 64, 128, 2, 2, 3>;
+
+// LeakyReLU in f32, rounded, into growth[:, off : off + gc]
+struct GrowthEpi {
+  bf16* gout;
+  int gct, off;
+  float slope;
+  template <int NT>
+  __device__ void row(int r, int ob, const float (&v)[NT][2], int cout,
+                      bool pairs) const {
+    bf16* g = gout + (size_t)r * gct + off;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int o = ob + 8 * j;
+      if (o >= cout) continue;
+      const float a = v[j][0], b = v[j][1];
+      st2(g, o, cout, pairs, a >= 0.f ? a : a * slope,
+          b >= 0.f ? b : b * slope);
+    }
+  }
+};
+
+// the LFF (+ bias) rounded, then the RDB and, at RRDB ends, the RRDB
+// residual, each rounded, with the scales rounded first
+struct LffEpi {
+  const bf16* state;
+  const bf16* bias;
+  const bf16* rres;
+  bf16* sout;
+  int nf;
+  float rdb_scale, rrdb_scale;
+  int rrdb_end;
+  __device__ float update(float acc, float b, float s, float q) const {
+    const float lff = rnd<bf16>(acc + b);
+    const float nw = rnd<bf16>(s + rnd<bf16>(lff * rnd<bf16>(rdb_scale)));
+    return rrdb_end ? rnd<bf16>(q + rnd<bf16>(nw * rnd<bf16>(rrdb_scale)))
+                    : nw;
+  }
+  template <int NT>
+  __device__ void row(int r, int ob, const float (&v)[NT][2], int cout,
+                      bool pairs) const {
+    const size_t i0 = (size_t)r * nf;
+    float2 s[NT], q[NT], b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int o = ob + 8 * j;
+      if (o >= cout) continue;
+      s[j] = ld2(state + i0, o, cout, pairs);
+      b[j] = ld2(bias, o, cout, pairs);
+      q[j] = rrdb_end ? ld2(rres + i0, o, cout, pairs) : make_float2(0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int o = ob + 8 * j;
+      if (o >= cout) continue;
+      st2(sout + i0, o, cout, pairs, update(v[j][0], b[j].x, s[j].x, q[j].x),
+          update(v[j][1], b[j].y, s[j].y, q[j].y));
+    }
+  }
+};
+
+__global__ void __launch_bounds__(GrowthTile::THREADS)
+    tc_growth_fwd(tc::ConvArgs p, GrowthEpi epi) {
+  tc::conv_mma<GrowthTile>(p, epi);
+}
+
+__global__ void __launch_bounds__(LffTile::THREADS)
+    tc_lff_fwd(tc::ConvArgs p, LffEpi epi) {
+  tc::conv_mma<LffTile>(p, epi);
+}
+
+// The launches of one trunk: float32 on conv_tile, bf16 on the tensor
+// cores with copies of vec channels.
+template <typename T>
+struct Launcher {
+  int X, Y, Z, rows, nf, gct, vec;
+  cudaStream_t stream;
+
+  int prepare() { return 0; }
+
+  int growth(const T* cur, T* growth, const T* w, int cin, int gc, int k,
+             float slope) {
+    const dim3 grid((rows + BM - 1) / BM, (gc + BN - 1) / BN);
+    trunk_conv<T, 3, kGrowth><<<grid, THREADS, 0, stream>>>(
+        cur, growth, w, nf, gct, cin, gc, X, Y, Z, rows, slope, growth,
+        k * gc, nullptr, nullptr, nullptr, 0.f, 0.f, 0);
+    return (int)cudaGetLastError();
+  }
+
+  int lff(const T* cur, const T* growth, const T* w, const T* bias,
+          const T* rres, T* nxt, float rdb_scale, float rrdb_scale,
+          int rrdb_end) {
+    const dim3 grid((rows + BM - 1) / BM, (nf + BN - 1) / BN);
+    trunk_conv<T, 1, kLff><<<grid, THREADS, 0, stream>>>(
+        cur, growth, w, nf, gct, nf + gct, nf, X, Y, Z, rows, 0.f, nullptr,
+        0, bias, rres, nxt, rdb_scale, rrdb_scale, rrdb_end);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <>
+struct Launcher<bf16> {
+  int X, Y, Z, rows, nf, gct, vec;
+  cudaStream_t stream;
+
+  int prepare() {
+    return tc::allow_smem(tc_growth_fwd) && tc::allow_smem(tc_lff_fwd)
+               ? 0
+               : (int)cudaErrorInvalidValue;
+  }
+
+  tc::ConvArgs args(const bf16* cur, const bf16* growth, const bf16* w,
+                    int cin, int cout) const {
+    return tc::ConvArgs{cur, growth, w, nf, nf, gct, cin, cout,
+                        X, Y, Z, rows, vec};
+  }
+
+  int growth(const bf16* cur, bf16* growth, const bf16* w, int cin, int gc,
+             int k, float slope) {
+    const GrowthEpi epi{growth, gct, k * gc, slope};
+    const tc::ConvArgs p = args(cur, growth, w, cin, gc);
+    return tc::launch<GrowthTile>(tc_growth_fwd, p, epi, stream);
+  }
+
+  int lff(const bf16* cur, const bf16* growth, const bf16* w,
+          const bf16* bias, const bf16* rres, bf16* nxt, float rdb_scale,
+          float rrdb_scale, int rrdb_end) {
+    const LffEpi epi{cur, bias, rres, nxt, nf, rdb_scale, rrdb_scale,
+                     rrdb_end};
+    return tc::launch<LffTile>(tc_lff_fwd, args(cur, growth, w, nf + gct, nf),
+                               epi, stream);
+  }
+};
+
 // The whole trunk: J RDBs, K growth convs + one LFF each, on `stream`.
 // Serving mode (states == nullptr): scratch holds 3 state buffers
 // (rows x nf) that rotate so the RRDB input stays readable, then the
@@ -107,13 +260,14 @@ __global__ void __launch_bounds__(THREADS)
 // each RDB's input state, so RDB j reads states[j] and its LFF writes
 // states[j + 1] (out for the last RDB); growths (J, rows, K*gc) receives
 // RDB j's growths straight from its growth convs; scratch is unused.
+// vec is the bf16 plan's copy width in channels; float32 ignores it.
 // Returns the first CUDA error, or 0.
 template <typename T>
 int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
                   const T* blff, T* scratch, T* states, T* growths, int N,
                   int X, int Y, int Z, int nf, int gc, int num_convs, int J,
                   int per, float rdb_scale, float rrdb_scale, float slope,
-                  cudaStream_t stream) {
+                  int vec, cudaStream_t stream) {
   const int rows = N * X * Y * Z;
   const int K = num_convs - 1;
   const int gct = gc * K;
@@ -124,16 +278,24 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
     return (int)cudaMemcpyAsync(out, x, S * sizeof(T),
                                 cudaMemcpyDeviceToDevice, stream);
   }
+  if (std::is_same<T, bf16>::value) {
+    const void* ptrs[] = {x, out, wconv, wlff, blff, scratch, states,
+                          growths};
+    const int counts[] = {nf, gc};
+    if (!tc::aligned(vec, ptrs, 8, counts, 2)) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  Launcher<T> launch{X, Y, Z, rows, nf, gct, vec, stream};
+  int e = launch.prepare();
+  if (e != 0) return e;
   T* bufs[3] = {scratch, scratch + S, scratch + 2 * S};
-  const dim3 block(THREADS);
-  const dim3 grid_g((rows + BM - 1) / BM, (gc + BN - 1) / BN);
-  const dim3 grid_l((rows + BM - 1) / BM, (nf + BN - 1) / BN);
 
   const T* cur = x;
   if (states != nullptr) {
-    const cudaError_t e = cudaMemcpyAsync(
-        states, x, S * sizeof(T), cudaMemcpyDeviceToDevice, stream);
-    if (e != cudaSuccess) return (int)e;
+    e = (int)cudaMemcpyAsync(states, x, S * sizeof(T),
+                             cudaMemcpyDeviceToDevice, stream);
+    if (e != 0) return e;
     cur = states;
   }
   const T* rres = cur;
@@ -143,11 +305,8 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
     T* growth = states != nullptr ? growths + j * G : scratch + 3 * S;
     for (int k = 0; k < K; ++k) {
       const int cin = nf + gc * k;
-      trunk_conv<T, 3, kGrowth><<<grid_g, block, 0, stream>>>(
-          cur, growth, wc, nf, gct, cin, gc, X, Y, Z, rows, slope, growth,
-          k * gc, nullptr, nullptr, nullptr, 0.f, 0.f, 0);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+      e = launch.growth(cur, growth, wc, cin, gc, k, slope);
+      if (e != 0) return e;
       wc += (size_t)27 * cin * gc;
     }
     T* nxt = out;
@@ -161,12 +320,10 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
         }
       }
     }
-    trunk_conv<T, 1, kLff><<<grid_l, block, 0, stream>>>(
-        cur, growth, wlff + (size_t)j * cin_lff * nf, nf, gct, cin_lff, nf, X,
-        Y, Z, rows, slope, nullptr, 0, blff + (size_t)j * nf, rres, nxt,
-        rdb_scale, rrdb_scale, (j % per) == per - 1);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
+    e = launch.lff(cur, growth, wlff + (size_t)j * cin_lff * nf,
+                   blff + (size_t)j * nf, rres, nxt, rdb_scale, rrdb_scale,
+                   (j % per) == per - 1);
+    if (e != 0) return e;
     cur = nxt;
   }
   return 0;
@@ -178,17 +335,26 @@ int trunk_forward(const T* x, T* out, const T* wconv, const T* wlff,
   extern "C" int NAME(const void* x, void* out, const void* wconv,           \
                       const void* wlff, const void* blff, void* scratch,     \
                       void* states, void* growths, int N, int X, int Y,      \
-                      int Z, int nf, int gc,                                 \
-                      int num_convs, int J, int per, float rdb_scale,        \
-                      float rrdb_scale, float slope, void* stream) {          \
+                      int Z, int nf, int gc, int num_convs, int J, int per,  \
+                      int vec, float rdb_scale, float rrdb_scale,            \
+                      float slope, void* stream) {                           \
     return trunk_forward<T>(                                                 \
         static_cast<const T*>(x), static_cast<T*>(out),                      \
         static_cast<const T*>(wconv), static_cast<const T*>(wlff),           \
         static_cast<const T*>(blff), static_cast<T*>(scratch),               \
         static_cast<T*>(states), static_cast<T*>(growths), N, X, Y, Z,       \
-        nf, gc, num_convs, J, per, rdb_scale, rrdb_scale, slope,             \
+        nf, gc, num_convs, J, per, rdb_scale, rrdb_scale, slope, vec,        \
         static_cast<cudaStream_t>(stream));                                  \
   }
 
 WINDSR_TRUNK_ENTRY(windsr_rrdb_trunk_f32, float)
 WINDSR_TRUNK_ENTRY(windsr_rrdb_trunk_bf16, __nv_bfloat16)
+
+// Dynamic shared memory of a bf16 tile (conv 0: growth conv, conv 1:
+// LFF) at depth Z for cin input channels, as the wrapper's plan counts it;
+// -1 if there is no such tile.
+extern "C" long long windsr_rrdb_trunk_tc_smem(int conv, int Z, int cin) {
+  if (conv == 0) return (long long)GrowthTile::smem_bytes(Z, cin);
+  if (conv == 1) return (long long)LffTile::smem_bytes(Z, cin);
+  return -1;
+}

@@ -1,6 +1,7 @@
-// Implicit-GEMM tile shared by the RRDB trunk kernels (rdb_trunk.cu, the
-// forward, and rdb_trunk_bwd.cu, the backward-dx) and the HR head
-// (hr_head.cu).
+// Implicit-GEMM tile on the CUDA cores, shared by the HR head (hr_head.cu)
+// and the float32 instantiations of the RRDB trunk kernels (rdb_trunk.cu,
+// the forward, and rdb_trunk_bwd.cu, the backward-dx). The bf16 trunk runs
+// on the tensor cores instead (trunk_mma.cuh).
 //
 // A conv over channels-last rows (R = X*Y*Z rows per sample, z fastest)
 // is a GEMM: rows x output channels, reduced over taps x input channels.

@@ -23,11 +23,18 @@ Transposed weights for the backward (``pack_trunk_weights_bwd``):
 
 Residual streams are J-major: states (J, N, R, nf) and growths, dU
 (J, N, R, gc·K), dLFF (J, N, R, nf), R = X·Y·Zl rows, as in the JAX kernels.
+
+bfloat16 runs on the tensor cores with the tiles of
+``ops/kernels/csrc/trunk_mma.cuh``; ``plan_trunk_tc`` gives their grids,
+shared memory and copy width, and raises for what they cannot take.
+float32 runs on the CUDA cores and needs no plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -167,6 +174,84 @@ def rrdb_trunk_reference(packed, x, *, gc: int, num_convs: int,
     return out, stream(states), stream(growths)
 
 
+# ----------------------------------------------- tensor-core plan (bf16)
+TC_SLICE = 32          # input channels per stage, 64-byte rows
+TC_ZERO_BYTES = 64     # the row of zeros that masked taps read
+TC_SMEM_LIMIT = 232448  # shared memory one block may have on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class TcTile:
+    """One bf16 tile of ``trunk_mma.cuh``: kernel size ``ks`` (1 or 3),
+    ``bm`` rows x ``bn`` columns per block (per column chunk), ``stages``
+    ring slots. A stage works on one 32-channel slice and, for a 3x3x3
+    conv, one dx: its input window (bm + 2(Z+1) rows; bm rows for 1x1x1)
+    and the weights of its taps (9 or 1). A streaming tile passes both
+    through the ring; a ``resident`` tile owns every column of its rows,
+    keeps all its windows and passes only the weights through the ring."""
+
+    ks: int
+    bm: int
+    bn: int
+    stages: int
+    resident: bool = False
+
+    def smem_bytes(self, Z: int, cin: int) -> int:
+        window = 2 * TC_SLICE * (self.bm + 2 * (Z + 1) if self.ks == 3
+                                 else self.bm)
+        weights = 2 * TC_SLICE * self.bn * (9 if self.ks == 3 else 1)
+        if not self.resident:
+            return TC_ZERO_BYTES + self.stages * (window + weights)
+        windows = math.ceil(cin / TC_SLICE) * (3 if self.ks == 3 else 1)
+        return TC_ZERO_BYTES + windows * window + self.stages * weights
+
+    def grid(self, rows: int, cout: int) -> tuple:
+        return (math.ceil(rows / self.bm),
+                1 if self.resident else math.ceil(cout / self.bn))
+
+
+# the instantiations in rdb_trunk.cu and rdb_trunk_bwd.cu
+FWD_GROWTH_TILE = TcTile(3, 256, 32, 3)
+FWD_LFF_TILE = TcTile(1, 64, 128, 3)
+BWD_GROWTH_TILE = TcTile(3, 256, 32, 3, True)
+BWD_LFF_TILE = TcTile(1, 128, 64, 4, True)
+
+
+def plan_trunk_tc(shape, nf: int, gc: int, num_convs: int,
+                  pointers=()) -> dict:
+    """The bf16 kernels' plan for an input of ``shape`` (N, X, Y, Zl):
+
+    - ``vec``: channels per copy (8, 4, 2 or 1, for cp.async of 16, 8 or
+      4 bytes, or plain loads), the largest that divides nf, gc and the
+      element offset of every pointer in ``pointers`` (ints);
+    - ``convs``: per conv, its tile, grid (for the widest, where the width
+      varies) and shared-memory bytes.
+
+    Raises ValueError where a tile needs more shared memory than a block
+    may have (a deep volume: the windows grow with Zl)."""
+    N, X, Y, Z = (int(v) for v in shape)
+    rows = N * X * Y * Z
+    K = num_convs - 1
+    vec = next(v for v in (8, 4, 2, 1)
+               if nf % v == 0 and gc % v == 0
+               and all(p % (2 * v) == 0 for p in pointers))
+    convs = {}
+    for name, tile, cin, cout in (
+            ("fwd_growth", FWD_GROWTH_TILE, nf + gc * (K - 1), gc),
+            ("fwd_lff", FWD_LFF_TILE, nf + gc * K, nf),
+            ("bwd_growth", BWD_GROWTH_TILE, gc, nf + gc * (K - 1)),
+            ("bwd_lff", BWD_LFF_TILE, nf, nf + gc * K)):
+        smem = tile.smem_bytes(Z, cin)
+        if smem > TC_SMEM_LIMIT:
+            raise ValueError(
+                f"the bf16 trunk's {name} tile needs {smem} bytes of shared "
+                f"memory at Zl={Z}, more than the {TC_SMEM_LIMIT} a block "
+                f"may have")
+        convs[name] = dict(tile=tile, grid=tile.grid(rows, cout),
+                           smem=smem)
+    return dict(vec=vec, convs=convs)
+
+
 def _ctypes_fn(lib: str, name: str, n_ptr: int, n_int: int):
     from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
 
@@ -209,7 +294,7 @@ def rrdb_trunk(packed, x, *, gc: int, num_convs: int, rdb_scale: float = 0.2,
                        "trunk")
     N, X, Y, Z, _ = x.shape
     fn = _ctypes_fn("rdb_trunk", f"windsr_rrdb_trunk_{_STORAGE[x.dtype]}",
-                    8, 9)
+                    8, 10)
     with torch.cuda.device(x.device):
         out = torch.empty_like(x)
         if with_residuals:
@@ -224,10 +309,16 @@ def rrdb_trunk(packed, x, *, gc: int, num_convs: int, rdb_scale: float = 0.2,
             states = growths = None
         ptr = [None if t is None else t.data_ptr()
                for t in (scratch, states, growths)]
-        rc = fn(x.data_ptr(), out.data_ptr(), packed["conv"].data_ptr(),
-                packed["lff"].data_ptr(), packed["bias"].data_ptr(), *ptr,
-                N, X, Y, Z, nf, gc, num_convs, J, rdbs_per_rrdb, rdb_scale,
-                rrdb_scale, negative_slope,
+        data = [t.data_ptr() for t in (x, out, packed["conv"],
+                                       packed["lff"], packed["bias"])]
+        vec = 0  # float32: no plan
+        if x.dtype == torch.bfloat16:
+            vec = plan_trunk_tc((N, X, Y, Z), nf, gc, num_convs,
+                                [p for p in data + ptr if p is not None]
+                                )["vec"]
+        rc = fn(*data, *ptr,
+                N, X, Y, Z, nf, gc, num_convs, J, rdbs_per_rrdb, vec,
+                rdb_scale, rrdb_scale, negative_slope,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"RRDB trunk kernel launch failed: CUDA error {rc}")
@@ -368,7 +459,7 @@ def rrdb_trunk_bwd(packed_t, growths, d_out, *, gc: int, num_convs: int,
                                packed_t["lff"]), "trunk backward")
     N, X, Y, Z, _ = d_out.shape
     fn = _ctypes_fn("rdb_trunk_bwd",
-                    f"windsr_rrdb_trunk_bwd_{_STORAGE[d_out.dtype]}", 8, 9)
+                    f"windsr_rrdb_trunk_bwd_{_STORAGE[d_out.dtype]}", 8, 10)
     dev = d_out.device
     with torch.cuda.device(dev):
         d_x = torch.empty_like(d_out)
@@ -376,11 +467,15 @@ def rrdb_trunk_bwd(packed_t, growths, d_out, *, gc: int, num_convs: int,
         dLFF = torch.empty(J, N, X * Y * Z, nf, dtype=d_out.dtype, device=dev)
         scratch = torch.empty(rows * (nf + gc * K), dtype=d_out.dtype,
                               device=dev)
-        rc = fn(growths.data_ptr(), d_out.data_ptr(),
-                packed_t["conv"].data_ptr(), packed_t["lff"].data_ptr(),
-                d_x.data_ptr(), dU.data_ptr(), dLFF.data_ptr(),
-                scratch.data_ptr(), N, X, Y, Z, nf, gc, num_convs, J,
-                rdbs_per_rrdb, rdb_scale, rrdb_scale, negative_slope,
+        data = [t.data_ptr() for t in (growths, d_out, packed_t["conv"],
+                                       packed_t["lff"], d_x, dU, dLFF,
+                                       scratch)]
+        vec = 0  # float32: no plan
+        if d_out.dtype == torch.bfloat16:
+            vec = plan_trunk_tc((N, X, Y, Z), nf, gc, num_convs,
+                                data)["vec"]
+        rc = fn(*data, N, X, Y, Z, nf, gc, num_convs, J, rdbs_per_rrdb, vec,
+                rdb_scale, rrdb_scale, negative_slope,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"RRDB trunk backward kernel launch failed: "

@@ -11,6 +11,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_trunk_geoms import TC_GEOMS
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
 from gan_sr_wind_field_tpu_torch.ops import hr_head as head_mod
@@ -158,6 +159,68 @@ def test_backward_kernel_matches_plain_version_on_card(
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert _rel(g.float(), w.float()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["serving", "residual", "backward"])
+@pytest.mark.parametrize("nf,gc,num_convs,shape,vec", TC_GEOMS)
+def test_tensor_core_tile_edges_on_card(cuda_device, monkeypatch, mode, nf,
+                                        gc, num_convs, shape, vec):
+    """bf16 on the tensor cores against the bf16 plain version (3e-2) at
+    geometries at the tile's edges: the forward without and with
+    residuals, and the backward on the plain version's growths."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dt = torch.bfloat16
+    rrdbs, x, d_out = _trunk_setup(nf, gc, num_convs, shape, nf + gc + 4,
+                                   cuda_device)
+    packed = pack_trunk_weights(rrdbs, dt, cuda_device)
+    x, d_out = x.to(dt), d_out.to(dt)
+    kw = dict(gc=gc, num_convs=num_convs)
+    assert rdb_trunk.plan_trunk_tc(shape, nf, gc, num_convs)["vec"] == vec
+    before = (rdb_trunk.launches, rdb_trunk.bwd_launches)
+    if mode == "backward":
+        _, _, growths = rrdb_trunk_reference(packed, x, with_residuals=True,
+                                             **kw)
+        packed_t = pack_trunk_weights_bwd(packed, nf=nf, gc=gc,
+                                          num_convs=num_convs)
+        got = rrdb_trunk_bwd(packed_t, growths, d_out, **kw)
+        want = rrdb_trunk_bwd_reference(packed_t, growths, d_out, **kw)
+        rose = (0, 1)
+    else:
+        res = mode == "residual"
+        got = rrdb_trunk(packed, x, with_residuals=res, **kw)
+        want = rrdb_trunk_reference(packed, x, with_residuals=res, **kw)
+        got, want = ([got], [want]) if not res else (list(got), list(want))
+        got[0], want[0] = got[0] - x, want[0] - x  # the increment
+        rose = (1, 0)
+    torch.cuda.synchronize()
+    assert (rdb_trunk.launches - before[0],
+            rdb_trunk.bwd_launches - before[1]) == rose
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dt
+        assert torch.isfinite(g).all()
+        assert _rel(g.float(), w.float()) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z", [2, 7, 10, 64])
+def test_tc_plan_counts_the_kernels_shared_memory(cuda_device, Z):
+    """plan_trunk_tc's shared-memory bytes are what the kernels launch
+    with (both libraries report their tiles' bytes)."""
+    import ctypes
+
+    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
+
+    fwd = load_library("rdb_trunk").windsr_rrdb_trunk_tc_smem
+    bwd = load_library("rdb_trunk_bwd").windsr_rrdb_trunk_bwd_tc_smem
+    fwd.restype = bwd.restype = ctypes.c_longlong
+    for gc in (4, 32, 48):
+        plan = rdb_trunk.plan_trunk_tc((1, 4, 4, Z), 128, gc, 5)["convs"]
+        assert fwd(0, Z, 128 + 3 * gc) == plan["fwd_growth"]["smem"]
+        assert fwd(1, Z, 128 + 4 * gc) == plan["fwd_lff"]["smem"]
+        assert bwd(0, Z, gc) == plan["bwd_growth"]["smem"]
+        assert bwd(1, Z, 128) == plan["bwd_lff"]["smem"]
 
 
 @pytest.mark.cuda

@@ -8,9 +8,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build every CUDA source of the port (one nvcc call each, in parallel),
      with each one's seconds and ptxas registers and spills; for the bf16
-     trunk kernels on the tensor cores (tc_growth_fwd, tc_lff_fwd,
-     tc_growth_bwd, tc_lff_bwd) their ptxas report and the HMMA/HGMMA
-     instructions cuobjdump -sass finds in each (a count of 0 fails);
+     kernels on the tensor cores (the trunk's tc_growth_fwd, tc_lff_fwd,
+     tc_growth_bwd, tc_lff_bwd and the HR head's tc_head5, tc_head3) their
+     ptxas report and the HMMA/HGMMA instructions cuobjdump -sass finds in
+     each (a count of 0 fails, and so does no HGMMA in the head's, whose
+     tile issues wgmma);
   3. each kernel against its plain PyTorch version at full width (16 RRDB
      x 3 RDB, nf=128, gc=32, batch 2, LR 16x16x10, weights at init scale
      1.0, non-zero LFF bias), float32 with TF32 off and bfloat16 against
@@ -24,9 +26,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      adjoint at the training shape (32, 64, 64, 10, 3) with a
      terrain-following Z, <= 1e-5, and the adjoint identity to 1e-5; the
      HR head (batch 2, HR 64x64x10, 128 + 16 channels -> 144, k = 5,
-     about 10 % of the channels dropped) float32 <= 1e-4, bf16 <= 1e-2,
-     and HRHead's four gradients against autograd, float32: its backward
-     on the plain output <= 1e-4, end to end <= 5e-3;
+     about 10 % of the channels dropped) float32 <= 1e-4, bf16 <= 1e-2
+     (also at batch 32), and HRHead's four gradients against autograd,
+     float32: its backward on the plain output <= 1e-4, end to end
+     <= 5e-3;
   4. serve configs/milestone9k.ini (seeded random weights, bf16) through
      WindFieldServer on 127.0.0.1: 4 single-sample and one 8-sample HTTP
      request plus 6 concurrent MicroBatcher.submit calls; every output
@@ -62,9 +65,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Before they are timed, the residual mode and
      the trunk backward are held against their bf16 plain versions at
      batch 32 on the trunk input of a training batch (<= 3e-2), with the
-     count of growths on the other side of 0. Then the head kernel at
-     batch 8 and 32 beside its plain version, bound and bf16 cuDNN, and
-     the head path's serving forward and G and D steps.
+     count of growths on the other side of 0. Then the bf16 head kernel
+     against its bf16 plain version at batch 32 on the head's input of a
+     training batch (<= 1e-2), its time at batch 8 and 32 beside its plain
+     version, bound and bf16 cuDNN (with cudnn.benchmark off and on; the
+     kernel is compared with the faster), the time of the head's cuDNN
+     backward (hr_head_vjp) at batch 32, and the head path's serving
+     forward and G and D steps.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -95,10 +102,14 @@ D_STEP_LAUNCHES = (1, 0, 0, 0, 0)
 G_STEP_LAUNCHES_HEAD = (1, 1, 2, 1, 1)
 D_STEP_LAUNCHES_HEAD = (1, 0, 0, 0, 1)
 LAUNCH_LABELS = "trunk/bwd/gradient/adjoint/head"
-# the bf16 trunk kernels on the tensor cores, by library
+# the bf16 kernels on the tensor cores, by library: the trunk's tiles
+# (trunk_mma.cuh) and the HR head's (head_mma.cuh, k = 5 and k = 3)
 TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
-              "rdb_trunk_bwd": ("tc_growth_bwd", "tc_lff_bwd")}
-TC_MMA = "mma.sync"  # the tensor-core instruction trunk_mma.cuh issues
+              "rdb_trunk_bwd": ("tc_growth_bwd", "tc_lff_bwd"),
+              "hr_head": ("tc_head5", "tc_head3")}
+# the tensor-core instruction each library's tiles issue
+TC_MMA = {"rdb_trunk": "mma.sync", "rdb_trunk_bwd": "mma.sync",
+          "hr_head": "wgmma"}
 TURN_ROUNDS = 3
 # limits set from measurements, reasons in PERF.md (section 6): the trainable
 # trunk end to end, float32 (5.5e-4 measured, from LeakyReLU sign flips of
@@ -228,8 +239,9 @@ def ptxas_reports(log_text):
 
 
 def sass_mma_counts(lib_path):
-    """{kernel name: HMMA/HGMMA instructions} in a built library, from
-    cuobjdump -sass of the toolkit that built it; None without cuobjdump."""
+    """{kernel name: [HMMA, HGMMA] instruction counts} in a built library,
+    from cuobjdump -sass of the toolkit that built it; None without
+    cuobjdump."""
     from gan_sr_wind_field_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -242,16 +254,19 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = 0
-        elif fn and re.search(r"\bH(G)?MMA\b", line):
-            out[fn] += 1
+            out[fn] = [0, 0]
+        elif fn:
+            hit = re.search(r"\bH(G)?MMA\b", line)
+            if hit:
+                out[fn][hit.group(1) is not None] += 1
     return out
 
 
 def report_tc_kernels(built):
-    """Phase 2 for the bf16 trunk kernels: each one's ptxas report and
+    """Phase 2 for the bf16 tensor-core kernels: each one's ptxas report and
     HMMA/HGMMA count. Returns {library: the count over its kernels}
-    (None where cuobjdump is missing); fails on a count of 0."""
+    (None where cuobjdump is missing); fails on a count of 0, and on no
+    HGMMA in a library whose tiles issue wgmma."""
     counts = {}
     for lib, names in TC_KERNELS.items():
         path, _, report = built[lib]
@@ -265,10 +280,15 @@ def report_tc_kernels(built):
             if sass is None:
                 log(f"  {lib} {name}: cuobjdump not found, no SASS count")
                 continue
-            n = sum(c for fn, c in sass.items() if name in fn)
-            log(f"  {lib} {name}: {n} HMMA/HGMMA instructions in its SASS")
+            hmma, hgmma = (sum(c[i] for fn, c in sass.items() if name in fn)
+                           for i in (0, 1))
+            n = hmma + hgmma
+            log(f"  {lib} {name}: {n} HMMA/HGMMA instructions in its SASS "
+                f"({hmma} HMMA, {hgmma} HGMMA)")
             if n == 0:
                 fail(f"{name} has no tensor-core instruction in its SASS")
+            if TC_MMA[lib] == "wgmma" and hgmma == 0:
+                fail(f"{name} issues no wgmma (HGMMA) in its SASS")
             counts[lib] += n
     return counts
 
@@ -651,6 +671,27 @@ def check_head_kernel(dev, xy, zl, nf, tc, C, k):
         check(f"HRHead end to end, {label} vs autograd (fp32)", rel_l2(g, w),
               HEAD_GRAD_TOL)
     return max_abs
+
+
+def check_head_bf16(dev, wx, wt, x, t, dm, k, label):
+    """The bf16 HR-head kernel against its bf16 plain version on x, t and
+    the dropout scale dm (<= 1e-2: one rounding on each side)."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.ops.hr_head import (
+        hr_head_conv,
+        hr_head_conv_reference,
+        pack_head_weights,
+    )
+
+    bf = torch.bfloat16
+    args = (pack_head_weights(wx, wt, bf, dev), x.to(bf), t.to(bf),
+            dm.to(bf))
+    with torch.no_grad():
+        got = hr_head_conv(*args, k=k, negative_slope=0.2)
+        want = hr_head_conv_reference(*args, k=k, negative_slope=0.2)
+    check(f"HR head at {label} {tuple(x.shape)}, bf16 kernel vs bf16 plain",
+          rel_l2(got.float(), want.float()), 1e-2)
 
 
 def drive_steps(gan, state, batch, g_want, d_want, card, label):
@@ -1327,19 +1368,54 @@ def library_head(wx, wt, x, t, dm, k, slope=0.2):
     return F.leaky_relu(pre, slope) * dm[:, :, None, None, None]
 
 
+def head_training_input(gan_h, state_h, batch):
+    """The head's x and t in the head path's G forward on a training batch
+    (the arguments of the HR-head kernel's launch, caught on their way)."""
+    from gan_sr_wind_field_tpu_torch.ops import hr_head as head_mod
+
+    caught = []
+    launch = head_mod.hr_head_conv
+
+    def catch(packed, x, t, dmask=None, **kw):
+        caught.append((x, t))
+        return launch(packed, x, t, dmask, **kw)
+
+    lr, _, z = batch()
+    head_mod.hr_head_conv = catch
+    try:
+        gan_h.generate(state_h, lr, z)
+    finally:
+        head_mod.hr_head_conv = launch
+    return caught[0]
+
+
 def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
-    """Phase 6, kernel 5: its time at batch 8 and 32 beside its plain
-    version, bound and library call; then the head path's serving forward
-    at batch 8 and its G and D steps at batch 32."""
+    """Phase 6, kernel 5: at batch 32 on the head's input of a training
+    batch, the bf16 kernel against its bf16 plain version; its time at
+    batch 8 and 32 beside its plain version, bound and library call (bf16
+    cuDNN, timed with cudnn.benchmark off and on), and the time of its
+    cuDNN backward (hr_head_vjp) at batch 32; then the head path's serving
+    forward at batch 8 and its G and D steps at batch 32."""
     import torch
 
     from gan_sr_wind_field_tpu_torch.ops.hr_head import (
         hr_head_conv,
         hr_head_conv_reference,
+        hr_head_vjp,
         pack_head_weights,
     )
 
     xy, zl, nf, tc, C, k = dims
+    x, t = head_training_input(gan_h, state_h, batch)
+    Gh = gan_h.G
+    Gh.load_state_dict(state_h.params_G)
+    gen = torch.Generator().manual_seed(2006)
+    dm = torch.where(torch.rand(x.shape[0], C, generator=gen) < 0.9,
+                     1 / 0.9, 0.0).to(dev)
+    check_head_bf16(dev, Gh.hr_conv0_x.weight.detach(),
+                    Gh.hr_conv0_t.weight.detach(), x, t, dm, k,
+                    "the head input of a training batch,")
+    del x, t, dm
     G = sr.G
     w = [G.hr_conv0_x.weight.detach(), G.hr_conv0_t.weight.detach()]
     packed = pack_head_weights(*w, torch.bfloat16, dev)
@@ -1350,21 +1426,45 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
                                      weights=w)
         x, t, dm = (v.to(torch.bfloat16) for v in (x, t, dm))
         kw = dict(k=k, negative_slope=0.2)
+        lib = {}
         with torch.no_grad():
             ms = cuda_ms(lambda: hr_head_conv(packed, x, t, dm, **kw))
             plain_ms = cuda_ms(lambda: hr_head_conv_reference(packed, x, t,
                                                               dm, **kw))
-            lib_ms = cuda_ms(lambda: library_head(*wb, x, t, dm, k))
+            benchmark = torch.backends.cudnn.benchmark
+            for mode in (False, True):
+                torch.backends.cudnn.benchmark = mode
+                try:
+                    lib[mode] = cuda_ms(lambda: library_head(*wb, x, t, dm,
+                                                             k))
+                finally:
+                    torch.backends.cudnn.benchmark = benchmark
+        lib_ms = min(lib.values())
         rows = x.numel() // nf
         b = bound(2 * k ** 3 * (nf + tc) * C * rows,
                   2 * (x.numel() + t.numel() + rows * C + packed.numel()
                        + dm.numel()), H100_BF16_FLOPS)
         log(f"HR-head kernel at batch {n}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, cuDNN bf16 {lib_ms:.3f} ms, bound "
-            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f}); "
+            f"{plain_ms:.3f} ms, cuDNN bf16 {lib[False]:.3f} ms "
+            f"(cudnn.benchmark off), {lib[True]:.3f} ms (on); kernel "
+            f"{'faster' if ms < lib_ms else 'slower'} than the faster by "
+            f"{max(ms, lib_ms) / min(ms, lib_ms):.2f}x; bound "
+            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f}), "
+            f"{100 * b[0] / ms:.2f} % of it; "
             f"{2 * k ** 3 * (nf + tc) * C * rows / ms / 1e9:.3f} TFLOP/s "
             f"({card})")
-        res[n] = (ms, plain_ms, b, lib_ms)
+        res[n] = (ms, plain_ms, b, lib_ms, lib[False], lib[True])
+        if n == 32:
+            # the head's backward (cuDNN transposed convs), as a G step on
+            # the head path runs it: all four gradients from the saved h
+            h = hr_head_conv(packed, x, t, dm, **kw)
+            dh = torch.randn(h.shape, generator=gen).to(dev, torch.bfloat16)
+            with torch.no_grad():
+                res["vjp"] = cuda_ms(lambda: hr_head_vjp(
+                    *wb, x, t, dm, h, dh, k=k, negative_slope=0.2))
+            log(f"  head part hr_head_vjp (cuDNN backward: dWx, dWt, dx, dt) "
+                f"at batch {n}: {res['vjp']:.3f} ms ({card})")
+            del h, dh
         del x, t, dm
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: sr_h._generate(lr_d, z_d))
@@ -1377,12 +1477,13 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
         return fn
 
     g_ms, d_ms = cuda_ms(step(48)), cuda_ms(step(50))
-    log(f"head path: serving forward {fwd_ms:.3f} ms per batch of 8, G step "
-        f"{g_ms:.3f} ms, D step {d_ms:.3f} ms at batch "
-        f"{lr.shape[0]} ({card})")
+    vox = lr_d.shape[0] * xy * xy * zl
+    log(f"head path: serving forward {fwd_ms:.3f} ms per batch of 8, "
+        f"{vox / (fwd_ms / 1e3):.4e} HR voxels/s; G step {g_ms:.3f} ms, D "
+        f"step {d_ms:.3f} ms at batch {lr.shape[0]} ({card})")
     if not all(math.isfinite(v) for v in (fwd_ms, g_ms, d_ms, *res[8][:2],
-                                          *res[32][:2], res[8][3],
-                                          res[32][3])):
+                                          *res[32][:2], *res[8][3:],
+                                          *res[32][3:], res["vjp"])):
         fail("a timing is not finite")
     return res
 
@@ -1435,7 +1536,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"build total {time.monotonic() - t:.1f} s")
-    log("bf16 trunk kernels on the tensor cores:")
+    log("bf16 kernels on the tensor cores:")
     mma_counts = report_tc_kernels(built)
 
     # ------------------------------------------- 3. kernels vs plain versions
@@ -1461,6 +1562,8 @@ def main():
     tc = g.terrain_number_of_features
     head_dims = (hr_xy, zl, nf, tc, nf + tc, g.hr_kern_size)
     err_head = check_head_kernel(dev, *head_dims)
+    check_head_bf16(dev, *head_inputs(dev, 32, *head_dims, 2005),
+                    head_dims[-1], "batch 32")
     torch.cuda.synchronize()
     del rrdbs, x, d_out
 
@@ -1626,10 +1729,11 @@ def main():
             launches_serve=serve_launches, launches_train=tl[0],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
             residual_bound_ms=tt["k1r"][2][0],
-            residual_library_ms=tt["k1r_lib"], mma=TC_MMA,
+            residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429", tl[1],
-            max_abs_bwd, tt["k2"][:3], tt["k2"][3], mma=TC_MMA,
+            max_abs_bwd, tt["k2"][:3], tt["k2"][3],
+            mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
         row("wind_gradient", "stencil.cu", "stencil.py:78", tl[2], err_grad,
             tt["k3"], None),
@@ -1639,7 +1743,13 @@ def main():
             head_serve[4] + head_train[4], err_head, th[8][:3], th[8][3],
             launches_serve=head_serve[4], launches_train=head_train[4],
             ms_b32=th[32][0], plain_ms_b32=th[32][1],
-            bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3]),
+            bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3],
+            library_ms_benchmark_off=th[8][4],
+            library_ms_benchmark_on=th[8][5],
+            library_ms_b32_benchmark_off=th[32][4],
+            library_ms_b32_benchmark_on=th[32][5],
+            backward_library_ms_b32=th["vjp"], mma=TC_MMA["hr_head"],
+            sass_mma_count=mma_counts["hr_head"]),
     ]}
     log(f"total {time.monotonic() - T0:.1f} s")
     log(json.dumps(table))

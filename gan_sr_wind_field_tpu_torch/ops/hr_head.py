@@ -11,9 +11,11 @@ channels-last and in the compute dtype, the head is
 with one float32 sum over both convs and all k³ taps, LeakyReLU in
 float32, the per-(sample, channel) dropout scale dm (N, C) in the compute
 dtype, and one rounding of the product to the compute dtype. The kernel
-(``ops/kernels/csrc/hr_head.cu``) computes all C output channels in one
-launch; the JAX package splits them into a 128-channel kernel slice and a
-remainder it rounds separately (a bf16 rounding departure, ROADMAP.md).
+(``ops/kernels/csrc/hr_head.cu``; bf16 on the tensor cores through the
+tile of ``csrc/head_mma.cuh``, which ``plan_head_tc`` plans) computes all
+C output channels in one launch; the JAX package splits them into a
+128-channel kernel slice and a remainder it rounds separately (a bf16
+rounding departure, ROADMAP.md).
 ``hr_head_conv`` launches it for CUDA tensors and takes
 ``hr_head_conv_reference`` only for CPU tensors.
 
@@ -31,17 +33,82 @@ the saved output h.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_input, conv3d_weight
 
+from gan_sr_wind_field_tpu_torch.ops.kernels.tc_plan import (
+    TC_SLICE,
+    TC_SMEM_LIMIT,
+    TC_ZERO_BYTES,
+)
+
 # kernel launches through `hr_head_conv`; chip runs reset and read it to
 # show the main path went through the kernel
 launches = 0
 
 _STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+# ------------------------------------------------ tensor-core plan (bf16)
+@dataclasses.dataclass(frozen=True)
+class HeadTile:
+    """The bf16 tile of ``head_mma.cuh`` for kernel size ``ks``: ``bm``
+    rows x 144 columns per block over ``warps`` warps (``warps // 4``
+    warpgroups issuing wgmma m64n144k16), ``stages`` weight slots. Per
+    32-channel slice and dx a window of bm + 2(ks // 2)(Z + 1) rows of
+    64 B, in one of two buffers; per (slice, dx, dy) the weights of its ks
+    taps, 32 x 144, through the ring."""
+
+    ks: int
+    bm = 256
+    bn = 144  # the wgmma's N
+    warps = 16
+    stages = 3
+
+    def smem_bytes(self, Z: int) -> int:
+        window = 2 * TC_SLICE * (self.bm + 2 * (self.ks // 2) * (Z + 1))
+        weights = 2 * TC_SLICE * self.bn * self.ks
+        return TC_ZERO_BYTES + 2 * window + self.stages * weights
+
+    def grid(self, rows: int, cout: int) -> tuple:
+        return (math.ceil(rows / self.bm), math.ceil(cout / self.bn))
+
+
+# the instantiations in hr_head.cu, by kernel size
+HEAD_TILES = {5: HeadTile(5), 3: HeadTile(3)}
+
+
+def plan_head_tc(shape, nf: int, tc: int, C: int, k: int,
+                 pointers=()) -> dict:
+    """The bf16 head kernel's plan for x of ``shape`` (N, X, Y, Zl, nf):
+
+    - ``vec``: channels per copy (8, 4, 2 or 1, for cp.async of 16, 8 or
+      4 bytes, or plain loads), the largest that divides nf, tc, C and the
+      element offset of every pointer in ``pointers`` (ints);
+    - ``tile``, ``grid`` and ``smem`` (dynamic shared-memory bytes).
+
+    Raises ValueError for a kernel size without a tile, or where the tile
+    needs more shared memory than a block may have (a deep volume: the
+    windows grow with Zl)."""
+    if k not in HEAD_TILES:
+        raise ValueError(f"the HR-head kernel takes k = 3 or 5, not {k}")
+    N, X, Y, Z = (int(v) for v in shape[:4])
+    vec = next(v for v in (8, 4, 2, 1)
+               if nf % v == 0 and tc % v == 0 and C % v == 0
+               and all(p % (2 * v) == 0 for p in pointers))
+    tile = HEAD_TILES[k]
+    smem = tile.smem_bytes(Z)
+    if smem > TC_SMEM_LIMIT:
+        raise ValueError(
+            f"the bf16 HR head's tile needs {smem} bytes of shared memory "
+            f"at Zl={Z}, more than the {TC_SMEM_LIMIT} a block may have")
+    return dict(vec=vec, tile=tile, grid=tile.grid(N * X * Y * Z, C),
+                smem=smem)
 
 
 def pack_head_weights(wx: torch.Tensor, wt: torch.Tensor,
@@ -129,13 +196,19 @@ def hr_head_conv(packed, x, t, dmask=None, *, k: int,
     fn = getattr(load_library("hr_head"),
                  f"windsr_hr_head_{_STORAGE[x.dtype]}")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         h = torch.empty(N, X, Y, Z, C, dtype=x.dtype, device=x.device)
+        vec = 0  # float32: no plan
+        if x.dtype == torch.bfloat16:
+            ptrs = [v.data_ptr() for v in (x, t, packed, dmask, h)
+                    if v is not None]
+            vec = plan_head_tc(x.shape, nf, t.shape[-1], C, k,
+                               pointers=ptrs)["vec"]
         rc = fn(x.data_ptr(), t.data_ptr(), packed.data_ptr(),
                 None if dmask is None else dmask.data_ptr(), h.data_ptr(),
-                N, X, Y, Z, nf, t.shape[-1], C, k, negative_slope,
+                N, X, Y, Z, nf, t.shape[-1], C, k, vec, negative_slope,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"HR-head kernel launch failed: CUDA error {rc}")

@@ -197,15 +197,20 @@ __device__ __forceinline__ void copy_chunk(uint32_t dst, char* dst_ptr,
 }
 
 // Issues the copies of the input window of slice `slice` at kernel x
-// offset dx (0 for 1x1x1) into `win` (all threads).
+// offset dx (0 for 1x1x1) into `win` (all threads): rows row0 + dx*Y*Z -
+// (KS/2)(Z+1) on, TL::halo_rows(Z) of them, and of each the slice's
+// first `depth` channels (32, or 16 for a half slice the caller
+// multiplies by one k16 step).
 template <class TL>
 __device__ __forceinline__ void load_window(char* win, const ConvArgs& p,
-                                            int row0, int slice, int dx) {
+                                            int row0, int slice, int dx,
+                                            int depth = SK) {
   const int c0 = slice * SK;
   const int hr = TL::halo_rows(p.Z);
-  const int g0 = TL::KS == 3 ? row0 + dx * p.Y * p.Z - (p.Z + 1) : row0;
-  for (int e = threadIdx.x; e < hr * 4; e += TL::THREADS) {
-    const int h = e >> 2, c = e & 3;
+  const int g0 = row0 + dx * p.Y * p.Z - TL::KS / 2 * (p.Z + 1);
+  const int lg = depth == SK ? 2 : 1;  // log2 of the 16-byte chunks per row
+  for (int e = threadIdx.x; e < (hr << lg); e += TL::THREADS) {
+    const int h = e >> lg, c = e & ((1 << lg) - 1);
     const int g = g0 + h;
     const int off = h * (SK * 2) + (swz<4>(h, c) << 4);
     copy_chunk(smem_u32(win + off), win + off, g >= 0 && g < p.rows,

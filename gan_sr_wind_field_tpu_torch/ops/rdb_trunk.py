@@ -39,6 +39,12 @@ import math
 import torch
 import torch.nn.functional as F
 
+from gan_sr_wind_field_tpu_torch.ops.kernels.tc_plan import (
+    TC_SLICE,
+    TC_SMEM_LIMIT,
+    TC_ZERO_BYTES,
+)
+
 # kernel launches through `rrdb_trunk` (one per trunk forward, either mode)
 # and `rrdb_trunk_bwd`; chip runs reset them and read them to show the main
 # path went through the kernels
@@ -175,11 +181,6 @@ def rrdb_trunk_reference(packed, x, *, gc: int, num_convs: int,
 
 
 # ----------------------------------------------- tensor-core plan (bf16)
-TC_SLICE = 32          # input channels per stage, 64-byte rows
-TC_ZERO_BYTES = 64     # the row of zeros that masked taps read
-TC_SMEM_LIMIT = 232448  # shared memory one block may have on the H100
-
-
 @dataclasses.dataclass(frozen=True)
 class TcTile:
     """One bf16 tile of ``trunk_mma.cuh``: kernel size ``ks`` (1 or 3),

@@ -11,6 +11,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_head_geoms import HEAD_GEOMS
 from _torch_trunk_geoms import TC_GEOMS
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
@@ -21,6 +22,7 @@ from gan_sr_wind_field_tpu_torch.ops.hr_head import (
     hr_head_conv,
     hr_head_conv_reference,
     pack_head_weights,
+    plan_head_tc,
 )
 from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
@@ -294,9 +296,6 @@ def _head_setup(nf, tc, C, k, shape, masked, device, seed):
             for v in (wx, wt, x, t, dm)]
 
 
-# (nf, tc, C, spatial): nf + tc = 40 and C = 24 straddle the 32-wide
-# channel slices and column tiles; 128 + 16 -> 144 are milestone9k's widths
-HEAD_GEOMS = [(24, 16, 24, (2, 6, 5, 4)), (128, 16, 144, (2, 16, 16, 10))]
 
 
 @pytest.mark.cuda
@@ -304,18 +303,21 @@ HEAD_GEOMS = [(24, 16, 24, (2, 6, 5, 4)), (128, 16, 144, (2, 16, 16, 10))]
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("k", [3, 5])
-@pytest.mark.parametrize("nf,tc,C,shape", HEAD_GEOMS)
+@pytest.mark.parametrize("nf,tc,C,shape,vec", HEAD_GEOMS)
 def test_hr_head_kernel_matches_plain_version_on_card(
-        cuda_device, monkeypatch, dtype, tol, masked, k, nf, tc, C, shape):
+        cuda_device, monkeypatch, dtype, tol, masked, k, nf, tc, C, shape,
+        vec):
     """The HR-head kernel against hr_head_conv_reference on the same
     inputs in the same dtype: both sum in float32 and round once, so only
-    the order of the sums differs."""
+    the order of the sums differs. bf16 runs on the tensor-core tile with
+    copies of `vec` channels."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     wx, wt, x, t, dm = _head_setup(nf, tc, C, k, shape, masked, cuda_device,
                                    nf + C + k)
     packed = pack_head_weights(wx, wt, dtype, cuda_device)
     x, t = x.to(dtype), t.to(dtype)
     dm = None if dm is None else dm.to(dtype)
+    assert plan_head_tc(x.shape, nf, tc, C, k)["vec"] == vec
     before = head_mod.launches
     got = hr_head_conv(packed, x, t, dm, k=k, negative_slope=0.2)
     torch.cuda.synchronize()
@@ -326,6 +328,35 @@ def test_hr_head_kernel_matches_plain_version_on_card(
     if masked:
         assert (got[(dm == 0)[:, None, None, None, :].expand_as(got)]
                 == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Z", [2, 9, 10, 64, 118])
+def test_head_plan_counts_the_kernels_shared_memory(cuda_device, Z):
+    """plan_head_tc's shared-memory bytes are what the bf16 head kernel
+    launches with (the library reports its tiles' bytes)."""
+    import ctypes
+
+    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
+
+    fn = load_library("hr_head").windsr_hr_head_tc_smem
+    fn.restype = ctypes.c_longlong
+    for k in (3, 5):
+        assert fn(k, Z) == plan_head_tc((1, 4, 4, Z), 128, 16, 144,
+                                        k)["smem"]
+
+
+@pytest.mark.cuda
+def test_hr_head_kernel_refuses_a_too_deep_volume(cuda_device):
+    """Past Zl = 118 the k = 5 tile's windows do not fit a block's shared
+    memory: the wrapper raises before it launches."""
+    wx, wt, x, t, _ = _head_setup(8, 8, 16, 5, (1, 1, 1, 119), False,
+                                  cuda_device, 3)
+    packed = pack_head_weights(wx, wt, torch.bfloat16, cuda_device)
+    before = head_mod.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        hr_head_conv(packed, x.bfloat16(), t.bfloat16(), k=5)
+    assert head_mod.launches == before
 
 
 @pytest.mark.cuda

@@ -3,6 +3,7 @@
 generator on one NVIDIA card through the hand-written CUDA kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -57,9 +58,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (the rest of the G step split into its layers, D, losses and Adam),
      and each training kernel beside its plain version, its bound and a
      bf16 cuDNN/cuBLAS chain (for the residual mode one that keeps its
-     states and growths). The trunk kernels and their library chains are
-     timed in turns, kernel-library-library-kernel over 3 rounds, and the
-     medians kept (serving at batch 8, residual mode and backward at 32),
+     states and growths); the stencil pair (kernels 3 and 4) with the
+     card's own time per launch under torch.profiler, with the L2 warm and
+     cold (a 128 MiB scratch read before each launch), beside the event
+     time of 5 calls through the wrapper. The trunk kernels and their
+     library chains are timed in turns, kernel-library-library-kernel over
+     3 rounds, and the medians kept (serving at batch 8, residual mode and backward at 32),
      and one call of each under torch.profiler splits its time by kernel
      against the time the card waits on the host loop.
      Before they are timed, the residual mode and
@@ -74,6 +78,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      forward and G and D steps.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
+
+--stencils-of ROOT builds, checks (phase 3) and times (phase 6) only the
+stencil pair of the port in the checkout at ROOT, and prints no result
+line: two checkouts are compared by running it for each, in turns, in one
+run on one card.
 """
 
 import copy
@@ -111,6 +120,10 @@ TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
 TC_MMA = {"rdb_trunk": "mma.sync", "rdb_trunk_bwd": "mma.sync",
           "hr_head": "wgmma"}
 TURN_ROUNDS = 3
+# the card's names of kernels 3 and 4 (substrings of the profiler's keys)
+STENCIL_KERNELS = {"gradient": "grad_fwd", "adjoint": "grad_adj"}
+# the scratch read before a cold-L2 launch: 128 MiB, over twice the L2
+FLUSH_BYTES = 128 << 20
 # limits set from measurements, reasons in PERF.md (section 6): the trainable
 # trunk end to end, float32 (5.5e-4 measured, from LeakyReLU sign flips of
 # pre-activations within rounding of 0), and one G step's bf16 gradients,
@@ -145,6 +158,18 @@ def check(name, err, tol):
     log(f"  {name}: rel L2 {err:.3e} (tol {tol:.0e})")
     if not err <= tol:
         fail(f"{name} disagrees: {err:.3e} > {tol:.0e}")
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them, logged."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    return card
 
 
 def cuda_ms(fn, reps=5):
@@ -210,7 +235,8 @@ def kernel_split(label, fn, card):
             continue
         name = next((k for k in (*TC_KERNELS["rdb_trunk"],
                                  *TC_KERNELS["rdb_trunk_bwd"], "bwd_prep",
-                                 "bwd_add", "Memcpy", "Memset")
+                                 "bwd_add", *STENCIL_KERNELS.values(),
+                                 "Memcpy", "Memset")
                      if k in e.key), "other")
         ms, n = parts.get(name, (0.0, 0))
         parts[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -223,6 +249,30 @@ def kernel_split(label, fn, card):
     for name, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
         log(f"    {name:<14} {n:4d} launches {ms:9.3f} ms "
             f"({1e3 * ms / n:8.1f} us each, {100 * ms / busy:5.1f} %)")
+
+
+def device_ms(fn, kernel, flush=None, reps=5):
+    """The card's own time per launch of the kernel whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of fn (after one
+    warm-up); ``flush`` runs before each call, outside the kernel's time.
+    The mean over the launches the trace holds (it may miss one)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0]
+    n = sum(e.count for e in hits)
+    if not 0 < n <= reps:
+        fail(f"the profiler saw {n} launches of {kernel} in {reps} calls")
+    return sum(e.self_device_time_total for e in hits) / n / 1e3
 
 
 def ptxas_reports(log_text):
@@ -582,6 +632,92 @@ def check_stencil_kernels(dev):
     if not ident <= 1e-5:
         fail(f"adjoint identity off by {ident:.3e}")
     return err_g, err_a
+
+
+def time_stencils(dev, card):
+    """Kernels 3 and 4 at the training shape: the CUDA-event time of 5
+    back-to-back calls through the wrapper (host and card together), the
+    card's own time per launch under torch.profiler with the L2 warm
+    (back to back) and cold (a scratch buffer of FLUSH_BYTES read before
+    each launch, so that the L2 holds none of its inputs and no dirty
+    lines), the plain version's time and the bound. Returns
+    {"gradient" | "adjoint": dict of ms, device_ms, device_ms_cold,
+    plain_ms and bound}."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.ops import stencil
+    from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
+
+    uvw, cx, cy, Z, g9 = stencil_inputs(dev)
+    vox = uvw.numel() // 3
+    scratch = torch.ones(FLUSH_BYTES // 4, device=dev)
+    # per voxel and component: 3 axes x (3 mul + 2 add); z coefficients
+    # ~16 operations per voxel; float32 on the CUDA cores. Bytes: the field,
+    # the heights and the output once each.
+    pairs = {
+        "gradient": (lambda: stencil.wind_gradient(uvw, cx, cy, Z),
+                     lambda: wind_field_gradient(uvw, cx, cy, Z),
+                     bound(vox * (3 * 15 + 16), vox * (12 + 4 + 36),
+                           H100_FP32_FLOPS)),
+        "adjoint": (lambda: stencil.wind_gradient_adjoint(g9, cx, cy, Z),
+                    lambda: stencil.wind_gradient_adjoint_reference(
+                        g9, cx, cy, Z),
+                    bound(vox * (3 * 17 + 3 * 16), vox * (36 + 4 + 12),
+                          H100_FP32_FLOPS)),
+    }
+    out = {}
+    log(f"stencil kernels at {tuple(uvw.shape[:4])}: event time of 5 calls "
+        f"through the wrapper, the card's time per launch (profiler) with "
+        f"the L2 warm and cold, the plain version ({card}):")
+    for label, (fn, plain, b) in pairs.items():
+        kernel = STENCIL_KERNELS[label]
+        ms = cuda_ms(fn)
+        warm = device_ms(fn, kernel)
+        cold = device_ms(fn, kernel, flush=scratch.sum)
+        plain_ms = cuda_ms(plain)
+        log(f"  {label} ({kernel}): event {ms:.4f} ms, card warm "
+            f"{warm:.4f} ms, cold {cold:.4f} ms; plain {plain_ms:.3f} ms; "
+            f"bound {b[0]:.4f} ms by {b[1]}: "
+            + " / ".join(f"{100 * b[0] / t:.1f}" for t in (ms, warm, cold))
+            + " % of it (event / warm / cold)")
+        if not all(math.isfinite(v) for v in (ms, warm, cold, plain_ms)):
+            fail("a stencil timing is not finite")
+        out[label] = dict(ms=ms, device_ms=warm, device_ms_cold=cold,
+                          plain_ms=plain_ms, bound=b)
+    # the yardstick of a bytes-bound kernel on this card: a device-to-device
+    # copy that moves the same bytes (half read, half written)
+    src = torch.empty(vox * 52 // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy = device_ms(lambda: dst.copy_(src), "Memcpy")
+    log(f"  copy of the same {2 * src.numel() / 1e6:.1f} MB, card warm "
+        f"{copy:.4f} ms ({100 * pairs['gradient'][2][0] / copy:.1f} % of "
+        f"the bound)")
+    del scratch, src, dst
+    return out
+
+
+def stencils_of(root):
+    """``--stencils-of ROOT``: build and check kernels 3 and 4 of the port
+    under ROOT against their plain versions, then time them as phase 6
+    does. Two checkouts are compared by running this once for each, in
+    turns, within one run on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a card")
+    sys.path.insert(0, os.path.abspath(root))
+    from gan_sr_wind_field_tpu_torch.ops.kernels import build
+
+    card = card_line()
+    log(f"stencil kernels of {os.path.abspath(root)}")
+    for name, (path, secs, report) in build.build(["stencil"]).items():
+        log(f"built {name} in {secs:.1f} s")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    dev = torch.device("cuda", 0)
+    check_stencil_kernels(dev)
+    time_stencils(dev, card)
 
 
 def head_inputs(dev, n, xy, zl, nf, tc, C, k, seed, weights=None):
@@ -1056,8 +1192,6 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
     import torch
 
     from gan_sr_wind_field_tpu_torch.models.fused_train import _dw_stage
-    from gan_sr_wind_field_tpu_torch.ops import stencil
-    from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
     from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
         pack_trunk_weights,
         pack_trunk_weights_bwd,
@@ -1147,12 +1281,9 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
                                           tuple(x.shape[:4]), nf, gc,
                                           nconv - 1))
         del states, growths, dU, dLFF
-        uvw, cx, cy, Z, g9 = stencil_inputs(dev)
-        k3_ms = cuda_ms(lambda: stencil.wind_gradient(uvw, cx, cy, Z))
-        k3_plain_ms = cuda_ms(lambda: wind_field_gradient(uvw, cx, cy, Z))
-        k4_ms = cuda_ms(lambda: stencil.wind_gradient_adjoint(g9, cx, cy, Z))
-        k4_plain_ms = cuda_ms(lambda: stencil.wind_gradient_adjoint_reference(
-            g9, cx, cy, Z))
+        st = time_stencils(dev, card)
+    k3, k4 = st["gradient"], st["adjoint"]
+    k3_ms, k4_ms = k3["ms"], k4["ms"]
 
     rows = x.numel() // nf
     J = len(lib_w)
@@ -1167,11 +1298,6 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
     b2 = bound(flops, 2 * (J * rows * gc * K + 2 * x.numel()
                            + J * rows * (gc * K + nf)) + w_bytes,
                H100_BF16_FLOPS)
-    vox = uvw.numel() // 3
-    # per voxel and component: 3 axes x (3 mul + 2 add); z coefficients
-    # ~16 operations per voxel; float32 on the CUDA cores
-    b3 = bound(vox * (3 * 15 + 16), vox * (12 + 4 + 36), H100_FP32_FLOPS)
-    b4 = bound(vox * (3 * 17 + 3 * 16), vox * (36 + 4 + 12), H100_FP32_FLOPS)
     rest_g = g_ms - k1r_ms - k2_ms - dw_ms - 2 * k3_ms - k4_ms
     log(f"G step {g_ms:.3f} ms, D step {d_ms:.3f} ms, no-grad G forward "
         f"{gen_ms:.3f} ms at batch {n} ({card})")
@@ -1199,19 +1325,14 @@ def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
         f"{d_ms - gen_ms:9.3f} ms")
     for label, ms, plain_ms, b, lib in (
             ("trunk residual mode", k1r_ms, k1r_plain_ms, b1, k1r_lib_ms),
-            ("trunk backward", k2_ms, k2_plain_ms, b2, k2_lib_ms),
-            ("gradient", k3_ms, k3_plain_ms, b3, None),
-            ("adjoint", k4_ms, k4_plain_ms, b4, None)):
+            ("trunk backward", k2_ms, k2_plain_ms, b2, k2_lib_ms)):
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"library {'n/a' if lib is None else f'{lib:.3f} ms'}, bound "
-            f"{b[0]:.4f} ms by {b[1]} (ops {b[2]:.4f}, bytes {b[3]:.4f}); "
-            f"{100 * b[0] / ms:.2f} % of the bound"
-            + (f", {H100_BF16_FLOPS * b[2] / ms / 1e12:.1f} TFLOP/s"
-               if label.startswith("trunk") else ""))
+            f"library {lib:.3f} ms, bound {b[0]:.4f} ms by {b[1]} (ops "
+            f"{b[2]:.4f}, bytes {b[3]:.4f}); {100 * b[0] / ms:.2f} % of the "
+            f"bound, {H100_BF16_FLOPS * b[2] / ms / 1e12:.1f} TFLOP/s")
     times = dict(g_ms=g_ms, d_ms=d_ms, k1r=(k1r_ms, k1r_plain_ms, b1),
                  k1r_lib=k1r_lib_ms,
-                 k2=(k2_ms, k2_plain_ms, b2, k2_lib_ms),
-                 k3=(k3_ms, k3_plain_ms, b3), k4=(k4_ms, k4_plain_ms, b4))
+                 k2=(k2_ms, k2_plain_ms, b2, k2_lib_ms), k3=k3, k4=k4)
     if not all(math.isfinite(v) for v in (g_ms, d_ms, gen_ms, k1r_ms, k2_ms,
                                            dw_ms, k3_ms, k4_ms, k2_lib_ms,
                                            k1r_lib_ms)):
@@ -1513,13 +1634,7 @@ def main():
     )
 
     # ------------------------------------------------------------ 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True,
-    )
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -1735,10 +1850,13 @@ def main():
             max_abs_bwd, tt["k2"][:3], tt["k2"][3],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
-        row("wind_gradient", "stencil.cu", "stencil.py:78", tl[2], err_grad,
-            tt["k3"], None),
-        row("wind_gradient_adjoint", "stencil.cu", "stencil.py:166", tl[3],
-            err_adj, tt["k4"], None),
+        *(row(name, "stencil.cu", replaces, launches, err,
+              (k["ms"], k["plain_ms"], k["bound"]), None,
+              device_ms=k["device_ms"], device_ms_cold=k["device_ms_cold"])
+          for name, replaces, launches, err, k in (
+              ("wind_gradient", "stencil.py:78", tl[2], err_grad, tt["k3"]),
+              ("wind_gradient_adjoint", "stencil.py:166", tl[3], err_adj,
+               tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
             head_serve[4] + head_train[4], err_head, th[8][:3], th[8][3],
             launches_serve=head_serve[4], launches_train=head_train[4],
@@ -1759,4 +1877,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--stencils-of":
+        stencils_of(sys.argv[2])
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--stencils-of ROOT]")
+    else:
+        main()

@@ -9,14 +9,24 @@ uvw (N, X, Y, Zl, 3) and Z (N, X, Y, Zl, 1), float32. ``wind_gradient`` and
 ``wind_gradient_adjoint`` launch them for CUDA tensors and take the plain
 versions, ``physics.wind_field_gradient`` and
 ``wind_gradient_adjoint_reference``, only for CPU tensors.
+``plan_stencil`` gives each kernel's tile, grid and shared memory, and
+raises for a volume the tiles do not take.
+
+A launch costs the host little beside the kernel's ~0.02 ms: the ctypes
+functions are typed once when the library loads, a contiguous float32
+tensor is not copied, the plan is cached by shape, and no device context
+is entered when the tensor's card is already the current one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
+from gan_sr_wind_field_tpu_torch.ops.kernels.tc_plan import TC_SMEM_LIMIT
 from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
 
 # kernel launches through `wind_gradient` and `wind_gradient_adjoint`
@@ -69,33 +79,118 @@ def wind_gradient_adjoint_reference(g9: torch.Tensor, x: torch.Tensor,
                 + _shift0(cz * gz, 3, True))
 
 
-def _launch(name: str, src: torch.Tensor, x, y, Z, out_ch: int):
-    if src.device.type != "cuda":
-        raise ValueError(f"no stencil kernel for device {src.device}")
-    N, X, Y, Zl, _ = src.shape
+@dataclasses.dataclass(frozen=True)
+class StencilTile:
+    """The strip of one block of the stencil kernels (``csrc/stencil.cu``,
+    ``st::Tile<TX, TY, NT, AHEAD>``): tx consecutive x rows of ty columns
+    of one sample, all Zl levels, walked row by row by nt threads with the
+    input rows ``ahead`` steps ahead of the row computed."""
+
+    tx: int
+    ty: int
+    nt: int
+    ahead: int
+
+    @property
+    def ring(self) -> int:
+        """Staged input rows: x - 1, x, x + 1 and those in flight."""
+        return self.ahead + 3
+
+    @staticmethod
+    def _pitch(n: int) -> int:
+        return (n + 6) & ~3  # n floats at any offset in a 16-byte line
+
+    def smem_bytes(self, zl: int, cin: int, cout: int, zc: bool) -> int:
+        """Dynamic shared memory: the ring of input rows with their y halo
+        and of height rows, two output rows, the x and y coefficient
+        triples and, for the adjoint (``zc``), the z triples of two rows."""
+        p = self._pitch
+        return 4 * (self.ring * (p((self.ty + 2) * zl * cin)
+                                 + p(self.ty * zl))
+                    + 2 * p(self.ty * zl * cout)
+                    + 3 * (self.tx + self.ty)
+                    + (6 * self.ty * zl if zc else 0))
+
+
+# the tiles instantiated in csrc/stencil.cu (GradTile, AdjTile)
+GRAD_TILE = StencilTile(8, 32, 128, 1)
+ADJ_TILE = StencilTile(16, 32, 320, 1)
+
+
+def plan_stencil(shape, adjoint: bool = False) -> dict:
+    """The plan of the gradient kernel (or, with ``adjoint``, of its
+    adjoint) for a field of ``shape`` (N, X, Y, Zl, ...): ``tile``,
+    ``grid`` (blocks: N x the strips of a sample) and ``smem`` (dynamic
+    shared-memory bytes). Raises ValueError for fewer than 2 points on an
+    axis, a volume whose columns do not fit a block's shared memory, or a
+    sample too large for the kernels' 32-bit offsets."""
+    N, X, Y, Zl = (int(v) for v in shape[:4])
     if min(X, Y, Zl) < 2:
         raise ValueError(f"the stencil needs 2 points per axis, got "
                          f"{(X, Y, Zl)}")
-    if tuple(Z.shape) != (N, X, Y, Zl, 1) or x.shape != (X,) or \
-            y.shape != (Y,):
+    tile = ADJ_TILE if adjoint else GRAD_TILE
+    smem = tile.smem_bytes(Zl, 9 if adjoint else 3, 3 if adjoint else 9,
+                           adjoint)
+    if smem > TC_SMEM_LIMIT:
+        raise ValueError(
+            f"the stencil's tile needs {smem} bytes of shared memory at "
+            f"Zl={Zl}, more than the {TC_SMEM_LIMIT} a block may have")
+    if X * Y * Zl * 9 >= 2 ** 31:
+        raise ValueError(f"a sample of {(X, Y, Zl)} voxels is too large "
+                         f"for the stencil's 32-bit offsets")
+    grid = N * -(-X // tile.tx) * -(-Y // tile.ty)
+    return dict(tile=tile, grid=grid, smem=smem)
+
+
+_plan = functools.lru_cache(maxsize=64)(plan_stencil)
+_kernels = {}  # ctypes functions by name, typed once when the library loads
+
+
+def _kernel(name: str):
+    if not _kernels:
+        from gan_sr_wind_field_tpu_torch.ops.kernels.build import (
+            load_library,
+        )
+
+        lib = load_library("stencil")
+        for n in ("windsr_wind_gradient", "windsr_wind_gradient_adjoint"):
+            fn = getattr(lib, n)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            _kernels[n] = fn
+    return _kernels[name]
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
+def _launch(name: str, src: torch.Tensor, x, y, Z, out_ch: int):
+    if not src.is_cuda:
+        raise ValueError(f"no stencil kernel for device {src.device}")
+    N, X, Y, Zl, _ = src.shape
+    if Z.shape != (N, X, Y, Zl, 1) or x.shape != (X,) or y.shape != (Y,):
         raise ValueError(f"Z {tuple(Z.shape)}, x {tuple(x.shape)}, y "
                          f"{tuple(y.shape)} do not match {tuple(src.shape)}")
+    card = src.get_device()
     for t in (Z, x, y):
-        if t.device != src.device:
-            raise ValueError(f"stencil inputs on {t.device} and {src.device}")
-    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
-
-    fn = getattr(load_library("stencil"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    src, hz, x, y = (t.float().contiguous() for t in (src, Z, x, y))
-    with torch.cuda.device(src.device):
-        out = torch.empty(N, X, Y, Zl, out_ch, dtype=torch.float32,
-                          device=src.device)
-        rc = fn(src.data_ptr(), hz.data_ptr(), x.data_ptr(), y.data_ptr(),
-                out.data_ptr(), N, X, Y, Zl,
-                torch.cuda.current_stream(src.device).cuda_stream)
+        if t.get_device() != card:
+            raise ValueError(f"stencil inputs on {t.device} and "
+                             f"{src.device}")
+    _plan((N, X, Y, Zl), out_ch == 3)
+    fn = _kernel(name)
+    src, hz, x, y = _f32(src), _f32(Z), _f32(x), _f32(y)
+    if card != torch.cuda.current_device():
+        with torch.cuda.device(card):
+            return _launch(name, src, x, y, Z, out_ch)
+    out = src.new_empty((N, X, Y, Zl, out_ch))
+    # the current stream's handle, without building a Stream object
+    rc = fn(src.data_ptr(), hz.data_ptr(), x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), N, X, Y, Zl,
+            torch._C._cuda_getCurrentRawStream(card))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from _torch_head_geoms import HEAD_GEOMS
+from _torch_stencil_geoms import STENCIL_GEOMS
 from _torch_trunk_geoms import TC_GEOMS
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
@@ -226,7 +227,7 @@ def test_tc_plan_counts_the_kernels_shared_memory(cuda_device, Z):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 5, 4, 3), (32, 64, 64, 10)])
+@pytest.mark.parametrize("shape", STENCIL_GEOMS)
 def test_stencil_kernels_match_plain_versions_on_card(cuda_device, shape):
     """Gradient and adjoint against their plain versions (1e-5: the same
     arithmetic, only fused multiply-adds differ), and the adjoint
@@ -250,6 +251,42 @@ def test_stencil_kernels_match_plain_versions_on_card(cuda_device, shape):
     lhs = (grad.double() * g9.double()).sum().item()
     rhs = (uvw.double() * adj.double()).sum().item()
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Zl", [2, 10, 33, 52])
+def test_stencil_plan_counts_the_kernels_shared_memory(cuda_device, Zl):
+    """plan_stencil's shared-memory bytes are what the kernels launch with
+    (the library reports its tiles' bytes), where the plan has a tile."""
+    import ctypes
+
+    from gan_sr_wind_field_tpu_torch.ops.kernels.build import load_library
+
+    fn = load_library("stencil").windsr_stencil_smem
+    fn.restype = ctypes.c_longlong
+    for adjoint in (False, True):
+        try:
+            plan = stencil.plan_stencil((1, 4, 4, Zl), adjoint)
+        except ValueError:
+            continue
+        assert fn(int(adjoint), Zl) == plan["smem"]
+
+
+@pytest.mark.cuda
+def test_stencil_kernels_refuse_a_too_deep_volume(cuda_device):
+    """Far past the plan's deepest Zl the tiles' columns do not fit a
+    block's shared memory: both wrappers raise before they launch."""
+    shape = (1, 3, 3, 400)
+    uvw = torch.randn(*shape, 3, device=cuda_device)
+    g9 = torch.randn(*shape, 9, device=cuda_device)
+    x = torch.arange(3.0, device=cuda_device)
+    Z = torch.cumsum(torch.ones(*shape, 1, device=cuda_device), 3)
+    before = (stencil.launches, stencil.adjoint_launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil.wind_gradient(uvw, x, x, Z)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil.wind_gradient_adjoint(g9, x, x, Z)
+    assert (stencil.launches, stencil.adjoint_launches) == before
 
 
 @pytest.mark.cuda

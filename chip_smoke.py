@@ -75,7 +75,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      version, bound and bf16 cuDNN (with cudnn.benchmark off and on; the
      kernel is compared with the faster), the time of the head's cuDNN
      backward (hr_head_vjp) at batch 32, and the head path's serving
-     forward and G and D steps.
+     forward and G and D steps;
+  7. train as a user does: python -m gan_sr_wind_field_tpu_torch.run
+     --train --synthetic --synthetic_hours 240 --synthetic_size 128 (its
+     main, in process) on a copy of configs/milestone9k.ini in a temporary
+     directory, with log_period 4, val_period 8, save_model_period 8,
+     keep_checkpoints 2 and d_g_train_period 4 and all else as committed
+     (bf16, batch 32, device-resident data, on-card augmentation, the warm
+     start from the 6k pack), to --max_steps 6016: the data feed's parts
+     timed alone first (synthetic cache, preprocess, npcache, resident
+     volumes, upload; one slice_batch + augment_batch at batch 32); then
+     the leg starts at it 6000, logs finite losses at 6004..6016,
+     validates at 6008 and 6016, keeps ckpt_6008 and ckpt_6016, and each
+     kernel's launches equal what its G steps, D steps, validation batches
+     and generate calls predict; the loop's steady-state G and D step
+     (CUDA events from one step's start to the next, iterations without
+     boundary work) beside phase 6's bare train_step, a validation sweep
+     and a checkpoint save with its bytes; restore_checkpoint(ckpt_6016)
+     equals the live state bit for bit, the generator's state included;
+     a second leg resumed from a copy of ckpt_6008 to 6016, each tree's
+     largest difference from the first leg printed (bit-exact, or within
+     1e-3 relative L2 where the card's step is not deterministic).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -1609,6 +1629,353 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
     return res
 
 
+# phase 7: the leg of milestone9k the loop trains (it 6000 -> 6016 from the
+# 6k pack), its schedule cut so that 16 steps cross two G and two D blocks,
+# two validations and two checkpoints
+LEG_FROM, LEG_TO = 6000, 6016
+LEG_SCHEDULE = dict(log_period=4, val_period=8, save_model_period=8,
+                    keep_checkpoints=2, d_g_train_period=4)
+LEG_DATA = ("--synthetic_hours", "240", "--synthetic_size", "128")
+VAL_LAUNCHES = (1, 0, 2, 0, 0)       # one validation batch (val_step)
+GENERATE_LAUNCHES = (1, 0, 0, 0, 0)  # one generate call (the image dump)
+# a resumed leg's trees against the uninterrupted leg's, where the card's
+# step is not deterministic (PERF.md section 6)
+RESUME_TOL = 1e-3
+
+
+class LegProbe:
+    """Counts and times what the loop calls during a leg, from the outside:
+    a CUDA event at the start of each train_step (with its it), each
+    val_step and generate call, and each validation sweep and checkpoint
+    save, synchronized and timed."""
+
+    def __init__(self):
+        import torch
+
+        from gan_sr_wind_field_tpu_torch.train import checkpoint, loop
+        from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+        self.steps, self.calls = [], {"val_step": 0, "generate": 0}
+        self.val_s, self.saves = [], []
+        self._undo = []
+        probe = self
+
+        def patch(owner, name, wrapper):
+            real = getattr(owner, name)
+            setattr(owner, name, wrapper(real))
+            self._undo.append((owner, name, real))
+
+        def on_step(real):
+            def step(gan, state, *a, **kw):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                probe.steps.append((state.it + 1, gan.is_g_step(state.it + 1),
+                                    ev, state.it))
+                return real(gan, state, *a, **kw)
+            return step
+
+        def counted(name):
+            def wrap(real):
+                def call(*a, **kw):
+                    probe.calls[name] += 1
+                    return real(*a, **kw)
+                return call
+            return wrap
+
+        def timed(store, with_bytes=False):
+            def wrap(real):
+                def call(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.monotonic()
+                    out = real(*a, **kw)
+                    torch.cuda.synchronize()
+                    secs = time.monotonic() - t
+                    store.append((secs, checkpoint.checkpoint_bytes(out))
+                                 if with_bytes else secs)
+                    return out
+                return call
+            return wrap
+
+        patch(WindFieldGAN, "train_step", on_step)
+        patch(WindFieldGAN, "val_step", counted("val_step"))
+        patch(WindFieldGAN, "generate", counted("generate"))
+        patch(loop, "run_validation", timed(self.val_s))
+        patch(checkpoint, "save_checkpoint", timed(self.saves, True))
+
+    def close(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+    def step_ms(self, quiet):
+        """Median ms from the start of one step to the next over the
+        steps ``quiet(it)`` accepts, G and D apart."""
+        out = {}
+        for g in (True, False):
+            ms = [a[2].elapsed_time(b[2]) for a, b in
+                  zip(self.steps, self.steps[1:]) if a[1] == g and quiet(a[0])]
+            out["G" if g else "D"] = (statistics.median(ms), len(ms))
+        return out
+
+
+def leg_config(tmp, root, **training):
+    """A copy of milestone9k with its folders in ``tmp`` (runs under
+    ``root``), the pack's path made absolute, the schedule of a short leg
+    and ``training`` overrides. Width, depth, batch, dtype, augmentation,
+    device_resident_data and the warm start stay as committed."""
+    from gan_sr_wind_field_tpu_torch.config import load_config
+
+    cfg = load_config(CFG)
+    cfg.env.root_path = os.path.join(tmp, root)
+    cfg.env.data_root = os.path.join(tmp, "data")
+    cfg.env.generator_load_path = os.path.join(REPO,
+                                               cfg.env.generator_load_path)
+    for k, v in {**LEG_SCHEDULE, **training}.items():
+        setattr(cfg.training, k, v)
+    cfg.use_tensorboard_logger = False
+    path = os.path.join(tmp, f"{root}.ini")
+    cfg.save(path)
+    return cfg, path
+
+
+def tree_diffs(a, b):
+    """Per tree of two states (G, its EMA, D, D's statistics, both Adam
+    moments): (max abs difference, rel L2, bit-exact)."""
+    import torch
+
+    pairs = [(t, getattr(a, t), getattr(b, t)) for t in
+             ("params_G", "params_G_ema", "params_D", "batch_stats_D")]
+    pairs += [(f"{o}.{m}", getattr(getattr(a, o), m),
+               getattr(getattr(b, o), m))
+              for o in ("opt_state_G", "opt_state_D") for m in ("mu", "nu")]
+    out = {}
+    for name, ta, tb in pairs:
+        fa, fb = (torch.cat([x[k].flatten().double() for k in ta])
+                  for x in (ta, tb))
+        out[name] = ((fa - fb).abs().max().item(), rel_l2(fa, fb),
+                     all(torch.equal(ta[k], tb[k]) for k in ta))
+    return out
+
+
+def loop_phase(dev, card, bare):
+    """Phase 7: python -m gan_sr_wind_field_tpu_torch.run --train on a copy
+    of milestone9k, from the 6k pack, 16 steps; then the checkpoint round
+    trip and a resumed leg. Returns the leg's launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.data import preprocess
+    from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
+    from gan_sr_wind_field_tpu_torch.data.device_data import (
+        load_resident_volumes,
+        slice_batch,
+    )
+    from gan_sr_wind_field_tpu_torch.data.synthetic import (
+        generate_synthetic_cache,
+    )
+    from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
+
+    tmp = tempfile.mkdtemp(prefix="windsr_leg_")
+    try:
+        cfg, ini = leg_config(tmp, "leg")
+        g, n = cfg.gan_config, cfg.dataset_train.batch_size
+        hours, size = int(LEG_DATA[1]), int(LEG_DATA[3])
+        log(f"loop: {os.path.basename(CFG)} copy, it {LEG_FROM} -> {LEG_TO} "
+            f"from the 6k pack, schedule {LEG_SCHEDULE}, data {hours} h at "
+            f"{size}x{size}x{g.number_of_z_layers}")
+        # the data feed, each part alone; the leg then finds them built
+        t = time.monotonic()
+        generate_synthetic_cache(cfg.env.data_root, hours, size, size,
+                                 g.number_of_z_layers)
+        s_cache = time.monotonic() - t
+        t = time.monotonic()
+        ds_train, _, ds_val, _, _ = preprocess(
+            cfg, synthetic=True, synthetic_hours=hours, synthetic_size=size)
+        s_pre = time.monotonic() - t
+        t = time.monotonic()
+        ds_train.use_npcache()  # builds the memmap of the train split
+        s_npc = time.monotonic() - t
+        t = time.monotonic()
+        full, zraw = load_resident_volumes(ds_train)
+        s_host = time.monotonic() - t
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        full_d = torch.from_numpy(full).to(dev)
+        zraw_d = torch.from_numpy(zraw).to(dev)
+        torch.cuda.synchronize()
+        s_up = time.monotonic() - t
+        mb = (full.nbytes + zraw.nbytes) / 1e6
+        n_val = len(ds_val)
+        del full, zraw
+        log(f"  data feed: synthetic cache {s_cache:.3f} s, preprocess "
+            f"{s_pre:.3f} s, npcache {s_npc:.3f} s, resident volumes on the "
+            f"host {s_host:.3f} s, upload {s_up:.3f} s ({mb:.1f} MB, "
+            f"{len(ds_train)} train / {len(ds_val)} val volumes) ({card})")
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def slice_and_augment():
+            return augment_batch(gen, *slice_batch(
+                full_d, zraw_d, gen, batch_size=n, patch=g.slice_size,
+                patch_y=g.slice_size, cf=cfg.scale, enable_slicing=True))
+
+        sa_ms = cuda_ms(slice_and_augment)
+        lr, hr, z = slice_and_augment()
+        if (lr.shape != (n, g.slice_size // cfg.scale, g.slice_size
+                         // cfg.scale, g.number_of_z_layers,
+                         cfg.lr_num_channels)
+                or not all(bool(torch.isfinite(a).all())
+                           for a in (lr, hr, z))):
+            fail(f"bad device batch: {tuple(lr.shape)}")
+        log(f"  one slice_batch + augment_batch at batch {n}: {sa_ms:.3f} ms "
+            f"({card})")
+        del full_d, zraw_d, lr, hr, z, ds_train, ds_val
+        torch.cuda.empty_cache()
+
+        # the leg, through the command line
+        argv = ["--cfg", ini, "--train", "--synthetic", *LEG_DATA,
+                "--max_steps", str(LEG_TO)]
+        probe = LegProbe()
+        reset_counters()
+        t = time.monotonic()
+        try:
+            state = run.main(argv)
+        finally:
+            probe.close()
+        torch.cuda.synchronize()
+        leg_s = time.monotonic() - t
+        launches = counters()
+        if not probe.steps or probe.steps[0][3] != LEG_FROM:
+            fail("the leg did not start at it "
+                 f"{LEG_FROM} from the pack")
+        if state.it != LEG_TO:
+            fail(f"the leg ended at it {state.it}, not {LEG_TO}")
+        period = cfg.training.d_g_train_period
+        ratio = cfg.training.d_g_train_ratio
+        its = range(LEG_FROM + 1, LEG_TO + 1)
+        n_g = sum((it // period) % (ratio + 1) == 0 for it in its)
+        n_d = len(its) - n_g
+        sweeps = sum(it % cfg.training.val_period == 0 for it in its)
+        val_batches = sweeps * math.ceil(n_val / cfg.dataset_val.batch_size)
+        want_calls = {"val_step": val_batches, "generate": sweeps}
+        if ([s[1] for s in probe.steps] != [(it // period) % (ratio + 1) == 0
+                                             for it in its]
+                or probe.calls != want_calls):
+            fail(f"the leg's calls {probe.calls}, steps "
+                 f"{[s[0] for s in probe.steps]} are not the schedule's")
+        predicted = tuple(
+            n_g * a + n_d * b + val_batches * c + sweeps * e
+            for a, b, c, e in zip(G_STEP_LAUNCHES, D_STEP_LAUNCHES,
+                                  VAL_LAUNCHES, GENERATE_LAUNCHES))
+        log(f"  leg {LEG_FROM} -> {LEG_TO} in {leg_s:.1f} s: {n_g} G steps, "
+            f"{n_d} D steps, {val_batches} validation batches, {sweeps} "
+            f"generate calls; launches {LAUNCH_LABELS} {launches}, "
+            f"predicted {predicted}")
+        if launches != predicted:
+            fail(f"the leg launched {launches}, predicted {predicted}")
+
+        # what the run wrote: losses on every logged line, two validations,
+        # the two checkpoints kept
+        run_folder = cfg_run_folder(tmp, "leg")
+        with open(os.path.join(tmp, "leg", "log", "status.log")) as f:
+            status = f.read()
+        logged = re.findall(r"it (\d+) G_total (\S+) D (\S+) .*"
+                            r"\((\S+) Mvox/s\)", status)
+        vals = re.findall(r"validation it (\d+): PSNR (\S+) \(trilinear "
+                          r"(\S+)\) G_total (\S+)", status)
+        if ([int(r[0]) for r in logged]
+                != list(range(LEG_FROM + 4, LEG_TO + 1, 4))
+                or not all(math.isfinite(float(v)) for r in logged
+                           for v in r[1:3])):
+            fail(f"logged lines {logged}")
+        if [int(v[0]) for v in vals] != [LEG_FROM + 8, LEG_TO] or not all(
+                math.isfinite(float(x)) for v in vals for x in v[1:]):
+            fail(f"validation lines {vals}")
+        if "continuation warm start" not in status or f"at it={LEG_FROM}" \
+                not in status:
+            fail("no warm start from the pack in the status log")
+        kept = sorted(d for d in os.listdir(run_folder)
+                      if d.startswith("ckpt_"))
+        if kept != [f"ckpt_{LEG_FROM + 8}", f"ckpt_{LEG_TO}"]:
+            fail(f"checkpoints kept: {kept}")
+
+        # times: steady state over iterations without boundary work
+        quiet = (lambda it: it != LEG_FROM + 1
+                 and it % cfg.training.log_period
+                 and it % cfg.training.val_period
+                 and it % cfg.training.save_model_period)
+        per = probe.step_ms(quiet)
+        vox = n * g.slice_size * g.slice_size * g.number_of_z_layers
+        for kind, bare_ms in (("G", bare["g_ms"]), ("D", bare["d_ms"])):
+            ms, count = per[kind]
+            log(f"  loop {kind} step {ms:.3f} ms (median of {count} "
+                f"iterations without boundary work, CUDA events from one "
+                f"step's start to the next), bare train_step {bare_ms:.3f} "
+                f"ms (phase 6): the loop's own cost {ms - bare_ms:.3f} ms "
+                f"per step ({card})")
+        mean_ms = (per["G"][0] + per["D"][0]) / 2
+        log(f"  loop HR voxels/s {vox / (mean_ms / 1e3):.4e} over a G/D "
+            f"alternation (steady state); as logged "
+            + ", ".join(f"it {r[0]} {float(r[3]) * 1e6:.4e}" for r in logged)
+            + f" ({card})")
+        log(f"  validation sweep {probe.val_s[-1]:.3f} s (first "
+            f"{probe.val_s[0]:.3f} s; {val_batches // sweeps} batch of "
+            f"{min(n_val, cfg.dataset_val.batch_size)} and one generate); "
+            f"checkpoint save {probe.saves[-1][0]:.3f} s, "
+            f"{probe.saves[-1][1]} bytes ({card})")
+
+        # the checkpoint round trip
+        restored = ckpt.restore_checkpoint(
+            os.path.join(run_folder, f"ckpt_{LEG_TO}"), state)
+        rt = tree_diffs(restored, state)
+        same_rng = torch.equal(restored.rng.get_state(), state.rng.get_state())
+        log(f"  restore_checkpoint(ckpt_{LEG_TO}) vs the live state: "
+            f"bit-exact {all(v[2] for v in rt.values())}, generator "
+            f"state equal {same_rng}, it {restored.it}")
+        if not (all(v[2] for v in rt.values()) and same_rng
+                and restored.it == state.it
+                and restored.opt_state_G.count == state.opt_state_G.count):
+            fail("the checkpoint round trip is not bit-exact")
+        del restored
+
+        # a resumed leg from ckpt_6008, in a copy of the run folder
+        copy = os.path.join(tmp, "resume_from")
+        shutil.copytree(run_folder, copy,
+                        ignore=shutil.ignore_patterns(f"ckpt_{LEG_TO}"))
+        cfg2, ini2 = leg_config(
+            tmp, "resumed", resume_training_from_save=True)
+        cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_FROM + 8}")
+        cfg2.save(ini2)
+        probe = LegProbe()
+        try:
+            resumed = run.main(["--cfg", ini2, "--train", "--synthetic",
+                                *LEG_DATA, "--max_steps", str(LEG_TO)])
+        finally:
+            probe.close()
+        if probe.steps[0][3] != LEG_FROM + 8 or resumed.it != LEG_TO:
+            fail(f"the resumed leg ran {probe.steps[0][3]} -> {resumed.it}")
+        diffs = tree_diffs(resumed, state)
+        exact = all(v[2] for v in diffs.values()) and torch.equal(
+            resumed.rng.get_state(), state.rng.get_state())
+        for name, (mx, rel, bits) in diffs.items():
+            log(f"  resumed vs uninterrupted {name:<18} max abs {mx:.3e}, "
+                f"rel L2 {rel:.3e}, bit-exact {bits}")
+        log(f"  resumed leg from ckpt_{LEG_FROM + 8}: bit-exact {exact}")
+        if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
+            fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cfg_run_folder(tmp, root):
+    """The one run folder the command line made under ``tmp/root``."""
+    runs = os.path.join(tmp, root, "runs")
+    (name,) = os.listdir(runs)
+    return os.path.join(runs, name)
+
+
 def main():
     import torch
 
@@ -1830,6 +2197,11 @@ def main():
     if not all(math.isfinite(v) for v in (ms, plain_ms, lib_ms, fwd_ms)):
         fail("a timing is not finite")
 
+    # ------------------------------------------------------------- 7. loop
+    del gan, state, gan_h, state_h, batch
+    torch.cuda.empty_cache()
+    ll = loop_phase(dev, card, tt)
+
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
                 "replaces": f"{TPU}/{replaces}", "launches": launches,
@@ -1840,26 +2212,30 @@ def main():
     tl = train_launches
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
-            serve_launches + tl[0], max_abs16, (ms, plain_ms, b1), lib_ms,
-            launches_serve=serve_launches, launches_train=tl[0],
+            serve_launches + tl[0] + ll[0], max_abs16, (ms, plain_ms, b1),
+            lib_ms, launches_serve=serve_launches, launches_train=tl[0],
+            launches_loop=ll[0],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
             residual_bound_ms=tt["k1r"][2][0],
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
-        row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429", tl[1],
-            max_abs_bwd, tt["k2"][:3], tt["k2"][3],
+        row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429",
+            tl[1] + ll[1], max_abs_bwd, tt["k2"][:3], tt["k2"][3],
+            launches_train=tl[1], launches_loop=ll[1],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
-        *(row(name, "stencil.cu", replaces, launches, err,
+        *(row(name, "stencil.cu", replaces, tl[i] + ll[i], err,
               (k["ms"], k["plain_ms"], k["bound"]), None,
+              launches_train=tl[i], launches_loop=ll[i],
               device_ms=k["device_ms"], device_ms_cold=k["device_ms_cold"])
-          for name, replaces, launches, err, k in (
-              ("wind_gradient", "stencil.py:78", tl[2], err_grad, tt["k3"]),
-              ("wind_gradient_adjoint", "stencil.py:166", tl[3], err_adj,
+          for name, replaces, i, err, k in (
+              ("wind_gradient", "stencil.py:78", 2, err_grad, tt["k3"]),
+              ("wind_gradient_adjoint", "stencil.py:166", 3, err_adj,
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
-            head_serve[4] + head_train[4], err_head, th[8][:3], th[8][3],
-            launches_serve=head_serve[4], launches_train=head_train[4],
+            head_serve[4] + head_train[4] + ll[4], err_head, th[8][:3],
+            th[8][3], launches_serve=head_serve[4],
+            launches_train=head_train[4], launches_loop=ll[4],
             ms_b32=th[32][0], plain_ms_b32=th[32][1],
             bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3],
             library_ms_benchmark_off=th[8][4],

@@ -1,13 +1,97 @@
-"""Serving-side normalization: physical units ↔ the generator's model space.
+"""Sample → (LR, HR, Z) formatting and normalization, both halves.
 
-The port's own copy of ``lr_channel_names``, ``_stat`` and
-``physical_to_model_inputs`` from ``gan_sr_wind_field_tpu/data/transform.py``
-(numpy only). Channel-last layout; z is never coarsened, only x and y.
+The port's own copy of ``gan_sr_wind_field_tpu/data/transform.py`` (numpy
+only): the training half (``NormStats``, ``reformat_sample``) and the
+serving half (``lr_channel_names``, ``_stat``, ``physical_to_model_inputs``).
+Channel-last layout; z is never coarsened, only x and y.
+
+- HR  = stack(u, v, w)/UVW_MAX                         → (nx, ny, nz, 3)
+- LR  = HR decimated ``[::cf, ::cf, :]`` (pure striding, not filtered, as
+  the reference does), plus optional channels: pressure (min-max), z or
+  (z_above_ground, z_relative) (min-max)
+- Z   = raw geopotential height                        → (nx, ny, nz, 1)
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
+
+
+@dataclass(frozen=True)
+class NormStats:
+    """Aggregated train-split normalization factors
+    (reference process_data.py:327,360-366)."""
+
+    z_min: float
+    z_max: float
+    z_above_ground_max: float
+    uvw_max: float
+    p_min: float
+    p_max: float
+
+
+def reformat_sample(
+    z: np.ndarray,
+    z_above_ground: np.ndarray,
+    u: np.ndarray,
+    v: np.ndarray,
+    w: np.ndarray,
+    p: np.ndarray,
+    stats: NormStats,
+    coarseness_factor: int = 4,
+    include_pressure: bool = False,
+    include_z_channel: bool = False,
+    include_above_ground_channel: bool = False,
+    for_plotting: bool = False,
+):
+    """→ (LR, HR, Z) float32 channel-last arrays.
+
+    ``for_plotting`` appends the normalized pressure as a 4th HR channel
+    (reference process_data.py:446-450, used by the offline plots)."""
+    cf = coarseness_factor
+    hr = np.stack([u, v, w], axis=-1) / stats.uvw_max
+    if for_plotting and include_pressure:
+        hr = np.concatenate(
+            [
+                hr,
+                ((p - stats.p_min) / (stats.p_max - stats.p_min))[..., None],
+            ],
+            axis=-1,
+        )
+
+    channels = [hr[::cf, ::cf, :, :3]]
+    if include_pressure:
+        channels.append(
+            ((p - stats.p_min) / (stats.p_max - stats.p_min))[
+                ::cf, ::cf, :, None
+            ]
+        )
+    if include_z_channel:
+        if include_above_ground_channel:
+            channels.append(
+                (z_above_ground / stats.z_above_ground_max)[::cf, ::cf, :, None]
+            )
+            channels.append(
+                (
+                    (z - z_above_ground - stats.z_min)
+                    / (stats.z_max - stats.z_min - stats.z_above_ground_max)
+                )[::cf, ::cf, :, None]
+            )
+        else:
+            channels.append(
+                ((z - stats.z_min) / (stats.z_max - stats.z_min))[
+                    ::cf, ::cf, :, None
+                ]
+            )
+
+    lr = np.concatenate(channels, axis=-1) if len(channels) > 1 else channels[0]
+    return (
+        np.ascontiguousarray(lr, dtype=np.float32),
+        np.ascontiguousarray(hr, dtype=np.float32),
+        np.ascontiguousarray(z[..., None], dtype=np.float32),
+    )
 
 
 def _stat(stats, name: str) -> float:

@@ -18,8 +18,8 @@ dicts of float32 tensors (and the discriminator's running statistics), and
 the models run on them through ``torch.func.functional_call``. Unlike the
 JAX package, whose arrays are immutable, ``train_step`` and ``val_step``
 update the state's tensors in place and return the same state. Randomness
-(dropout masks, instance noise, noisy labels) comes from the state's
-``torch.Generator``; it differs from JAX's draws for the same seed.
+(augmentation, dropout masks, instance noise, noisy labels) comes from the
+state's ``torch.Generator``; it differs from JAX's draws for the same seed.
 
 With ``use_fused_trunk`` (and a LeakyReLU slope > 0) the G step's trunk
 runs as the trunk kernel with residuals and the backward kernel
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
 from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
@@ -514,10 +515,12 @@ class WindFieldGAN:
     def train_step(self, state: GANTrainState, lr, hr, z,
                    augment: bool = False, weights=None):
         """One iteration, G or D by the alternation; updates ``state`` in
-        place and returns ``(state, metrics)``."""
-        if augment:
-            raise NotImplementedError(f"augment=True {_NOT_PORTED}")
+        place and returns ``(state, metrics)``. With ``augment`` the batch
+        is first rotated and mirrored per sample (``data/augment.py``),
+        with draws from ``state.rng`` before any other of the step's."""
         lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
+        if augment:
+            lr, hr, z = augment_batch(state.rng, lr, hr, z)
         w = weights or self.default_weights
         it = state.it + 1
         if self.use_feature_D and it % self.feature_D_update_period == 0:

@@ -111,7 +111,8 @@ def test_port_imports_nothing_of_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "    {'jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes',\n"
-        "     'gan_sr_wind_field_tpu'})\n"
+        "     'gan_sr_wind_field_tpu', 'orbax', 'matplotlib',\n"
+        "     'tensorboardX'})\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('gan_sr_wind_field_tpu_torch')]))\n"
         "assert not bad, bad\n"
@@ -119,7 +120,8 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+    # every module was imported, the data feed, loop and CLI among them
+    assert int(out.stdout.split()[-1]) >= 45
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -150,3 +152,12 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         WindFieldSR(cfg, sd)
     sr = WindFieldSR(cfg, sd, device="cpu")
     assert sr.device.type == "cpu"
+    # the training loop and the command line
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.train.loop import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, None, None, None, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run.main(["--train", "--synthetic", "--cfg",
+                  os.path.join(REPO, "configs", "milestone9k.ini")])

@@ -301,8 +301,8 @@ def test_ema_g_step_count_matches_enumeration():
         assert gan._n_g_steps(it) == count
 
 
-@pytest.mark.parametrize("what", ["augment", "train_chunk", "mesh",
-                                  "bfloat16_sr", "horizontal_3D"])
+@pytest.mark.parametrize("what", ["train_chunk", "mesh", "bfloat16_sr",
+                                  "horizontal_3D"])
 def test_options_not_ported_raise(what):
     cfg = tiny_cfg(True)
     if what == "bfloat16_sr":
@@ -312,11 +312,7 @@ def test_options_not_ported_raise(what):
     kw = {"mesh": object()} if what == "mesh" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         gan = WindFieldGAN(cfg, COORDS, COORDS, device="cpu", **kw)
-        if what == "augment":
-            state = gan.init_state(0, LR_SHAPE, HR_SHAPE)
-            gan.train_step(state, *make_batch(0), augment=True)
-        else:
-            gan.train_chunk()
+        gan.train_chunk()
 
 
 def test_default_device_is_the_card():

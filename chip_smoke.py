@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch port: serve and train the full-width 4x
-generator on one NVIDIA card through the hand-written CUDA kernels.
+"""Chip smoke for the PyTorch port: serve, train and evaluate the
+full-width 4x generator on one NVIDIA card through the hand-written CUDA
+kernels.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -95,7 +96,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
      equals the live state bit for bit, the generator's state included;
      a second leg resumed from a copy of ckpt_6008 to 6016, each tree's
      largest difference from the first leg printed (bit-exact, or within
-     1e-3 relative L2 where the card's step is not deterministic).
+     1e-3 relative L2 where the card's step is not deterministic);
+  8. evaluate, use and serve what the port trains, in phase 7's temporary
+     directory on its data: pack_from_state of the live state at 6016 in
+     float32 and bf16, read back bit for bit (bf16: the state rounded by
+     torch); WindFieldSR.from_checkpoint(ckpt_6016) serves a batch of 8
+     (one trunk launch), equal bit for bit to gan.generate with the
+     state's EMA, and eval/server.py's main with --checkpoint builds the
+     same backend;
+     then python -m gan_sr_wind_field_tpu_torch.run --test, --test
+     --test_ema and --use (its main, in process, in a temporary working
+     directory) on a copy of configs/test_milestone6k.ini whose weights are
+     docs/evidence/milestone6k_continuation_6000.npz: 23 rows per metrics
+     CSV, the two averages rows, trilinear PSNR within 1e-3 dB and raw G
+     and EMA within 0.3 dB of the JAX package's committed result on a TPU
+     (docs/evidence/milestone6k_test_averages.csv; raw G above trilinear),
+     the largest per-field PSNR gap printed; the trunk kernel on the
+     trunk input of the first test field (batch 1 at LR 32x32x10) against
+     its plain version (increment <= 3e-2); the same --test on a copy with
+     use_pallas_head_nograd (23 head launches, average PSNR within 0.05 dB
+     and each field's SR within 3e-2 relative L2 of the module head's);
+     --use writes 23 finite LR/SR dumps; each pass launches the trunk
+     kernel once per generate call; times of one 128x128x10 generate with
+     either head and each pass's wall seconds.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -1756,12 +1779,12 @@ def tree_diffs(a, b):
     return out
 
 
-def loop_phase(dev, card, bare):
+def loop_phase(dev, card, bare, tmp):
     """Phase 7: python -m gan_sr_wind_field_tpu_torch.run --train on a copy
-    of milestone9k, from the 6k pack, 16 steps; then the checkpoint round
-    trip and a resumed leg. Returns the leg's launches."""
+    of milestone9k in ``tmp``, from the 6k pack, 16 steps; then the
+    checkpoint round trip and a resumed leg. Returns the leg's launches,
+    its live state at the end and the path of its last checkpoint."""
     import shutil
-    import tempfile
 
     import torch
 
@@ -1777,196 +1800,193 @@ def loop_phase(dev, card, bare):
     )
     from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 
-    tmp = tempfile.mkdtemp(prefix="windsr_leg_")
+    cfg, ini = leg_config(tmp, "leg")
+    g, n = cfg.gan_config, cfg.dataset_train.batch_size
+    hours, size = int(LEG_DATA[1]), int(LEG_DATA[3])
+    log(f"loop: {os.path.basename(CFG)} copy, it {LEG_FROM} -> {LEG_TO} "
+        f"from the 6k pack, schedule {LEG_SCHEDULE}, data {hours} h at "
+        f"{size}x{size}x{g.number_of_z_layers}")
+    # the data feed, each part alone; the leg then finds them built
+    t = time.monotonic()
+    generate_synthetic_cache(cfg.env.data_root, hours, size, size,
+                             g.number_of_z_layers)
+    s_cache = time.monotonic() - t
+    t = time.monotonic()
+    ds_train, _, ds_val, _, _ = preprocess(
+        cfg, synthetic=True, synthetic_hours=hours, synthetic_size=size)
+    s_pre = time.monotonic() - t
+    t = time.monotonic()
+    ds_train.use_npcache()  # builds the memmap of the train split
+    s_npc = time.monotonic() - t
+    t = time.monotonic()
+    full, zraw = load_resident_volumes(ds_train)
+    s_host = time.monotonic() - t
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    full_d = torch.from_numpy(full).to(dev)
+    zraw_d = torch.from_numpy(zraw).to(dev)
+    torch.cuda.synchronize()
+    s_up = time.monotonic() - t
+    mb = (full.nbytes + zraw.nbytes) / 1e6
+    n_val = len(ds_val)
+    del full, zraw
+    log(f"  data feed: synthetic cache {s_cache:.3f} s, preprocess "
+        f"{s_pre:.3f} s, npcache {s_npc:.3f} s, resident volumes on the "
+        f"host {s_host:.3f} s, upload {s_up:.3f} s ({mb:.1f} MB, "
+        f"{len(ds_train)} train / {len(ds_val)} val volumes) ({card})")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def slice_and_augment():
+        return augment_batch(gen, *slice_batch(
+            full_d, zraw_d, gen, batch_size=n, patch=g.slice_size,
+            patch_y=g.slice_size, cf=cfg.scale, enable_slicing=True))
+
+    sa_ms = cuda_ms(slice_and_augment)
+    lr, hr, z = slice_and_augment()
+    if (lr.shape != (n, g.slice_size // cfg.scale, g.slice_size
+                     // cfg.scale, g.number_of_z_layers,
+                     cfg.lr_num_channels)
+            or not all(bool(torch.isfinite(a).all())
+                       for a in (lr, hr, z))):
+        fail(f"bad device batch: {tuple(lr.shape)}")
+    log(f"  one slice_batch + augment_batch at batch {n}: {sa_ms:.3f} ms "
+        f"({card})")
+    del full_d, zraw_d, lr, hr, z, ds_train, ds_val
+    torch.cuda.empty_cache()
+
+    # the leg, through the command line
+    argv = ["--cfg", ini, "--train", "--synthetic", *LEG_DATA,
+            "--max_steps", str(LEG_TO)]
+    probe = LegProbe()
+    reset_counters()
+    t = time.monotonic()
     try:
-        cfg, ini = leg_config(tmp, "leg")
-        g, n = cfg.gan_config, cfg.dataset_train.batch_size
-        hours, size = int(LEG_DATA[1]), int(LEG_DATA[3])
-        log(f"loop: {os.path.basename(CFG)} copy, it {LEG_FROM} -> {LEG_TO} "
-            f"from the 6k pack, schedule {LEG_SCHEDULE}, data {hours} h at "
-            f"{size}x{size}x{g.number_of_z_layers}")
-        # the data feed, each part alone; the leg then finds them built
-        t = time.monotonic()
-        generate_synthetic_cache(cfg.env.data_root, hours, size, size,
-                                 g.number_of_z_layers)
-        s_cache = time.monotonic() - t
-        t = time.monotonic()
-        ds_train, _, ds_val, _, _ = preprocess(
-            cfg, synthetic=True, synthetic_hours=hours, synthetic_size=size)
-        s_pre = time.monotonic() - t
-        t = time.monotonic()
-        ds_train.use_npcache()  # builds the memmap of the train split
-        s_npc = time.monotonic() - t
-        t = time.monotonic()
-        full, zraw = load_resident_volumes(ds_train)
-        s_host = time.monotonic() - t
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        full_d = torch.from_numpy(full).to(dev)
-        zraw_d = torch.from_numpy(zraw).to(dev)
-        torch.cuda.synchronize()
-        s_up = time.monotonic() - t
-        mb = (full.nbytes + zraw.nbytes) / 1e6
-        n_val = len(ds_val)
-        del full, zraw
-        log(f"  data feed: synthetic cache {s_cache:.3f} s, preprocess "
-            f"{s_pre:.3f} s, npcache {s_npc:.3f} s, resident volumes on the "
-            f"host {s_host:.3f} s, upload {s_up:.3f} s ({mb:.1f} MB, "
-            f"{len(ds_train)} train / {len(ds_val)} val volumes) ({card})")
-        gen = torch.Generator(device=dev).manual_seed(0)
-
-        def slice_and_augment():
-            return augment_batch(gen, *slice_batch(
-                full_d, zraw_d, gen, batch_size=n, patch=g.slice_size,
-                patch_y=g.slice_size, cf=cfg.scale, enable_slicing=True))
-
-        sa_ms = cuda_ms(slice_and_augment)
-        lr, hr, z = slice_and_augment()
-        if (lr.shape != (n, g.slice_size // cfg.scale, g.slice_size
-                         // cfg.scale, g.number_of_z_layers,
-                         cfg.lr_num_channels)
-                or not all(bool(torch.isfinite(a).all())
-                           for a in (lr, hr, z))):
-            fail(f"bad device batch: {tuple(lr.shape)}")
-        log(f"  one slice_batch + augment_batch at batch {n}: {sa_ms:.3f} ms "
-            f"({card})")
-        del full_d, zraw_d, lr, hr, z, ds_train, ds_val
-        torch.cuda.empty_cache()
-
-        # the leg, through the command line
-        argv = ["--cfg", ini, "--train", "--synthetic", *LEG_DATA,
-                "--max_steps", str(LEG_TO)]
-        probe = LegProbe()
-        reset_counters()
-        t = time.monotonic()
-        try:
-            state = run.main(argv)
-        finally:
-            probe.close()
-        torch.cuda.synchronize()
-        leg_s = time.monotonic() - t
-        launches = counters()
-        if not probe.steps or probe.steps[0][3] != LEG_FROM:
-            fail("the leg did not start at it "
-                 f"{LEG_FROM} from the pack")
-        if state.it != LEG_TO:
-            fail(f"the leg ended at it {state.it}, not {LEG_TO}")
-        period = cfg.training.d_g_train_period
-        ratio = cfg.training.d_g_train_ratio
-        its = range(LEG_FROM + 1, LEG_TO + 1)
-        n_g = sum((it // period) % (ratio + 1) == 0 for it in its)
-        n_d = len(its) - n_g
-        sweeps = sum(it % cfg.training.val_period == 0 for it in its)
-        val_batches = sweeps * math.ceil(n_val / cfg.dataset_val.batch_size)
-        want_calls = {"val_step": val_batches, "generate": sweeps}
-        if ([s[1] for s in probe.steps] != [(it // period) % (ratio + 1) == 0
-                                             for it in its]
-                or probe.calls != want_calls):
-            fail(f"the leg's calls {probe.calls}, steps "
-                 f"{[s[0] for s in probe.steps]} are not the schedule's")
-        predicted = tuple(
-            n_g * a + n_d * b + val_batches * c + sweeps * e
-            for a, b, c, e in zip(G_STEP_LAUNCHES, D_STEP_LAUNCHES,
-                                  VAL_LAUNCHES, GENERATE_LAUNCHES))
-        log(f"  leg {LEG_FROM} -> {LEG_TO} in {leg_s:.1f} s: {n_g} G steps, "
-            f"{n_d} D steps, {val_batches} validation batches, {sweeps} "
-            f"generate calls; launches {LAUNCH_LABELS} {launches}, "
-            f"predicted {predicted}")
-        if launches != predicted:
-            fail(f"the leg launched {launches}, predicted {predicted}")
-
-        # what the run wrote: losses on every logged line, two validations,
-        # the two checkpoints kept
-        run_folder = cfg_run_folder(tmp, "leg")
-        with open(os.path.join(tmp, "leg", "log", "status.log")) as f:
-            status = f.read()
-        logged = re.findall(r"it (\d+) G_total (\S+) D (\S+) .*"
-                            r"\((\S+) Mvox/s\)", status)
-        vals = re.findall(r"validation it (\d+): PSNR (\S+) \(trilinear "
-                          r"(\S+)\) G_total (\S+)", status)
-        if ([int(r[0]) for r in logged]
-                != list(range(LEG_FROM + 4, LEG_TO + 1, 4))
-                or not all(math.isfinite(float(v)) for r in logged
-                           for v in r[1:3])):
-            fail(f"logged lines {logged}")
-        if [int(v[0]) for v in vals] != [LEG_FROM + 8, LEG_TO] or not all(
-                math.isfinite(float(x)) for v in vals for x in v[1:]):
-            fail(f"validation lines {vals}")
-        if "continuation warm start" not in status or f"at it={LEG_FROM}" \
-                not in status:
-            fail("no warm start from the pack in the status log")
-        kept = sorted(d for d in os.listdir(run_folder)
-                      if d.startswith("ckpt_"))
-        if kept != [f"ckpt_{LEG_FROM + 8}", f"ckpt_{LEG_TO}"]:
-            fail(f"checkpoints kept: {kept}")
-
-        # times: steady state over iterations without boundary work
-        quiet = (lambda it: it != LEG_FROM + 1
-                 and it % cfg.training.log_period
-                 and it % cfg.training.val_period
-                 and it % cfg.training.save_model_period)
-        per = probe.step_ms(quiet)
-        vox = n * g.slice_size * g.slice_size * g.number_of_z_layers
-        for kind, bare_ms in (("G", bare["g_ms"]), ("D", bare["d_ms"])):
-            ms, count = per[kind]
-            log(f"  loop {kind} step {ms:.3f} ms (median of {count} "
-                f"iterations without boundary work, CUDA events from one "
-                f"step's start to the next), bare train_step {bare_ms:.3f} "
-                f"ms (phase 6): the loop's own cost {ms - bare_ms:.3f} ms "
-                f"per step ({card})")
-        mean_ms = (per["G"][0] + per["D"][0]) / 2
-        log(f"  loop HR voxels/s {vox / (mean_ms / 1e3):.4e} over a G/D "
-            f"alternation (steady state); as logged "
-            + ", ".join(f"it {r[0]} {float(r[3]) * 1e6:.4e}" for r in logged)
-            + f" ({card})")
-        log(f"  validation sweep {probe.val_s[-1]:.3f} s (first "
-            f"{probe.val_s[0]:.3f} s; {val_batches // sweeps} batch of "
-            f"{min(n_val, cfg.dataset_val.batch_size)} and one generate); "
-            f"checkpoint save {probe.saves[-1][0]:.3f} s, "
-            f"{probe.saves[-1][1]} bytes ({card})")
-
-        # the checkpoint round trip
-        restored = ckpt.restore_checkpoint(
-            os.path.join(run_folder, f"ckpt_{LEG_TO}"), state)
-        rt = tree_diffs(restored, state)
-        same_rng = torch.equal(restored.rng.get_state(), state.rng.get_state())
-        log(f"  restore_checkpoint(ckpt_{LEG_TO}) vs the live state: "
-            f"bit-exact {all(v[2] for v in rt.values())}, generator "
-            f"state equal {same_rng}, it {restored.it}")
-        if not (all(v[2] for v in rt.values()) and same_rng
-                and restored.it == state.it
-                and restored.opt_state_G.count == state.opt_state_G.count):
-            fail("the checkpoint round trip is not bit-exact")
-        del restored
-
-        # a resumed leg from ckpt_6008, in a copy of the run folder
-        copy = os.path.join(tmp, "resume_from")
-        shutil.copytree(run_folder, copy,
-                        ignore=shutil.ignore_patterns(f"ckpt_{LEG_TO}"))
-        cfg2, ini2 = leg_config(
-            tmp, "resumed", resume_training_from_save=True)
-        cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_FROM + 8}")
-        cfg2.save(ini2)
-        probe = LegProbe()
-        try:
-            resumed = run.main(["--cfg", ini2, "--train", "--synthetic",
-                                *LEG_DATA, "--max_steps", str(LEG_TO)])
-        finally:
-            probe.close()
-        if probe.steps[0][3] != LEG_FROM + 8 or resumed.it != LEG_TO:
-            fail(f"the resumed leg ran {probe.steps[0][3]} -> {resumed.it}")
-        diffs = tree_diffs(resumed, state)
-        exact = all(v[2] for v in diffs.values()) and torch.equal(
-            resumed.rng.get_state(), state.rng.get_state())
-        for name, (mx, rel, bits) in diffs.items():
-            log(f"  resumed vs uninterrupted {name:<18} max abs {mx:.3e}, "
-                f"rel L2 {rel:.3e}, bit-exact {bits}")
-        log(f"  resumed leg from ckpt_{LEG_FROM + 8}: bit-exact {exact}")
-        if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
-            fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
-        return launches
+        state = run.main(argv)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        probe.close()
+    torch.cuda.synchronize()
+    leg_s = time.monotonic() - t
+    launches = counters()
+    if not probe.steps or probe.steps[0][3] != LEG_FROM:
+        fail("the leg did not start at it "
+             f"{LEG_FROM} from the pack")
+    if state.it != LEG_TO:
+        fail(f"the leg ended at it {state.it}, not {LEG_TO}")
+    period = cfg.training.d_g_train_period
+    ratio = cfg.training.d_g_train_ratio
+    its = range(LEG_FROM + 1, LEG_TO + 1)
+    n_g = sum((it // period) % (ratio + 1) == 0 for it in its)
+    n_d = len(its) - n_g
+    sweeps = sum(it % cfg.training.val_period == 0 for it in its)
+    val_batches = sweeps * math.ceil(n_val / cfg.dataset_val.batch_size)
+    want_calls = {"val_step": val_batches, "generate": sweeps}
+    if ([s[1] for s in probe.steps] != [(it // period) % (ratio + 1) == 0
+                                         for it in its]
+            or probe.calls != want_calls):
+        fail(f"the leg's calls {probe.calls}, steps "
+             f"{[s[0] for s in probe.steps]} are not the schedule's")
+    predicted = tuple(
+        n_g * a + n_d * b + val_batches * c + sweeps * e
+        for a, b, c, e in zip(G_STEP_LAUNCHES, D_STEP_LAUNCHES,
+                              VAL_LAUNCHES, GENERATE_LAUNCHES))
+    log(f"  leg {LEG_FROM} -> {LEG_TO} in {leg_s:.1f} s: {n_g} G steps, "
+        f"{n_d} D steps, {val_batches} validation batches, {sweeps} "
+        f"generate calls; launches {LAUNCH_LABELS} {launches}, "
+        f"predicted {predicted}")
+    if launches != predicted:
+        fail(f"the leg launched {launches}, predicted {predicted}")
+
+    # what the run wrote: losses on every logged line, two validations,
+    # the two checkpoints kept
+    run_folder = cfg_run_folder(tmp, "leg")
+    with open(os.path.join(tmp, "leg", "log", "status.log")) as f:
+        status = f.read()
+    logged = re.findall(r"it (\d+) G_total (\S+) D (\S+) .*"
+                        r"\((\S+) Mvox/s\)", status)
+    vals = re.findall(r"validation it (\d+): PSNR (\S+) \(trilinear "
+                      r"(\S+)\) G_total (\S+)", status)
+    if ([int(r[0]) for r in logged]
+            != list(range(LEG_FROM + 4, LEG_TO + 1, 4))
+            or not all(math.isfinite(float(v)) for r in logged
+                       for v in r[1:3])):
+        fail(f"logged lines {logged}")
+    if [int(v[0]) for v in vals] != [LEG_FROM + 8, LEG_TO] or not all(
+            math.isfinite(float(x)) for v in vals for x in v[1:]):
+        fail(f"validation lines {vals}")
+    if "continuation warm start" not in status or f"at it={LEG_FROM}" \
+            not in status:
+        fail("no warm start from the pack in the status log")
+    kept = sorted(d for d in os.listdir(run_folder)
+                  if d.startswith("ckpt_"))
+    if kept != [f"ckpt_{LEG_FROM + 8}", f"ckpt_{LEG_TO}"]:
+        fail(f"checkpoints kept: {kept}")
+
+    # times: steady state over iterations without boundary work
+    quiet = (lambda it: it != LEG_FROM + 1
+             and it % cfg.training.log_period
+             and it % cfg.training.val_period
+             and it % cfg.training.save_model_period)
+    per = probe.step_ms(quiet)
+    vox = n * g.slice_size * g.slice_size * g.number_of_z_layers
+    for kind, bare_ms in (("G", bare["g_ms"]), ("D", bare["d_ms"])):
+        ms, count = per[kind]
+        log(f"  loop {kind} step {ms:.3f} ms (median of {count} "
+            f"iterations without boundary work, CUDA events from one "
+            f"step's start to the next), bare train_step {bare_ms:.3f} "
+            f"ms (phase 6): the loop's own cost {ms - bare_ms:.3f} ms "
+            f"per step ({card})")
+    mean_ms = (per["G"][0] + per["D"][0]) / 2
+    log(f"  loop HR voxels/s {vox / (mean_ms / 1e3):.4e} over a G/D "
+        f"alternation (steady state); as logged "
+        + ", ".join(f"it {r[0]} {float(r[3]) * 1e6:.4e}" for r in logged)
+        + f" ({card})")
+    log(f"  validation sweep {probe.val_s[-1]:.3f} s (first "
+        f"{probe.val_s[0]:.3f} s; {val_batches // sweeps} batch of "
+        f"{min(n_val, cfg.dataset_val.batch_size)} and one generate); "
+        f"checkpoint save {probe.saves[-1][0]:.3f} s, "
+        f"{probe.saves[-1][1]} bytes ({card})")
+
+    # the checkpoint round trip
+    restored = ckpt.restore_checkpoint(
+        os.path.join(run_folder, f"ckpt_{LEG_TO}"), state)
+    rt = tree_diffs(restored, state)
+    same_rng = torch.equal(restored.rng.get_state(), state.rng.get_state())
+    log(f"  restore_checkpoint(ckpt_{LEG_TO}) vs the live state: "
+        f"bit-exact {all(v[2] for v in rt.values())}, generator "
+        f"state equal {same_rng}, it {restored.it}")
+    if not (all(v[2] for v in rt.values()) and same_rng
+            and restored.it == state.it
+            and restored.opt_state_G.count == state.opt_state_G.count):
+        fail("the checkpoint round trip is not bit-exact")
+    del restored
+
+    # a resumed leg from ckpt_6008, in a copy of the run folder
+    copy = os.path.join(tmp, "resume_from")
+    shutil.copytree(run_folder, copy,
+                    ignore=shutil.ignore_patterns(f"ckpt_{LEG_TO}"))
+    cfg2, ini2 = leg_config(
+        tmp, "resumed", resume_training_from_save=True)
+    cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_FROM + 8}")
+    cfg2.save(ini2)
+    probe = LegProbe()
+    try:
+        resumed = run.main(["--cfg", ini2, "--train", "--synthetic",
+                            *LEG_DATA, "--max_steps", str(LEG_TO)])
+    finally:
+        probe.close()
+    if probe.steps[0][3] != LEG_FROM + 8 or resumed.it != LEG_TO:
+        fail(f"the resumed leg ran {probe.steps[0][3]} -> {resumed.it}")
+    diffs = tree_diffs(resumed, state)
+    exact = all(v[2] for v in diffs.values()) and torch.equal(
+        resumed.rng.get_state(), state.rng.get_state())
+    for name, (mx, rel, bits) in diffs.items():
+        log(f"  resumed vs uninterrupted {name:<18} max abs {mx:.3e}, "
+            f"rel L2 {rel:.3e}, bit-exact {bits}")
+    log(f"  resumed leg from ckpt_{LEG_FROM + 8}: bit-exact {exact}")
+    if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
+        fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
+    del resumed
+    return launches, state, os.path.join(run_folder, f"ckpt_{LEG_TO}")
 
 
 def cfg_run_folder(tmp, root):
@@ -1974,6 +1994,367 @@ def cfg_run_folder(tmp, root):
     runs = os.path.join(tmp, root, "runs")
     (name,) = os.listdir(runs)
     return os.path.join(runs, name)
+
+
+# phase 8: evaluate, use and serve what the port trains. The held-out test
+# chain runs on configs/test_milestone6k.ini's data (phase 7's synthetic
+# cache: 240 h at 128x128x10, 23 test fields) with the committed 6k pack, and
+# is held against the JAX package's own --test result on a TPU
+TEST_CFG = os.path.join(REPO, "configs", "test_milestone6k.ini")
+PACK_6K = os.path.join(REPO, "docs", "evidence",
+                       "milestone6k_continuation_6000.npz")
+JAX_TEST = os.path.join(REPO, "docs", "evidence", "milestone6k_test_{}.csv")
+TEST_FIELDS = 23
+# trilinear does not depend on the weights; the model rows allow for the
+# pack's bf16 rounding of the float32 ckpt_6000 and for bf16 convs on
+# another chip; the HR-head kernel against the module head on one pass
+TRILINEAR_TOL_DB = 1e-3
+MODEL_TOL_DB = 0.3
+HEAD_PSNR_TOL_DB = 0.05
+HEAD_FIELD_TOL = 3e-2
+
+
+class GenerateProbe:
+    """Counts ``WindFieldGAN.generate`` calls and keeps, on the host, each
+    output, the first call's inputs and the last call's GAN and state."""
+
+    def __init__(self):
+        from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+        self.outputs, self.first, self.last = [], None, None
+        self._real = real = WindFieldGAN.generate
+        probe = self
+
+        def generate(gan, state, lr, z):
+            out = real(gan, state, lr, z)
+            probe.outputs.append(out.float().cpu())
+            if probe.first is None:
+                probe.first = (lr, z)
+            probe.last = (gan, state)
+            return out
+
+        WindFieldGAN.generate = generate
+
+    def close(self):
+        from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+        WindFieldGAN.generate = self._real
+
+
+def jax_test_result():
+    """The JAX package's committed --test result (on a TPU): the averages
+    rows by name, and each per-field PSNR by track and field."""
+    import csv
+
+    with open(JAX_TEST.format("averages")) as f:
+        rows = list(csv.reader(f, skipinitialspace=True))
+    avgs = {r[0]: [float(v) for v in r[1:]] for r in rows[1:]}
+    fields = {}
+    for track in ("metrics", "metrics_ema"):
+        with open(JAX_TEST.format(track)) as f:
+            fields[track] = {r[0]: float(r[1]) for r in
+                             list(csv.reader(f, skipinitialspace=True))[1:]}
+    return avgs, fields
+
+
+def read_metrics(path):
+    """(header line, {field: PSNR}) of a metrics CSV the port wrote."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return lines[0] + "\n", {ln.split(",")[0]: float(ln.split(",")[1])
+                             for ln in lines[1:]}
+
+
+def test_copy(tmp, root, **flags):
+    """A copy of test_milestone6k.ini with the 6k pack as its weights, its
+    folders in ``tmp`` (runs under ``root``) and phase 7's data."""
+    from gan_sr_wind_field_tpu_torch.config import load_config
+
+    cfg = load_config(TEST_CFG)
+    cfg.env.generator_load_path = PACK_6K
+    cfg.env.root_path = os.path.join(tmp, root)
+    cfg.env.this_runs_folder = os.path.join(tmp, root, "runs", "unset")
+    cfg.env.data_root = os.path.join(tmp, "data")
+    cfg.use_tensorboard_logger = False
+    for k, v in flags.items():
+        setattr(cfg, k, v)
+    path = os.path.join(tmp, f"{root}.ini")
+    cfg.save(path)
+    return path
+
+
+def cli_pass(label, cwd, *argv):
+    """run.main(argv) in ``cwd`` on phase 7's data; → (its result, the
+    GenerateProbe, the launches, wall seconds)."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+
+    os.makedirs(cwd, exist_ok=True)
+    old = os.getcwd()
+    probe = GenerateProbe()
+    reset_counters()
+    t = time.monotonic()
+    try:
+        os.chdir(cwd)
+        out = run.main([*argv, "--synthetic", *LEG_DATA])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(old)
+        probe.close()
+    secs = time.monotonic() - t
+    launches = counters()
+    log(f"  {label}: {len(probe.outputs)} generate calls in {secs:.3f} s "
+        f"wall; launches {LAUNCH_LABELS} {launches}")
+    want = (len(probe.outputs), 0, 0, 0,
+            len(probe.outputs) if "head" in label else 0)
+    if len(probe.outputs) != TEST_FIELDS or launches != want:
+        fail(f"{label} made {len(probe.outputs)} generate calls and "
+             f"launched {launches}, predicted {want}")
+    return out, probe, launches, secs
+
+
+def check_trunk_on_field(ini, probe, dev):
+    """The trunk kernel on the trunk input of the first field a test pass
+    generated (batch 1 at LR 32x32x10, nf 128, its state's G) against its
+    plain version in the same dtype: the increment within 3e-2, as phase 3
+    holds it. No count is read: the pass's own run is over."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.models.fused_apply import trunk_geometry
+    from gan_sr_wind_field_tpu_torch.models.generator import (
+        generator_from_config,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
+        pack_trunk_weights,
+        rrdb_trunk,
+        rrdb_trunk_reference,
+    )
+
+    G = generator_from_config(load_config(ini), device=dev)
+    G.load_state_dict(probe.last[1].params_G, strict=True)
+    lr = torch.as_tensor(probe.first[0], device=dev)
+    with torch.no_grad():
+        x = G.feature_conv(lr.to(G.dtype)).contiguous()
+        packed = pack_trunk_weights(G.rrdbs, G.dtype, dev)
+        geom = trunk_geometry(G)
+        got = rrdb_trunk(packed, x, **geom).float()
+        want = rrdb_trunk_reference(packed, x, **geom).float()
+    xf = x.float()
+    log(f"  trunk kernel on the test field's trunk input {tuple(x.shape)} "
+        f"{x.dtype}, {len(G.rrdbs)} RRDB: max abs "
+        f"{(got - want).abs().max().item():.3e} of max |out| "
+        f"{want.abs().max().item():.3e}")
+    check("trunk kernel vs plain at the test volume (increment)",
+          rel_l2(got - xf, want - xf), 3e-2)
+    del G, packed, got, want
+    torch.cuda.empty_cache()
+
+
+def eval_phase(dev, card, tmp, state, ckpt_path):
+    """Phase 8: pack the live state of phase 7 and read it back, serve its
+    ckpt_6016 (from_checkpoint and the server's --checkpoint), then the
+    held-out test chain, --test_ema, a pass through the HR-head kernel and
+    --use, as a user runs them (run.main in process). Returns the trunk
+    and head kernels' launches and times."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval import server
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.eval.test_loop import (
+        AVG_HEADER,
+        METRIC_HEADER,
+    )
+    from gan_sr_wind_field_tpu_torch.train.continuation import (
+        load_continuation,
+        pack_from_state,
+    )
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+    from gan_sr_wind_field_tpu_torch.utils.jax_params import (
+        d_params_from_jax,
+        params_from_jax,
+    )
+
+    # 1. the pack of the live state, read back
+    want = {"G": state.params_G, "Gema": state.params_G_ema,
+            "D": {**state.params_D, **state.batch_stats_D}}
+    for store in ("float32", "bfloat16"):
+        t = time.monotonic()
+        path = pack_from_state(os.path.join(tmp, f"pack_{store}.npz"), state,
+                               store_dtype=store)
+        secs = time.monotonic() - t
+        pack = load_continuation(path)
+        got = {"G": params_from_jax(pack["params_G"]),
+               "Gema": params_from_jax(pack["params_G_ema"]),
+               "D": d_params_from_jax(pack["params_D"],
+                                      pack["batch_stats_D"])}
+        exact = {}
+        for tree, ref in want.items():
+            exact[tree] = sorted(got[tree]) == sorted(ref) and all(
+                torch.equal(got[tree][k], v.cpu() if store == "float32"
+                            else v.cpu().to(torch.bfloat16).float())
+                for k, v in ref.items())
+        log(f"  pack_from_state(it {state.it}) in {store}: "
+            f"{os.path.getsize(path)} bytes in {secs:.3f} s; read back "
+            f"bit for bit {exact}, it {pack['it']}")
+        if not all(exact.values()) or pack["it"] != state.it:
+            fail(f"the {store} pack does not read back as the state")
+
+    # 2. serve ckpt_6016: from_checkpoint, and the server's --checkpoint
+    run_cfg = os.path.join(os.path.dirname(ckpt_path), "config.ini")
+    cfg = load_config(run_cfg)
+    g = cfg.gan_config
+    coords = np.arange(g.slice_size, dtype=np.float32)
+    sr = WindFieldSR.from_checkpoint(cfg, ckpt_path, coords, coords,
+                                     device=dev)
+    lr_xy = g.slice_size // cfg.scale
+    lr, z = sample(np.random.default_rng(2008), 8, lr_xy, g.slice_size,
+                   g.number_of_z_layers, cfg.lr_num_channels)
+    reset_counters()
+    got = sr.upscale(lr, z)
+    serve_launches = counters()
+    if serve_launches != (1, 0, 0, 0, 0) or not np.isfinite(got).all():
+        fail(f"from_checkpoint served with launches {serve_launches}")
+    gan = WindFieldGAN(cfg, coords, coords, device=dev)
+    ref = gan.generate(dataclasses.replace(state,
+                                           params_G=state.params_G_ema),
+                       lr, z).cpu().numpy()
+    exact = np.array_equal(got, ref)
+    log(f"  from_checkpoint(ckpt_{state.it}) served 8 samples, launches "
+        f"{LAUNCH_LABELS} {serve_launches}; vs gan.generate with the "
+        f"state's EMA: bit-exact {exact}, max abs "
+        f"{np.abs(got - ref).max():.3e}")
+    if not exact:
+        fail("from_checkpoint does not serve the state's EMA bit for bit")
+    del sr, gan, ref
+    captured = {}
+    real_serve = server.serve
+    server.serve = lambda backend, **kw: captured.update(backend=backend)
+    try:
+        server.main(["--cfg", run_cfg, "--checkpoint", ckpt_path,
+                     "--port", "0"])
+    finally:
+        server.serve = real_serve
+    same = np.array_equal(captured["backend"].upscale(lr, z), got)
+    log(f"  eval/server.py --checkpoint: backend built, its batch of 8 "
+        f"equal to from_checkpoint's {same}")
+    if not same:
+        fail("the server's --checkpoint backend serves other weights")
+    del captured
+    torch.cuda.empty_cache()
+
+    # 3. the held-out test chain as a user runs it
+    avgs_jax, fields_jax = jax_test_result()
+    jax_raw, jax_ema = avgs_jax["milestone6k"], avgs_jax["milestone6k_ema"]
+    copy_ini = test_copy(tmp, "test")
+    cwd = os.path.join(tmp, "cwd")
+    log(f"test chain: {os.path.basename(TEST_CFG)} copy with "
+        f"{os.path.relpath(PACK_6K, REPO)}, data {LEG_DATA[1]} h at "
+        f"{LEG_DATA[3]}x{LEG_DATA[3]}x{g.number_of_z_layers} ({card})")
+    raw, raw_probe, raw_launches, test_s = cli_pass(
+        "--test", cwd, "--cfg", copy_ini, "--test")
+    ema, _, ema_launches, ema_s = cli_pass(
+        "--test --test_ema", cwd, "--cfg", copy_ini, "--test", "--test_ema")
+    out = os.path.join(cwd, "test_output")
+    with open(os.path.join(out, "averages.csv")) as f:
+        avg_lines = f.read().splitlines()
+    for line in avg_lines[1:]:
+        log(f"  averages row: {line}")
+    if (avg_lines[0] + "\n" != AVG_HEADER
+            or [ln.split(",")[0] for ln in avg_lines[1:]]
+            != ["milestone6k", "milestone6k_ema"]):
+        fail(f"averages.csv: {avg_lines}")
+    for track, name in (("metrics", "milestone6k"),
+                        ("metrics_ema", "milestone6k_ema")):
+        header, psnr = read_metrics(os.path.join(out,
+                                                 f"{name}____metrics.csv"))
+        if header != METRIC_HEADER or len(psnr) != TEST_FIELDS:
+            fail(f"{name}____metrics.csv: {len(psnr)} rows, header "
+                 f"{header!r}")
+        gaps = {f: psnr[f] - fields_jax[track][f] for f in fields_jax[track]}
+        worst = max(gaps, key=lambda f: abs(gaps[f]))
+        log(f"  {name}: largest per-field PSNR gap to the JAX package's "
+            f"{os.path.basename(JAX_TEST.format(track))} {gaps[worst]:+.4f} "
+            f"dB ({worst})")
+    checks = (
+        ("trilinear PSNR", raw["PSNR_trilinear"], jax_raw[1],
+         TRILINEAR_TOL_DB),
+        ("raw G PSNR", raw["PSNR"], jax_raw[0], MODEL_TOL_DB),
+        ("EMA PSNR", ema["PSNR"], jax_ema[0], MODEL_TOL_DB),
+    )
+    for what, mine, theirs, tol in checks:
+        log(f"  {what}: port {mine:.6f} dB, JAX package on a TPU "
+            f"{theirs:.6f} dB, gap {mine - theirs:+.6f} (tol {tol})")
+        if not abs(mine - theirs) <= tol:
+            fail(f"{what} is {mine - theirs:+.6f} dB off the JAX result")
+    if not raw["PSNR"] > raw["PSNR_trilinear"]:
+        fail("the raw generator does not beat trilinear on the test split")
+
+    # the trunk kernel at the test volume's geometry against its plain
+    # version, on the trunk input of the pass's first field
+    check_trunk_on_field(copy_ini, raw_probe, dev)
+
+    # 4. the same pass through the HR-head kernel (use_pallas_head_nograd)
+    head_ini = test_copy(tmp, "test_head", use_pallas_head_nograd=True)
+    head, head_probe, head_launches, head_s = cli_pass(
+        "--test, head kernel", os.path.join(tmp, "cwd_head"), "--cfg",
+        head_ini, "--test")
+    field_err = max(rel_l2(a, b) for a, b in
+                    zip(head_probe.outputs, raw_probe.outputs))
+    log(f"  head kernel vs module head: average PSNR {head['PSNR']:.6f} vs "
+        f"{raw['PSNR']:.6f} dB (tol {HEAD_PSNR_TOL_DB}), largest per-field "
+        f"SR rel L2 {field_err:.3e} (tol {HEAD_FIELD_TOL:.0e})")
+    if not (abs(head["PSNR"] - raw["PSNR"]) <= HEAD_PSNR_TOL_DB
+            and field_err <= HEAD_FIELD_TOL):
+        fail("the head kernel's test pass disagrees with the module head")
+
+    # 5. --use: the SR field dumps of the test split
+    _, _, use_launches, use_s = cli_pass("--use", cwd, "--cfg", copy_ini,
+                                         "--use")
+    runs = os.path.join(tmp, "test", "runs")
+    fields = os.path.join(runs, sorted(os.listdir(runs))[-1], "fields")
+    dumps = sorted(os.listdir(fields))
+    size, zl = int(LEG_DATA[3]), g.number_of_z_layers
+    shapes = {"LR": (cfg.lr_num_channels, size // cfg.scale,
+                     size // cfg.scale, zl), "SR": (3, size, size, zl)}
+    for name in dumps:
+        with open(os.path.join(fields, name), "rb") as f:
+            d = pickle.load(f)
+        if ({k: v.shape for k, v in d.items()} != shapes
+                or not all(np.isfinite(v).all() for v in d.values())):
+            fail(f"--use dump {name}: "
+                 f"{ {k: v.shape for k, v in d.items()} }")
+    log(f"  --use wrote {len(dumps)} dumps, {shapes}, finite")
+    if len(dumps) != TEST_FIELDS:
+        fail(f"--use wrote {len(dumps)} dumps")
+
+    # 6. times of one full-volume generate, module head and head kernel
+    per_field = {}
+    for label, probe in (("module head", raw_probe),
+                         ("head kernel", head_probe)):
+        gan_p, state_p = probe.last
+        lr1, z1 = probe.first
+        per_field[label] = cuda_ms(lambda: gan_p.generate(state_p, lr1, z1))
+    del raw_probe, head_probe, gan_p, state_p
+    log(f"  generate of one {size}x{size}x{zl} field: module head "
+        f"{per_field['module head']:.3f} ms, head kernel "
+        f"{per_field['head kernel']:.3f} ms; test pass {test_s:.3f} s, EMA "
+        f"pass {ema_s:.3f} s, head-kernel pass {head_s:.3f} s, --use "
+        f"{use_s:.3f} s wall ({card})")
+    passes = (serve_launches, raw_launches, ema_launches, head_launches,
+              use_launches)
+    return {"trunk": sum(n[0] for n in passes),
+            "head": sum(n[4] for n in passes), "ms_module_head":
+            per_field["module head"], "ms_head_kernel":
+            per_field["head kernel"], "test_s": test_s,
+            "psnr": raw["PSNR"], "psnr_ema": ema["PSNR"],
+            "psnr_trilinear": raw["PSNR_trilinear"]}
 
 
 def main():
@@ -2200,7 +2581,17 @@ def main():
     # ------------------------------------------------------------- 7. loop
     del gan, state, gan_h, state_h, batch
     torch.cuda.empty_cache()
-    ll = loop_phase(dev, card, tt)
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="windsr_leg_")
+    try:
+        ll, state, ckpt_path = loop_phase(dev, card, tt, tmp)
+        # ------------------------------------------------- 8. test, use, serve
+        ev = eval_phase(dev, card, tmp, state, ckpt_path)
+        del state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -2212,9 +2603,10 @@ def main():
     tl = train_launches
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
-            serve_launches + tl[0] + ll[0], max_abs16, (ms, plain_ms, b1),
-            lib_ms, launches_serve=serve_launches, launches_train=tl[0],
-            launches_loop=ll[0],
+            serve_launches + tl[0] + ll[0] + ev["trunk"], max_abs16,
+            (ms, plain_ms, b1), lib_ms, launches_serve=serve_launches,
+            launches_train=tl[0], launches_loop=ll[0],
+            launches_test=ev["trunk"], generate_field_ms=ev["ms_module_head"],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
             residual_bound_ms=tt["k1r"][2][0],
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
@@ -2233,9 +2625,10 @@ def main():
               ("wind_gradient_adjoint", "stencil.py:166", 3, err_adj,
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
-            head_serve[4] + head_train[4] + ll[4], err_head, th[8][:3],
-            th[8][3], launches_serve=head_serve[4],
+            head_serve[4] + head_train[4] + ll[4] + ev["head"], err_head,
+            th[8][:3], th[8][3], launches_serve=head_serve[4],
             launches_train=head_train[4], launches_loop=ll[4],
+            launches_test=ev["head"], generate_field_ms=ev["ms_head_kernel"],
             ms_b32=th[32][0], plain_ms_b32=th[32][1],
             bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3],
             library_ms_benchmark_off=th[8][4],

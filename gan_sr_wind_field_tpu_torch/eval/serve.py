@@ -1,6 +1,7 @@
 """Serving API for a trained generator, on the CUDA card by default.
 
     sr = WindFieldSR.from_continuation(cfg, "docs/evidence/milestone9k_continuation_9000.npz")
+    sr = WindFieldSR.from_checkpoint(cfg, "runs/<run>/ckpt_6016", x, y)
     hr_uvw = sr.upscale(lr_field, z_terrain)        # model (normalized) space
     hr_ms = sr.upscale_physical(lr_uvw_ms, z_raw)   # m/s in, m/s out
 
@@ -36,7 +37,9 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     trunk_fusable,
 )
+from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
+from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
 
 
@@ -84,6 +87,29 @@ class WindFieldSR:
             tree = pack["params_G"]
         return cls(cfg, params_from_jax(tree), device=device,
                    norm_stats=norm_stats)
+
+    @classmethod
+    def from_checkpoint(cls, cfg, path: str, x, y, use_ema: bool = True,
+                        device=None, norm_stats=None):
+        """Serve a trained generator: a port checkpoint folder
+        (``ckpt_{it}``), or a continuation pack (a path ending ``.npz``,
+        see ``from_continuation``). The EMA slot is preferred when there
+        is one and ``use_ema``. ``x``/``y`` are the training grid's
+        coordinates, as ``WindFieldGAN`` takes them.
+
+        The checkpoint's weights are restored into a state built at the
+        training patch (D's classifier depends on it; G on no size), on
+        ``device``, whatever device saved it. A reference ``.pth`` raises:
+        ``utils/torch_import.py`` is not ported."""
+        if path.endswith(".npz"):
+            return cls.from_continuation(cfg, path, use_ema=use_ema,
+                                         device=device, norm_stats=norm_stats)
+        state = load_generator_state(
+            cfg, WindFieldGAN(cfg, x, y, device=device), path)
+        params = state.params_G_ema if use_ema else None
+        if params is None:
+            params = state.params_G
+        return cls(cfg, params, device=device, norm_stats=norm_stats)
 
     @torch.inference_mode()
     def _generate(self, lr: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

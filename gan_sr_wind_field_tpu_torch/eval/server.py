@@ -19,12 +19,14 @@ Protocol (numpy ``.npz`` both directions):
                                 server-side through the micro-batcher
     GET  /v1/health, /v1/stats  JSON
 
-Serve a continuation pack on the card:
+Serve a continuation pack, or a checkpoint of a port run, on the card:
 
     python -m gan_sr_wind_field_tpu_torch.eval.server \
         --cfg configs/milestone9k.ini \
         --continuation docs/evidence/milestone9k_continuation_9000.npz \
         --port 8000 --warmup 1,8
+    python -m gan_sr_wind_field_tpu_torch.eval.server \
+        --cfg <the run's config.ini> --checkpoint <the run>/ckpt_6016
 """
 
 from __future__ import annotations
@@ -596,11 +598,16 @@ def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(
-        description="Serve a continuation pack's generator over HTTP"
+        description="Serve a trained generator over HTTP"
     )
     p.add_argument("--cfg", required=True, help="generator INI config")
-    p.add_argument("--continuation", required=True,
-                   help="continuation pack (.npz) holding the weights")
+    weights = p.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--continuation",
+                         help="continuation pack (.npz) holding the weights")
+    weights.add_argument("--checkpoint",
+                         help="a port checkpoint folder (ckpt_{it}) of a "
+                              "run of this configuration; its EMA slot is "
+                              "preferred, as in the pack")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--host", default="0.0.0.0")
@@ -616,8 +623,15 @@ def main(argv=None) -> int:
     from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
 
     cfg = load_config(args.cfg)
-    backend = WindFieldSR.from_continuation(cfg, args.continuation,
-                                            device=args.device)
+    weights = args.continuation or args.checkpoint
+    if args.continuation:
+        backend = WindFieldSR.from_continuation(cfg, args.continuation,
+                                                device=args.device)
+    else:
+        # serving reads no coordinates: they feed the training losses only
+        coords = np.arange(cfg.gan_config.slice_size, dtype=np.float32)
+        backend = WindFieldSR.from_checkpoint(
+            cfg, args.checkpoint, coords, coords, device=args.device)
     g = cfg.gan_config
     tile = (g.slice_size if g.enable_slicing else 64) // cfg.scale
     if args.warmup:
@@ -629,7 +643,7 @@ def main(argv=None) -> int:
         warmup(backend, (tile, tile, zl, cfg.lr_num_channels),
                (hr, hr, zl, 1), [int(b) for b in args.warmup.split(",")],
                log=logging.getLogger("windsr-serve"))
-    print(f"serving {args.continuation} (scale {backend.scale}) on "
+    print(f"serving {weights} (scale {backend.scale}) on "
           f"{args.host}:{args.port} ({backend.device})", flush=True)
     serve(backend, host=args.host, port=args.port,
           max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

@@ -8,6 +8,12 @@ continuation pack is the format the two packages share). One folder
 the EMA), ``it``, and the state of the ``torch.Generator``, so a resume is
 bit-exact. It is written with ``torch.save`` (to a temporary name, then
 renamed) and read with ``weights_only=True``.
+
+The readers of weights (``load_generator_state`` for evaluation, inference
+and serving, and the loop's warm start from a port checkpoint) take a
+checkpoint of any device type: they leave the ``torch.Generator``'s state,
+which is of the device type it was saved on, unread. ``load_pack`` is the one way a continuation
+pack (``.npz``) enters a state.
 """
 
 from __future__ import annotations
@@ -19,7 +25,16 @@ from typing import Optional
 
 import torch
 
-from gan_sr_wind_field_tpu_torch.train.gan import AdamState, GANTrainState
+from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
+from gan_sr_wind_field_tpu_torch.train.gan import (
+    AdamState,
+    GANTrainState,
+    WindFieldGAN,
+)
+from gan_sr_wind_field_tpu_torch.utils.jax_params import (
+    d_params_from_jax,
+    params_from_jax,
+)
 
 FORMAT_VERSION = 1
 STATE_FILE = "state.pt"
@@ -81,20 +96,70 @@ def latest_checkpoint(run_folder: str) -> Optional[str]:
     return os.path.abspath(best) if best else None
 
 
-def restore_checkpoint(path: str, example_state: GANTrainState
-                       ) -> GANTrainState:
-    """Restore onto the devices of ``example_state`` (a fresh state of the
-    same configuration).
+def training_example(cfg, gan: WindFieldGAN) -> GANTrainState:
+    """A fresh state of ``gan`` at the training geometry (batch 1, the
+    training patch), the example a checkpoint restores into: D's
+    classifier depends on the training patch, G on no size."""
+    g = cfg.gan_config
+    patch = g.slice_size if g.enable_slicing else len(gan.x)
+    return gan.init_state(
+        0,
+        (1, patch // cfg.scale, patch // cfg.scale, g.number_of_z_layers,
+         cfg.lr_num_channels),
+        (1, patch, patch, g.number_of_z_layers, 3),
+    )
 
-    The EMA slot is reconciled across configurations as the JAX package
-    does: a checkpoint with an EMA keeps it under a configuration without
-    one, and one without an EMA seeds it from the restored G when the
-    configuration has one."""
+
+def _structure_diffs(name: str, saved, example) -> list:
+    """Where tree ``saved`` differs from ``example`` in keys or shapes:
+    one line per tensor, in the example's order, then the extra keys."""
+    saved = saved or {}
+
+    def shape(t):
+        return "missing" if t is None else tuple(t.shape)
+
+    return [f"{name}[{k!r}]: saved {shape(saved.get(k))}, expected "
+            f"{shape(example.get(k))}"
+            for k in [*example, *(k for k in saved if k not in example)]
+            if shape(saved.get(k)) != shape(example.get(k))]
+
+
+def restore_checkpoint(path: str, example_state: GANTrainState,
+                       restore_rng: bool = True) -> GANTrainState:
+    """Restore onto the devices of ``example_state`` (a fresh state of the
+    same configuration, built at the training geometry: D's classifier
+    depends on the training patch).
+
+    With ``restore_rng`` (a resume) the state's ``torch.Generator`` goes on
+    from the saved one, which must be of the example's device type, else
+    ``ValueError``; without it the example's generator is kept, and a
+    checkpoint saved on another device type restores all the same.
+
+    Every tree, and both Adam states, must match the example's keys and
+    shapes, else ``ValueError`` names the first tensors that differ (as
+    the JAX package's restore raises for trees that do not match). The
+    EMA slot is reconciled across configurations as the JAX package does:
+    a checkpoint with an EMA keeps it under a configuration without one,
+    and one without an EMA seeds it from the restored G when the
+    configuration has one; either EMA has G's structure."""
     blob = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                       weights_only=True)
     if blob.get("format_version", 0) > FORMAT_VERSION:
         raise ValueError(f"checkpoint {path} has format "
                          f"{blob['format_version']} > {FORMAT_VERSION}")
+    ex = example_state
+    pairs = [(t, blob[t], getattr(ex, t)) for t in
+             ("params_G", "params_D", "batch_stats_D", "params_D_frozen")]
+    if blob["params_G_ema"] is not None:
+        pairs.append(("params_G_ema", blob["params_G_ema"], ex.params_G))
+    pairs += [(f"{o}.{m}", blob[o][m], getattr(getattr(ex, o), m))
+              for o in ("opt_state_G", "opt_state_D") for m in ("mu", "nu")]
+    bad = [line for name, saved, want in pairs
+           for line in _structure_diffs(name, saved, want)]
+    if bad:
+        more = f"; and {len(bad) - 4} more" if len(bad) > 4 else ""
+        raise ValueError(f"checkpoint {path} does not match the "
+                         f"configuration: {'; '.join(bad[:4])}{more}")
 
     def like(tree, example):
         if tree is None:
@@ -106,13 +171,21 @@ def restore_checkpoint(path: str, example_state: GANTrainState
         return AdamState(d["count"], like(d["mu"], example.mu),
                          like(d["nu"], example.nu))
 
-    ex = example_state
     params_G = like(blob["params_G"], ex.params_G)
     ema = like(blob["params_G_ema"], ex.params_G)
     if ema is None and ex.params_G_ema is not None:
         ema = {k: v.clone() for k, v in params_G.items()}
-    rng = torch.Generator(device=ex.rng.device)
-    rng.set_state(blob["rng_state"])
+    rng = ex.rng
+    if restore_rng:
+        rng = torch.Generator(device=ex.rng.device)
+        try:
+            rng.set_state(blob["rng_state"])
+        except RuntimeError as e:
+            raise ValueError(
+                f"checkpoint {path}: its random generator state is not one "
+                f"of a {ex.rng.device.type} generator (saved on another "
+                "device type?); resume on the device type it was saved on, "
+                f"or load its weights only ({e})") from e
     return GANTrainState(
         params_G=params_G,
         params_D=like(blob["params_D"], ex.params_D),
@@ -124,3 +197,64 @@ def restore_checkpoint(path: str, example_state: GANTrainState
         rng=rng,
         params_G_ema=ema,
     )
+
+
+def replace_tree(tree, loaded, what: str):
+    """``tree``'s keys, in its order, with the tensors of ``loaded`` on
+    ``tree``'s device; ``ValueError`` when the keys differ."""
+    if set(loaded) != set(tree):
+        odd = sorted(set(loaded) ^ set(tree))
+        raise ValueError(f"{what}: the pack's tensors do not match the "
+                         f"configuration's ({odd})")
+    dev = next(iter(tree.values())).device
+    return {k: loaded[k].to(dev) for k in tree}
+
+
+def load_pack(state: GANTrainState, path: str,
+              weights_only: bool = False) -> GANTrainState:
+    """Load the continuation pack at ``path`` into ``state``; → ``state``.
+
+    The warm start (``loop.py:124-157`` of the JAX package): G, D and D's
+    statistics where the pack has them, the EMA from ``Gema`` (else from
+    G) where the configuration has an EMA, and ``it``; the Adam moments
+    stay as they are (zero in a fresh state). With ``weights_only`` (the
+    readers that evaluate or serve, ``eval/test_loop.py:119-131`` of the
+    JAX package): G, and the pack's EMA slot or none, whatever the
+    configuration."""
+    pack = load_continuation(path)
+    state.params_G = replace_tree(state.params_G,
+                                  params_from_jax(pack["params_G"]), "G")
+    ema = pack["params_G_ema"]
+    if weights_only:
+        state.params_G_ema = None if ema is None else replace_tree(
+            state.params_G, params_from_jax(ema), "EMA")
+        return state
+    if pack["params_D"] is not None:
+        state.params_D = replace_tree(
+            state.params_D, d_params_from_jax(pack["params_D"]), "D")
+    if pack["batch_stats_D"] is not None:
+        state.batch_stats_D = replace_tree(
+            state.batch_stats_D, d_params_from_jax({}, pack["batch_stats_D"]),
+            "D's statistics")
+    if state.params_G_ema is not None:
+        state.params_G_ema = replace_tree(
+            state.params_G_ema, params_from_jax(ema or pack["params_G"]),
+            "EMA")
+    state.it = int(pack["it"])
+    return state
+
+
+def load_generator_state(cfg, gan: WindFieldGAN, path: str) -> GANTrainState:
+    """A state of ``gan`` at the training geometry with the weights at
+    ``path``: a continuation pack (``.npz``: its G, and its EMA slot or
+    none) or a port checkpoint folder of any device type (its weights;
+    the random generator stays the fresh one). Reference ``.pth``
+    checkpoints raise: ``utils/torch_import.py`` is not ported."""
+    if path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: reference .pth checkpoints need utils/torch_import.py, "
+            "which is not ported (see ROADMAP.md)")
+    example = training_example(cfg, gan)
+    if path.endswith(".npz"):
+        return load_pack(example, path, weights_only=True)
+    return restore_checkpoint(path, example, restore_rng=False)

@@ -39,13 +39,8 @@ from gan_sr_wind_field_tpu_torch.data.pipeline import prefetch_to_device
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
-from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
 from gan_sr_wind_field_tpu_torch.train.gan import GANTrainState, WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.watchdog import StallWatchdog
-from gan_sr_wind_field_tpu_torch.utils.jax_params import (
-    d_params_from_jax,
-    params_from_jax,
-)
 from gan_sr_wind_field_tpu_torch.utils.progress import DisplayBar
 from gan_sr_wind_field_tpu_torch.utils.tb import MetricsWriter
 
@@ -53,40 +48,6 @@ TRAIN_LOSS_KEYS = (
     "total", "adversarial", "pix", "xy_gradient", "z_gradient",
     "divergence", "xy_divergence", "feature_D",
 )
-
-
-def _replace(tree, loaded, what: str):
-    """``tree``'s keys, in its order, with the tensors of ``loaded`` on
-    ``tree``'s device."""
-    if set(loaded) != set(tree):
-        odd = sorted(set(loaded) ^ set(tree))
-        raise ValueError(f"{what}: the pack's tensors do not match the "
-                         f"configuration's ({odd})")
-    dev = next(iter(tree.values())).device
-    return {k: loaded[k].to(dev) for k in tree}
-
-
-def warm_start_from_pack(state: GANTrainState, path: str) -> int:
-    """Load a continuation pack into ``state`` (``loop.py:124-157`` of the
-    JAX package): G, D and D's statistics where the pack has them, the EMA
-    from ``Gema`` (else from G), and ``it``. The Adam moments stay as they
-    are (zero in a fresh state). → the pack's ``it``."""
-    pack = load_continuation(path)
-    state.params_G = _replace(state.params_G,
-                              params_from_jax(pack["params_G"]), "G")
-    if pack["params_D"] is not None:
-        state.params_D = _replace(
-            state.params_D, d_params_from_jax(pack["params_D"]), "D")
-    if pack["batch_stats_D"] is not None:
-        state.batch_stats_D = _replace(
-            state.batch_stats_D, d_params_from_jax({}, pack["batch_stats_D"]),
-            "D's statistics")
-    if state.params_G_ema is not None:
-        src = pack["params_G_ema"] or pack["params_G"]
-        state.params_G_ema = _replace(state.params_G_ema,
-                                      params_from_jax(src), "EMA")
-    state.it = int(pack["it"])
-    return state.it
 
 
 def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
@@ -107,12 +68,12 @@ def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
                 f"{p}: reference .pth checkpoints need "
                 "utils/torch_import.py, which is not ported (see ROADMAP.md)")
     if g_path and g_path.endswith(".npz"):
-        it = warm_start_from_pack(state, g_path)
-        status.info(f"continuation warm start from {g_path} at it={it} "
-                    "(optimizer moments reset)")
+        state = ckpt.load_pack(state, g_path)
+        status.info(f"continuation warm start from {g_path} at "
+                    f"it={state.it} (optimizer moments reset)")
     elif g_path:
         # weights only from a port checkpoint; the training state is fresh
-        loaded = ckpt.restore_checkpoint(g_path, state)
+        loaded = ckpt.restore_checkpoint(g_path, state, restore_rng=False)
         state.params_G = loaded.params_G
         state.params_D = loaded.params_D
         state.batch_stats_D = loaded.batch_stats_D

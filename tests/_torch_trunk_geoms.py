@@ -14,4 +14,6 @@ TC_GEOMS = [
     (9, 3, 3, (1, 4, 1, 2), 1),
     # the served widths, one sample of two x-planes
     (128, 32, 5, (1, 2, 16, 10), 8),
+    # the served widths at the held-out test volume (128x128x10 HR)
+    (128, 32, 5, (1, 32, 32, 10), 8),
 ]

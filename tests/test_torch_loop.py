@@ -264,6 +264,27 @@ def test_checkpoints_prune_and_reconcile_the_ema(tmp_path):
         assert v.data_ptr() != got.params_G[k].data_ptr()
 
 
+@pytest.mark.parametrize("saved, wanted, name", [
+    (dict(num_features=8), dict(num_features=12), "feature_conv.weight"),
+    (dict(num_RRDB=1), dict(num_RRDB=2), "rrdbs.1.rdbs.0.convs.0.weight"),
+])
+def test_restore_rejects_another_configuration(tmp_path, saved, wanted, name):
+    """A checkpoint of another width or depth raises, naming the tensors
+    that differ, as the JAX restore raises for trees that do not match."""
+    def state(**generator):
+        cfg = tiny_cfg(True)
+        for k, v in generator.items():
+            setattr(cfg.generator, k, v)
+        gan = WindFieldGAN(cfg, COORDS, COORDS, device="cpu")
+        return gan.init_state(0, LR_SHAPE, HR_SHAPE)
+
+    path = ckpt.save_checkpoint(str(tmp_path), state(**saved))
+    with pytest.raises(ValueError, match=re.escape(f"params_G['{name}']")):
+        ckpt.restore_checkpoint(path, state(**wanted))
+    # the same configuration restores
+    ckpt.restore_checkpoint(path, state(**saved))
+
+
 @pytest.mark.parametrize("with_ema", [True, False])
 def test_warm_start_from_a_jax_pack(tmp_path, with_ema):
     """A pack written by JAX ``save_continuation`` (bf16): G, D and its
@@ -393,7 +414,8 @@ def test_cli_trains_in_process(tmp_path):
     assert "it 4 G_total" in (tmp_path / "log" / "status.log").read_text()
 
 
-@pytest.mark.parametrize("flag", [["--test"], ["--serve", "8000"],
+@pytest.mark.parametrize("flag", [["--serve_int8", "4"],
+                                  ["--serve_int8_trunk", "4"],
                                   ["--download"], ["--param_search"],
                                   ["--export", "x"], ["--profile"]])
 def test_cli_flags_not_ported_raise(flag):

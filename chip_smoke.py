@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: serve, train and evaluate the
 full-width 4x generator on one NVIDIA card through the hand-written CUDA
-kernels.
+kernels, train in chunks of CUDA graphs and SR a field of any extent.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -118,7 +118,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and each field's SR within 3e-2 relative L2 of the module head's);
      --use writes 23 finite LR/SR dumps; each pass launches the trunk
      kernel once per generate call; times of one 128x128x10 generate with
-     either head and each pass's wall seconds.
+     either head and each pass's wall seconds;
+  9. the long runs' loop and SR of any extent, in phase 7's temporary
+     directory on its data: (a) phase 7's leg with steps_per_dispatch 4
+     and --profile, 6000 -> 6008 in two chunks (6001-6004 G, G, G, D;
+     6005-6008 D, D, D, G) through CUDA graphs of the step, each kind
+     warmed up and captured on its first use and then replayed (6
+     replays): launches (10, 4, 10, 4, 0) with the replays counted, the
+     state at 6008 against phase 7's ckpt_6008 tree by tree (bit-exact,
+     or within 1e-3 relative L2), the capture seconds, the pool's bytes,
+     the chunked loop's G and D step beside phase 7's, and from the trace
+     the card's busy share over the window, the top 5 device operations
+     and the names of kernels 1-4; (b) the host data path
+     (device_resident_data off), 6000 -> 6004 per step: launches (4, 3, 6,
+     3, 0), finite losses, the G step beside phase 7's and the seconds the
+     loop waited on the prefetch queue; (c) WindFieldSR.upscale_tiled of
+     the 6k pack at tile 16 (the server's), overlap 4, batch 8: the first
+     test field of phase 8 (9 tiles, 2 batches) against _upscale_tiled_host
+     (<= 1e-6 relative L2) and a direct upscale (median error over the
+     standard deviation <= 0.25, JAX's bound), then a 512x512x10 field
+     (121 tiles, 16 batches) with the module head and through kernel 5,
+     its ms, HR voxels/s and one trunk (and head) launch per batch.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -387,10 +407,9 @@ def report_tc_kernels(built):
 
 
 def counters():
-    from gan_sr_wind_field_tpu_torch.ops import hr_head, rdb_trunk, stencil
+    from gan_sr_wind_field_tpu_torch.train.step_graphs import launch_counts
 
-    return (rdb_trunk.launches, rdb_trunk.bwd_launches, stencil.launches,
-            stencil.adjoint_launches, hr_head.launches)
+    return launch_counts()
 
 
 def reset_counters():
@@ -1460,8 +1479,9 @@ def g_step_rest_parts(gan, state, lr, hr, z):
     fake_l = fake.detach().requires_grad_()
 
     def d_part():
-        real_in = gan._noisy_d_input(hr3, 2.0, it, state.rng)
-        fake_in = gan._noisy_d_input(fake_l, 2.0, it, state.rng)
+        gan._set_iteration(it)
+        real_in = gan._noisy_d_input(hr3, 2.0, state.rng)
+        fake_in = gan._noisy_d_input(fake_l, 2.0, state.rng)
         with torch.no_grad():
             gan._d_apply(state.params_D, state.batch_stats_D, real_in,
                          train=False)
@@ -1490,7 +1510,8 @@ def g_step_rest_parts(gan, state, lr, hr, z):
 
     params = {k: v.clone() for k, v in state.params_G.items()}
     grads = [torch.randn_like(v) * 1e-4 for v in params.values()]
-    opt = AdamState(1, {k: torch.zeros_like(v) for k, v in params.items()},
+    opt = AdamState(torch.ones((), dtype=torch.int32, device=lr.device),
+                    {k: torch.zeros_like(v) for k, v in params.items()},
                     {k: torch.zeros_like(v) for k, v in params.items()})
     ema = {k: v.clone() for k, v in params.items()}
 
@@ -1666,7 +1687,25 @@ GENERATE_LAUNCHES = (1, 0, 0, 0, 0)  # one generate call (the image dump)
 RESUME_TOL = 1e-3
 
 
-class LegProbe:
+class Patches:
+    """Wrappers set on classes and modules for a while: ``patch(owner,
+    name, wrapper)`` replaces ``owner.name`` by ``wrapper(real)``;
+    ``close()`` puts every one back."""
+
+    def __init__(self):
+        self._undo = []
+
+    def patch(self, owner, name, wrapper):
+        real = getattr(owner, name)
+        setattr(owner, name, wrapper(real))
+        self._undo.append((owner, name, real))
+
+    def close(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+
+class LegProbe(Patches):
     """Counts and times what the loop calls during a leg, from the outside:
     a CUDA event at the start of each train_step (with its it), each
     val_step and generate call, and each validation sweep and checkpoint
@@ -1678,15 +1717,11 @@ class LegProbe:
         from gan_sr_wind_field_tpu_torch.train import checkpoint, loop
         from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 
+        super().__init__()
         self.steps, self.calls = [], {"val_step": 0, "generate": 0}
         self.val_s, self.saves = [], []
-        self._undo = []
         probe = self
-
-        def patch(owner, name, wrapper):
-            real = getattr(owner, name)
-            setattr(owner, name, wrapper(real))
-            self._undo.append((owner, name, real))
+        patch = self.patch
 
         def on_step(real):
             def step(gan, state, *a, **kw):
@@ -1724,10 +1759,6 @@ class LegProbe:
         patch(WindFieldGAN, "generate", counted("generate"))
         patch(loop, "run_validation", timed(self.val_s))
         patch(checkpoint, "save_checkpoint", timed(self.saves, True))
-
-    def close(self):
-        for owner, name, real in reversed(self._undo):
-            setattr(owner, name, real)
 
     def step_ms(self, quiet):
         """Median ms from the start of one step to the next over the
@@ -1986,7 +2017,7 @@ def loop_phase(dev, card, bare, tmp):
     if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
         fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
     del resumed
-    return launches, state, os.path.join(run_folder, f"ckpt_{LEG_TO}")
+    return launches, state, os.path.join(run_folder, f"ckpt_{LEG_TO}"), per
 
 
 def cfg_run_folder(tmp, root):
@@ -2341,6 +2372,8 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
         gan_p, state_p = probe.last
         lr1, z1 = probe.first
         per_field[label] = cuda_ms(lambda: gan_p.generate(state_p, lr1, z1))
+    field = tuple(torch.as_tensor(t).cpu().numpy()[0]
+                  for t in raw_probe.first)
     del raw_probe, head_probe, gan_p, state_p
     log(f"  generate of one {size}x{size}x{zl} field: module head "
         f"{per_field['module head']:.3f} ms, head kernel "
@@ -2354,7 +2387,315 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
             per_field["module head"], "ms_head_kernel":
             per_field["head kernel"], "test_s": test_s,
             "psnr": raw["PSNR"], "psnr_ema": ema["PSNR"],
-            "psnr_trilinear": raw["PSNR_trilinear"]}
+            "psnr_trilinear": raw["PSNR_trilinear"], "field": field}
+
+
+# phase 9: the long runs' loop and SR of any extent, in phase 7's temporary
+# directory on its data. (a) phase 7's leg chunked (steps_per_dispatch 4,
+# CUDA graphs of the step) and profiled, 6000 -> 6008: 6001-6004 G, G, G, D
+# and 6005-6008 D, D, D, G, each kind warmed up and captured on its first
+# use (6001, 6004) and replayed after (3 G and 3 D replays); (b) the host
+# data path, 6000 -> 6004 per step (G, G, G, D); (c) upscale_tiled at the
+# server's tile (the training LR patch)
+CHUNK_STEPS, CHUNK_TO, HOST_TO = 4, LEG_FROM + 8, LEG_FROM + 4
+# 4 G, 4 D, one validation batch and one generate
+CHUNK_LAUNCHES = (10, 4, 10, 4, 0)
+CHUNK_REPLAYS = 6
+HOST_LAUNCHES = (4, 3, 6, 3, 0)      # 3 G, 1 D, no validation
+TILE, OVERLAP, TILE_BATCH = 16, 4, 8
+TILED_HOST_TOL = 1e-6  # the same kernel on the same tiles, blended apart
+# median |tiled - direct| / std(direct), JAX's bound (tests/test_serve.py)
+TILED_MEDIAN_RATIO = 0.25
+BIG_FIELD = 128                      # LR 128x128: HR 512x512
+
+
+class ChunkProbe(Patches):
+    """What a chunked leg dispatches: each train_chunk call (its first
+    iteration and length), and for each step through the graphs a CUDA
+    event at its start, its iteration, its kind and whether its graph
+    replayed; the graphs themselves."""
+
+    def __init__(self):
+        import torch
+
+        from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+        from gan_sr_wind_field_tpu_torch.train.step_graphs import StepGraphs
+
+        super().__init__()
+        self.chunks, self.steps, self.graphs = [], [], None
+        probe = self
+        patch = self.patch
+
+        def on_chunk(real):
+            def chunk(gan, state, *a, n_steps, **kw):
+                probe.chunks.append((state.it, n_steps))
+                return real(gan, state, *a, n_steps=n_steps, **kw)
+            return chunk
+
+        def on_step(real):
+            def step(graphs, state, batch):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                it = state.it + 1
+                g = graphs.gan.is_g_step(it)
+                probe.steps.append((it, g, ev, g in graphs.graphs))
+                probe.graphs = graphs
+                return real(graphs, state, batch)
+            return step
+
+        patch(WindFieldGAN, "train_chunk", on_chunk)
+        patch(StepGraphs, "step", on_step)
+
+    def replay_ms(self, quiet):
+        """Median ms from the start of a replayed step to the next step's
+        start over the steps ``quiet(it)`` accepts, G and D apart."""
+        out = {}
+        for g in (True, False):
+            ms = [a[2].elapsed_time(b[2]) for a, b in
+                  zip(self.steps, self.steps[1:])
+                  if a[1] == g and a[3] and quiet(a[0])]
+            out["G" if g else "D"] = (statistics.median(ms), len(ms))
+        return out
+
+
+def read_trace(path):
+    """From a torch.profiler Chrome trace: (the window's ms, the card's
+    busy ms (the union of its kernels, copies and sets), {device op name:
+    (ms, count)})."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end, ops = 0.0, -math.inf, {}
+    for a, b, name in dev:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        ms, n = ops.get(name, (0.0, 0))
+        ops[name] = (ms + (b - a) / 1e3, n + 1)
+    return (t1 - t0) / 1e3, busy / 1e3, ops
+
+
+def chunk_phase(dev, card, tmp, leg_ms, field):
+    """Phase 9: (a) phase 7's leg chunked through CUDA graphs and
+    profiled, held against phase 7's ckpt_6008; (b) the host data path
+    leg; (c) upscale_tiled on the 6k pack, a test field and a 512x512
+    field, with the module head and through kernel 5. Returns each
+    kernel's launches on these paths."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR, _tiling
+    from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
+    from gan_sr_wind_field_tpu_torch.train import loop
+
+    # (a) the chunked leg, profiled
+    cfg, ini = leg_config(tmp, "chunked")
+    cfg.steps_per_dispatch = CHUNK_STEPS
+    cfg.save(ini)
+    log(f"chunked leg: the phase-7 leg with steps_per_dispatch "
+        f"{CHUNK_STEPS}, it {LEG_FROM} -> {CHUNK_TO}, --profile")
+    probe = ChunkProbe()
+    reset_counters()
+    t = time.monotonic()
+    try:
+        state = run.main(["--cfg", ini, "--train", "--profile",
+                          "--synthetic", *LEG_DATA,
+                          "--max_steps", str(CHUNK_TO)])
+    finally:
+        probe.close()
+    torch.cuda.synchronize()
+    leg_s = time.monotonic() - t
+    launches = counters()
+    graphs = probe.graphs
+    log(f"  dispatches (it, steps) {probe.chunks}; steps "
+        + ", ".join(f"{it} {'G' if g else 'D'}"
+                    f"{' replay' if r else ' warm-up + capture'}"
+                    for it, g, _, r in probe.steps))
+    log(f"  leg {LEG_FROM} -> {CHUNK_TO} in {leg_s:.1f} s; launches "
+        f"{LAUNCH_LABELS} {launches} (replays counted), predicted "
+        f"{CHUNK_LAUNCHES}; {graphs.replays} graph replays, capture "
+        f"{graphs.capture_s:.3f} s, pool {graphs.pool_bytes} bytes "
+        f"({card})")
+    if (state.it != CHUNK_TO
+            or probe.chunks != [(LEG_FROM, CHUNK_STEPS),
+                                (LEG_FROM + 4, CHUNK_STEPS)]):
+        fail(f"the chunked leg ran {probe.chunks} to it {state.it}")
+    if launches != CHUNK_LAUNCHES or graphs.replays != CHUNK_REPLAYS:
+        fail(f"the chunked leg launched {launches} with {graphs.replays} "
+             f"replays, predicted {CHUNK_LAUNCHES} and {CHUNK_REPLAYS}")
+    with open(os.path.join(tmp, "chunked", "log", "status.log")) as f:
+        status = f.read()
+    logged = re.findall(r"it (\d+) G_total (\S+) D (\S+)", status)
+    if ([int(r[0]) for r in logged] != [LEG_FROM + 4, CHUNK_TO]
+            or not all(math.isfinite(float(v)) for r in logged
+                       for v in r[1:])
+            or f"validation it {CHUNK_TO}" not in status):
+        fail(f"the chunked leg logged {logged}")
+    per = probe.replay_ms(lambda it: it % CHUNK_STEPS)
+    for kind in ("G", "D"):
+        ms, n = per[kind]
+        log(f"  chunked loop {kind} step {ms:.3f} ms (median of {n} "
+            f"replays, start to next start), phase 7's per-step loop "
+            f"{leg_ms[kind][0]:.3f} ms ({card})")
+    ref = ckpt.restore_checkpoint(os.path.join(
+        cfg_run_folder(tmp, "leg"), f"ckpt_{CHUNK_TO}"), state)
+    diffs = tree_diffs(state, ref)
+    same_rng = torch.equal(state.rng.get_state(), ref.rng.get_state())
+    for name, (mx, rel, bits) in diffs.items():
+        log(f"  chunked vs phase 7's ckpt_{CHUNK_TO} {name:<18} max abs "
+            f"{mx:.3e}, rel L2 {rel:.3e}, bit-exact {bits}")
+    exact = all(v[2] for v in diffs.values()) and same_rng
+    held = exact or all(v[1] <= RESUME_TOL for v in diffs.values())
+    log(f"  chunked leg at {CHUNK_TO} vs phase 7's ckpt_{CHUNK_TO}: "
+        f"bit-exact {exact} (generator state equal {same_rng}); "
+        f"{'bit-exact' if exact else f'within {RESUME_TOL:.0e}'} holds "
+        f"{held}")
+    if not held or ref.it != state.it:
+        fail(f"the chunked leg is off by more than {RESUME_TOL:.0e}")
+    del ref, state
+    tb = os.path.join(tmp, "chunked", "tensorboard_log")
+    (name,) = os.listdir(tb)
+    trace = os.path.join(tb, name,
+                         f"profile_it{LEG_FROM}-{CHUNK_TO}.pt.trace.json")
+    if not os.path.exists(trace):
+        fail(f"no trace at {trace}: {os.listdir(os.path.join(tb, name))}")
+    window, busy, ops = read_trace(trace)
+    log(f"  trace {os.path.getsize(trace)} bytes: the window {window:.1f} "
+        f"ms, the card busy {busy:.1f} ms ({100 * busy / window:.1f} %) "
+        f"({card})")
+    for op, (ms, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]:
+        log(f"    {ms:10.3f} ms {n:6d}x {op[:90]}")
+    named = {k: sorted({n for n in ops if any(s in n for s in subs)})
+             for k, subs in (
+                 ("kernel 1", TC_KERNELS["rdb_trunk"]),
+                 ("kernel 2", TC_KERNELS["rdb_trunk_bwd"]),
+                 ("kernel 3", (STENCIL_KERNELS["gradient"],)),
+                 ("kernel 4", (STENCIL_KERNELS["adjoint"],)))}
+    log("  the trace names " + "; ".join(
+        f"{k}: {', '.join(n[:40] for n in v) or 'none'}"
+        for k, v in named.items()))
+    if not all(named.values()):
+        fail("the trace misses a kernel of the chunked leg")
+
+    # (b) the host data path, per step
+    cfg, ini = leg_config(tmp, "hostpath")
+    cfg.device_resident_data = False
+    cfg.save(ini)
+    feeds = []
+
+    def keep(real):
+        def feed(*a, **kw):
+            feeds.append(real(*a, **kw))
+            return feeds[-1]
+        return feed
+
+    leg = LegProbe()
+    leg.patch(loop, "prefetch_to_device", keep)
+    reset_counters()
+    try:
+        state = run.main(["--cfg", ini, "--train", "--synthetic", *LEG_DATA,
+                          "--max_steps", str(HOST_TO)])
+    finally:
+        leg.close()
+    torch.cuda.synchronize()
+    host = counters()
+    with open(os.path.join(tmp, "hostpath", "log", "status.log")) as f:
+        logged = re.findall(r"it (\d+) G_total (\S+) D (\S+)", f.read())
+    g_quiet = [a[2].elapsed_time(b[2]) for a, b in
+               zip(leg.steps, leg.steps[1:])
+               if a[1] and a[0] != LEG_FROM + 1 and a[0] % 4]
+    g_ms, n_g = statistics.median(g_quiet), len(g_quiet)
+    log(f"  host data path {LEG_FROM} -> {HOST_TO}: launches "
+        f"{LAUNCH_LABELS} {host}, predicted {HOST_LAUNCHES}; logged "
+        f"{logged}; loop G step {g_ms:.3f} ms (median of {n_g}), phase "
+        f"7's resident leg {leg_ms['G'][0]:.3f} ms; the loop waited "
+        f"{feeds[0].wait_s:.3f} s on the prefetch queue (host clock) "
+        f"({card})")
+    if (state.it != HOST_TO or host != HOST_LAUNCHES
+            or [int(r[0]) for r in logged] != [HOST_TO]
+            or not all(math.isfinite(float(v)) for v in logged[0][1:])
+            or feeds[0]._thread.is_alive()):
+        fail(f"the host data path leg ended at {state.it}, launched {host}, "
+             f"logged {logged}")
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) upscale_tiled at the server's tile, on the 6k pack
+    mcfg = load_config(CFG)
+    sr = WindFieldSR.from_continuation(mcfg, PACK_6K, use_ema=False,
+                                       device=dev)
+    hcfg = copy.deepcopy(mcfg)
+    hcfg.use_pallas_head_nograd = True
+    sr_h = WindFieldSR(hcfg, sr.G.state_dict(), device=dev)
+    lr, z = field
+    X, Y = lr.shape[:2]
+    tile, win, coords = _tiling(X, Y, TILE, OVERLAP, TILE_BATCH, sr.scale)
+    n_batches = math.ceil(len(coords) / TILE_BATCH)
+    reset_counters()
+    got = sr.upscale_tiled(lr, z, tile=TILE, overlap=OVERLAP,
+                           batch=TILE_BATCH)
+    tiled = counters()
+    want = sr._upscale_tiled_host(lr, z, coords, tile, TILE_BATCH, win)
+    direct = sr.upscale(lr, z)
+    err_host = rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+    err_direct = rel_l2(torch.from_numpy(got), torch.from_numpy(direct))
+    ratio = float(np.median(np.abs(got - direct)) / np.std(direct))
+    log(f"upscale_tiled: test field LR {X}x{Y}x{lr.shape[2]}, tile "
+        f"{TILE}, overlap {OVERLAP}, batch {TILE_BATCH}: {len(coords)} "
+        f"tiles in {n_batches} batches, launches {LAUNCH_LABELS} {tiled}; "
+        f"vs _upscale_tiled_host rel L2 {err_host:.3e} (tol "
+        f"{TILED_HOST_TOL:.0e}); vs a direct upscale rel L2 "
+        f"{err_direct:.3e}, median |err| / std {ratio:.3e} (JAX's bound "
+        f"{TILED_MEDIAN_RATIO})")
+    if (got.shape != direct.shape or not np.isfinite(got).all()
+            or tiled != (n_batches, 0, 0, 0, 0)
+            or not err_host <= TILED_HOST_TOL
+            or not ratio <= TILED_MEDIAN_RATIO):
+        fail("upscale_tiled on the test field")
+    big_lr, big_z = (a[0] for a in sample(
+        np.random.default_rng(2009), 1, BIG_FIELD, BIG_FIELD * sr.scale,
+        lr.shape[2], lr.shape[3]))
+    tile, _, coords = _tiling(BIG_FIELD, BIG_FIELD, TILE, OVERLAP,
+                              TILE_BATCH, sr.scale)
+    n_big = math.ceil(len(coords) / TILE_BATCH)
+    vox = big_z.shape[0] * big_z.shape[1] * big_z.shape[2]
+    big = {}
+    for label, s_ in (("module head", sr), ("head kernel", sr_h)):
+        reset_counters()
+        out = s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
+                               batch=TILE_BATCH)
+        n = counters()
+        secs = []
+        for _ in range(3):
+            t = time.monotonic()
+            s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
+                             batch=TILE_BATCH)
+            secs.append(time.monotonic() - t)
+        ms = 1e3 * statistics.median(secs)
+        big[label] = (ms, n)
+        log(f"  upscale_tiled HR {big_z.shape[0]}x{big_z.shape[1]}x"
+            f"{big_z.shape[2]}, {label}: {len(coords)} tiles in {n_big} "
+            f"batches, {ms:.3f} ms (median of 3, host clock, upload and "
+            f"download included), {vox / (ms / 1e3):.4e} HR voxels/s; "
+            f"launches {LAUNCH_LABELS} {n} ({card})")
+        want_n = (n_big, 0, 0, 0, n_big if label == "head kernel" else 0)
+        if (n != want_n or out.shape != (*big_z.shape[:3], 3)
+                or not np.isfinite(out).all()):
+            fail(f"upscale_tiled of the big field, {label}: launches {n}, "
+                 f"predicted {want_n}")
+    del sr, sr_h
+    return {"chunk": launches, "host": host,
+            "tiled": tuple(a + b + c for a, b, c in zip(
+                tiled, big["module head"][1], big["head kernel"][1])),
+            "tiled_ms": big["module head"][0],
+            "tiled_head_ms": big["head kernel"][0]}
+
+
 
 
 def main():
@@ -2586,10 +2927,13 @@ def main():
 
     tmp = tempfile.mkdtemp(prefix="windsr_leg_")
     try:
-        ll, state, ckpt_path = loop_phase(dev, card, tt, tmp)
+        ll, state, ckpt_path, leg_ms = loop_phase(dev, card, tt, tmp)
         # ------------------------------------------------- 8. test, use, serve
         ev = eval_phase(dev, card, tmp, state, ckpt_path)
         del state
+        torch.cuda.empty_cache()
+        # --------------------------------- 9. chunks, host path, tiled SR
+        ch = chunk_phase(dev, card, tmp, leg_ms, ev.pop("field"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2601,34 +2945,46 @@ def main():
                 **extra}
 
     tl = train_launches
+    # phase 9's launches: the chunked leg (replays counted), the host data
+    # path leg and the tiled SR
+    cl = tuple(a + b + c for a, b, c in zip(ch["chunk"], ch["host"],
+                                            ch["tiled"]))
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
-            serve_launches + tl[0] + ll[0] + ev["trunk"], max_abs16,
+            serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0], max_abs16,
             (ms, plain_ms, b1), lib_ms, launches_serve=serve_launches,
             launches_train=tl[0], launches_loop=ll[0],
-            launches_test=ev["trunk"], generate_field_ms=ev["ms_module_head"],
+            launches_test=ev["trunk"], launches_chunks=ch["chunk"][0],
+            launches_host_path=ch["host"][0], launches_tiled=ch["tiled"][0],
+            generate_field_ms=ev["ms_module_head"],
+            tiled_512_ms=ch["tiled_ms"],
             residual_ms=tt["k1r"][0], residual_plain_ms=tt["k1r"][1],
             residual_bound_ms=tt["k1r"][2][0],
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429",
-            tl[1] + ll[1], max_abs_bwd, tt["k2"][:3], tt["k2"][3],
+            tl[1] + ll[1] + cl[1], max_abs_bwd, tt["k2"][:3], tt["k2"][3],
             launches_train=tl[1], launches_loop=ll[1],
+            launches_chunks=ch["chunk"][1], launches_host_path=ch["host"][1],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
-        *(row(name, "stencil.cu", replaces, tl[i] + ll[i], err,
+        *(row(name, "stencil.cu", replaces, tl[i] + ll[i] + cl[i], err,
               (k["ms"], k["plain_ms"], k["bound"]), None,
               launches_train=tl[i], launches_loop=ll[i],
+              launches_chunks=ch["chunk"][i],
+              launches_host_path=ch["host"][i],
               device_ms=k["device_ms"], device_ms_cold=k["device_ms_cold"])
           for name, replaces, i, err, k in (
               ("wind_gradient", "stencil.py:78", 2, err_grad, tt["k3"]),
               ("wind_gradient_adjoint", "stencil.py:166", 3, err_adj,
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
-            head_serve[4] + head_train[4] + ll[4] + ev["head"], err_head,
-            th[8][:3], th[8][3], launches_serve=head_serve[4],
+            head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4],
+            err_head, th[8][:3], th[8][3], launches_serve=head_serve[4],
             launches_train=head_train[4], launches_loop=ll[4],
-            launches_test=ev["head"], generate_field_ms=ev["ms_head_kernel"],
+            launches_test=ev["head"], launches_tiled=ch["tiled"][4],
+            generate_field_ms=ev["ms_head_kernel"],
+            tiled_512_ms=ch["tiled_head_ms"],
             ms_b32=th[32][0], plain_ms_b32=th[32][1],
             bound_ms_b32=th[32][2][0], library_ms_b32=th[32][3],
             library_ms_benchmark_off=th[8][4],

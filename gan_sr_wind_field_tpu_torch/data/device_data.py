@@ -14,10 +14,13 @@ normalization, so normalizing then decimating commutes, and one full-grid
 Samples are drawn uniformly with replacement over the split, as in the JAX
 package. The draws come from a ``torch.Generator``, not ``jax.random``: the
 streams differ from the JAX package's, the distributions do not.
-``slice_batch_with`` takes the draws as tensors.
+``slice_batch_with`` takes the draws as tensors; ``batch_at`` cuts the
+batch of a given iteration.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -129,6 +132,21 @@ def batch_seed(seed: int, count: int) -> int:
     return (int(seed) << 32) + int(count)
 
 
+def batch_at(full, zraw, seed: int, count: int,
+             generator: Optional[torch.Generator] = None, *,
+             batch_size: int, patch: int, patch_y: int, cf: int,
+             enable_slicing: bool):
+    """Batch ``count`` of the stream ``seed``: the batch that the step of
+    iteration ``count + 1`` trains on, whatever cut the iterations into
+    legs or chunks. Its draws come from ``generator`` (a new one if None)
+    seeded with ``batch_seed(seed, count)``."""
+    gen = (torch.Generator(device=full.device) if generator is None
+           else generator)
+    gen.manual_seed(batch_seed(seed, count))
+    return slice_batch(full, zraw, gen, batch_size=batch_size, patch=patch,
+                       patch_y=patch_y, cf=cf, enable_slicing=enable_slicing)
+
+
 class DeviceBatcher:
     """Infinite iterator of (LR, HR, Z) training batches on ``device``.
 
@@ -165,10 +183,15 @@ class DeviceBatcher:
     def __iter__(self):
         return self
 
+    def slice_kwargs(self) -> dict:
+        """The keywords of ``batch_at`` (and ``train_chunk``) for this
+        stream's batches."""
+        return dict(batch_size=self.batch_size, patch=self.patch,
+                    patch_y=self.patch_y, cf=self.cf,
+                    enable_slicing=self.enable_slicing)
+
     def __next__(self):
-        self._gen.manual_seed(batch_seed(self.seed, self.count))
+        batch = batch_at(self.full, self.zraw, self.seed, self.count,
+                         self._gen, **self.slice_kwargs())
         self.count += 1
-        return slice_batch(self.full, self.zraw, self._gen,
-                           batch_size=self.batch_size, patch=self.patch,
-                           patch_y=self.patch_y, cf=self.cf,
-                           enable_slicing=self.enable_slicing)
+        return batch

@@ -3,6 +3,7 @@
     sr = WindFieldSR.from_continuation(cfg, "docs/evidence/milestone9k_continuation_9000.npz")
     sr = WindFieldSR.from_checkpoint(cfg, "runs/<run>/ckpt_6016", x, y)
     hr_uvw = sr.upscale(lr_field, z_terrain)        # model (normalized) space
+    hr_uvw = sr.upscale_tiled(lr_field, z_terrain, tile=16, overlap=4)
     hr_ms = sr.upscale_physical(lr_uvw_ms, z_raw)   # m/s in, m/s out
 
 Counterpart of ``gan_sr_wind_field_tpu/eval/serve.py:WindFieldSR``. The
@@ -13,6 +14,14 @@ HR-head kernel (``ops/hr_head.py``) when the configuration sets
 ``use_fused_trunk``: serving is a forward without a gradient. On a CUDA
 device the constructor builds the kernels it will launch, so the first
 request pays no build.
+
+``upscale_tiled`` super-resolves a field of any horizontal extent in
+overlapping tiles blended with a separable cosine window (tile and overlap
+in LR pixels), as the JAX package does: the volumes are uploaded once,
+each batch of tiles is cut on the device, run through the same forward and
+blended into float32 accumulators there, and the blended volume is
+downloaded once. The HTTP server tiles through its micro-batcher instead
+(``server.py:tiled_upscale_via``), so that tiles batch with other traffic.
 """
 
 from __future__ import annotations
@@ -41,6 +50,12 @@ from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
+
+
+def _cosine_window(n: int) -> np.ndarray:
+    """Raised-cosine blending profile, 1.0 in the middle."""
+    t = (np.arange(n) + 0.5) / n
+    return 0.5 - 0.5 * np.cos(2 * np.pi * t)
 
 
 class WindFieldSR:
@@ -131,9 +146,12 @@ class WindFieldSR:
         return out[0] if squeeze else out
 
     def upscale_physical(self, lr_uvw, z, pressure=None,
-                         z_above_ground=None) -> np.ndarray:
+                         z_above_ground=None, tiled: bool = False,
+                         **tile_kw) -> np.ndarray:
         """Physical units: LR wind in m/s and raw HR height ``z`` in, SR
-        wind in m/s out, normalized with this instance's ``norm_stats``."""
+        wind in m/s out, normalized with this instance's ``norm_stats``.
+        ``tiled=True`` goes through ``upscale_tiled`` (one field) with
+        ``tile_kw``."""
         if self.norm_stats is None:
             raise ValueError(
                 "physical-units serving needs norm_stats (pass the "
@@ -147,4 +165,101 @@ class WindFieldSR:
             include_above_ground_channel=g.include_above_ground_channel,
             pressure=pressure, z_above_ground=z_above_ground,
         )
-        return self.upscale(lr, zt) * _stat(self.norm_stats, "uvw_max")
+        sr = (self.upscale_tiled(lr, zt, **tile_kw) if tiled
+              else self.upscale(lr, zt))
+        return sr * _stat(self.norm_stats, "uvw_max")
+
+    def upscale_tiled(self, lr, z_terrain, tile: int = 64, overlap: int = 16,
+                      batch: int = 8) -> np.ndarray:
+        """Overlap-tiled SR of one field of any horizontal extent.
+
+        lr: (x, y, zl, C); z_terrain: (x·s, y·s, zl, 1); → (x·s, y·s, zl,
+        3) float32. ``tile`` and ``overlap`` are in LR pixels; tiles run
+        through the generator ``batch`` at a time, the last batch padded
+        with copies of its last tile under a zero mask. A field no larger
+        than one tile is one ``upscale``; where one side is smaller than
+        the tile, the tile shrinks to it (and an overlap that no longer
+        fits to a quarter of it)."""
+        s = self.scale
+        X, Y = lr.shape[0], lr.shape[1]
+        if X <= tile and Y <= tile:
+            return self.upscale(lr, z_terrain)
+        tile, win, coords = _tiling(X, Y, tile, overlap, batch, s)
+        dev = self.device
+        lr_d = torch.from_numpy(np.ascontiguousarray(lr, np.float32)).to(dev)
+        zt_d = torch.from_numpy(
+            np.ascontiguousarray(z_terrain, np.float32)).to(dev)
+        win_d = torch.from_numpy(win).to(dev)
+        n = len(coords)
+        padded = coords + [coords[-1]] * (-n % batch)
+        origins = torch.tensor(padded, dtype=torch.int64).to(dev)
+        ts = tile * s
+        ax, axs = (torch.arange(k, device=dev) for k in (tile, ts))
+        out = torch.zeros((X * s, Y * s, lr.shape[2], 3), dtype=torch.float32,
+                          device=dev)
+        weight = torch.zeros((X * s, Y * s, 1, 1), dtype=torch.float32,
+                             device=dev)
+        for i in range(0, n, batch):
+            x0, y0 = origins[i:i + batch, 0], origins[i:i + batch, 1]
+            lr_b = lr_d[(x0[:, None, None] + ax[None, :, None]),
+                        (y0[:, None, None] + ax[None, None, :])]
+            z_b = zt_d[(s * x0[:, None, None] + axs[None, :, None]),
+                       (s * y0[:, None, None] + axs[None, None, :])]
+            sr_b = self._generate(lr_b, z_b) * win_d
+            # the padded tiles' mask is zero: they are left out
+            for j, (xj, yj) in enumerate(coords[i:i + batch]):
+                sl = (slice(xj * s, xj * s + ts), slice(yj * s, yj * s + ts))
+                out[sl] += sr_b[j]
+                weight[sl] += win_d
+        return (out / weight.clamp_min(1e-12)).cpu().numpy()
+
+    def _upscale_tiled_host(self, lr, z_terrain, coords, tile: int,
+                            batch: int, win: np.ndarray) -> np.ndarray:
+        """The same tiling as a host loop: batches of tiles through
+        ``upscale`` and blended in numpy. The JAX package's path on a
+        mesh; here the yardstick the tests hold ``upscale_tiled``
+        against."""
+        s = self.scale
+        X, Y = lr.shape[0], lr.shape[1]
+        out = np.zeros((X * s, Y * s, lr.shape[2], 3), np.float32)
+        weight = np.zeros((X * s, Y * s, 1, 1), np.float32)
+        for i in range(0, len(coords), batch):
+            chunk = coords[i:i + batch]
+            lr_b = np.stack(
+                [lr[x0:x0 + tile, y0:y0 + tile] for x0, y0 in chunk])
+            z_b = np.stack([
+                z_terrain[x0 * s:(x0 + tile) * s, y0 * s:(y0 + tile) * s]
+                for x0, y0 in chunk
+            ])
+            if len(chunk) < batch:  # pad to the batch's shape
+                pad = batch - len(chunk)
+                lr_b = np.concatenate([lr_b, np.repeat(lr_b[-1:], pad, 0)])
+                z_b = np.concatenate([z_b, np.repeat(z_b[-1:], pad, 0)])
+            sr_b = self.upscale(lr_b, z_b)
+            for j, (x0, y0) in enumerate(chunk):
+                sl = np.s_[x0 * s:(x0 + tile) * s, y0 * s:(y0 + tile) * s]
+                out[sl] += sr_b[j] * win
+                weight[sl] += win
+        return out / np.maximum(weight, 1e-12)
+
+
+def _tiling(X: int, Y: int, tile: int, overlap: int, batch: int, s: int):
+    """The tiles of an X × Y LR field: (tile, the HR window (tile·s,
+    tile·s, 1, 1) float32, the LR origins in order). Raises ValueError for
+    an overlap that does not fit the tile or a batch below 1."""
+    if min(X, Y) < tile:
+        # one side smaller than the tile: clamp so that origins stay >= 0;
+        # an overlap that no longer fits degrades to a quarter
+        tile = min(X, Y)
+        if overlap >= tile:
+            overlap = tile // 4
+    step = tile - overlap
+    if step <= 0:
+        raise ValueError("overlap must be smaller than tile")
+    if batch < 1:
+        raise ValueError("batch must be >= 1")
+    win1d = _cosine_window(tile * s)
+    win = np.outer(win1d, win1d)[:, :, None, None].astype(np.float32)
+    xs = sorted({min(x0, X - tile) for x0 in range(0, X, step)})
+    ys = sorted({min(y0, Y - tile) for y0 in range(0, Y, step)})
+    return tile, win, [(x0, y0) for x0 in xs for y0 in ys]

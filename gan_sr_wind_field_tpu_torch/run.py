@@ -4,7 +4,9 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
 ``Config``, the run folders, the config snapshot and the loggers, the
 ``--synthetic`` data, then one of
 
-- ``--train``: the training loop (``train/loop.py``);
+- ``--train [--profile]``: the training loop (``train/loop.py``), with
+  ``--profile`` a ``torch.profiler`` trace of its first iterations in the
+  run's TensorBoard log folder;
 - ``--test [--test_ema]``: the held-out test chain (``eval/test_loop.py``);
 - ``--use [--no_ema]``: the SR field dumps of the test split;
 - ``--serve PORT [--serve_warmup B1,B2] [--serve_strict_shapes]
@@ -56,7 +58,6 @@ _NOT_PORTED = {
     "param_search": (False, _SEARCH), "num_samples": (250, _SEARCH),
     "asha_grace": (1200, _SEARCH), "asha_eta": (3, _SEARCH),
     "slurm_array_id": (1, _SEARCH),
-    "profile": (False, "profiling of the first iterations"),
 }
 
 
@@ -94,6 +95,9 @@ def argv_to_cfg(argv=None):
     p.add_argument("--synthetic_size", type=int, default=64,
                    help="horizontal extent of the synthetic domain; larger "
                         "than slice_size gives true random-patch training")
+    p.add_argument("--profile", action="store_true",
+                   help="with --train: trace the first iterations with "
+                        "torch.profiler into the TensorBoard log folder")
     p.add_argument("--max_steps", type=int, default=None,
                    help="stop at this iteration (absolute, like niter)")
     p.add_argument("--loglevel", default="info")
@@ -189,7 +193,9 @@ def main(argv=None):
                 f"val {len(ds_val)}")
     if cfg.is_train:
         return train(cfg, ds_train, ds_val, x, y, max_steps=args.max_steps,
-                     device=device)
+                     device=device,
+                     profile_dir=(cfg.env.this_runs_tensorboard_log_folder
+                                  if args.profile else None))
     if cfg.is_test:
         return run_test(cfg, ds_test, x, y, ema=args.test_ema, device=device)
 

@@ -168,7 +168,9 @@ def restore_checkpoint(path: str, example_state: GANTrainState,
         return {k: v.to(dev) for k, v in tree.items()}
 
     def adam(d, example: AdamState) -> AdamState:
-        return AdamState(d["count"], like(d["mu"], example.mu),
+        count = torch.tensor(int(d["count"]), dtype=torch.int32,
+                             device=example.count.device)
+        return AdamState(count, like(d["mu"], example.mu),
                          like(d["nu"], example.nu))
 
     params_G = like(blob["params_G"], ex.params_G)

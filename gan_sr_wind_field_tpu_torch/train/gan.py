@@ -21,6 +21,14 @@ update the state's tensors in place and return the same state. Randomness
 (augmentation, dropout masks, instance noise, noisy labels) comes from the
 state's ``torch.Generator``; it differs from JAX's draws for the same seed.
 
+A step is host work (``_begin_step``: the iteration's schedules written
+into 0-d device tensors, the feature-D refresh) and device work
+(``_step``): tensor ops only, every state update in place, no host sync,
+so that ``train_chunk`` can capture it as a CUDA graph
+(``train/step_graphs.py``) and replay it. A non-finite G loss selects the
+old parameters, Adam moments and count with ``torch.where``, as the JAX
+step does.
+
 With ``use_fused_trunk`` (and a LeakyReLU slope > 0) the G step's trunk
 runs as the trunk kernel with residuals and the backward kernel
 (``models/fused_train.py``), and the D step's G forward as the trunk
@@ -44,6 +52,7 @@ import torch
 from torch.func import functional_call
 
 from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
+from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
 from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
@@ -87,8 +96,9 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor):
 
 @dataclass
 class AdamState:
-    """optax ``scale_by_adam`` state: the step count and both moments."""
-    count: int
+    """optax ``scale_by_adam`` state: the step count (a 0-d int32 tensor on
+    the parameters' device, updated in place) and both moments."""
+    count: torch.Tensor
     mu: Params
     nu: Params
 
@@ -111,7 +121,9 @@ def _clone(params: Params) -> Params:
 
 
 def _adam_init(params: Params) -> AdamState:
-    return AdamState(0, {k: torch.zeros_like(v) for k, v in params.items()},
+    dev = next(iter(params.values())).device if params else None
+    return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                     {k: torch.zeros_like(v) for k, v in params.items()},
                      {k: torch.zeros_like(v) for k, v in params.items()})
 
 
@@ -220,6 +232,12 @@ class WindFieldGAN:
         else:
             self.lr_G = lambda it: float(np.float32(t.learning_rate_g))
             self.lr_D = lambda it: float(np.float32(t.learning_rate_d))
+        # the schedules' values at the step's iteration, written on the
+        # host before each step (_set_iteration); a graph reads them
+        self._sc = {k: torch.zeros((), device=self.device) for k in
+                    ("lr_G", "lr_D", "real_label", "fake_label", "noise_G",
+                     "noise_D", "ema")}
+        self._graphs = None  # train_chunk's CUDA graphs (step_graphs.py)
 
     # ------------------------------------------------------------ state
     def _build_D(self, hr_shape, seed: int = 0) -> Discriminator3D:
@@ -315,27 +333,56 @@ class WindFieldGAN:
         return self._g_forward_nograd(state.params_G, self._as_input(lr),
                                       self._as_input(z))
 
-    # ----------------------------------------------------------- losses
-    def _make_labels(self, it: int, batch: int, gen: torch.Generator):
-        real, fake, pred_real, pred_fake = label_values(
+    # -------------------------------------------------------- schedules
+    def _set_iteration(self, it: int) -> None:
+        """Write the schedules' values at iteration ``it`` (learning
+        rates, labels, instance-noise scales, the EMA weight) into the
+        step's 0-d device tensors: ``fill_`` launches, no host sync."""
+        real, fake, _, _ = label_values(
             it, self.niter, self.use_one_sided_label_smoothing,
             self.flip_labels)
+        values = {"lr_G": self.lr_G(it), "lr_D": self.lr_D(it),
+                  "real_label": real, "fake_label": fake,
+                  "noise_G": tricks.instance_noise_scale(2.0, it, self.niter),
+                  "noise_D": tricks.instance_noise_scale(1.0, it, self.niter),
+                  "ema": self._ema_weight(it)}
+        for k, v in values.items():
+            self._sc[k].fill_(v)
+
+    def _ema_weight(self, it: int) -> float:
+        """1 − min(decay, (1 + n)/(10 + n)) over the G-step count n, in
+        float32."""
+        n = np.float32(max(self._n_g_steps(it), 1))
+        d_eff = min(np.float32(self.ema_decay),
+                    (np.float32(1.0) + n) / (np.float32(10.0) + n))
+        return float(np.float32(1.0) - d_eff)
+
+    # ----------------------------------------------------------- losses
+    def _make_labels(self, batch: int, gen: torch.Generator):
+        pred_real, pred_fake = not self.flip_labels, self.flip_labels
         std = 0.05 if self.use_noisy_labels else 0.0
-        kw = dict(noise_stddev=std, true_label_val=real,
-                  false_label_val=fake, device=self.device, generator=gen)
+        kw = dict(noise_stddev=std, true_label_val=self._sc["real_label"],
+                  false_label_val=self._sc["fake_label"], device=self.device,
+                  generator=gen)
         return (tricks.noisy_labels(pred_real, batch, **kw),
                 tricks.noisy_labels(pred_fake, batch, **kw))
 
-    def _noisy_d_input(self, x, sigma: float, it: int, gen):
+    def _noisy_d_input(self, x, sigma: float, gen):
+        """x plus instance noise of σ = 2 (G step) or 1 (D step) at the
+        iteration ``_set_iteration`` last wrote."""
         if not self.use_instance_noise:
             return x
-        return x + tricks.instance_noise(sigma, x.shape, it, self.niter,
-                                         device=self.device, generator=gen)
+        scale = self._sc["noise_G" if sigma == 2.0 else "noise_D"]
+        return x + tricks.instance_noise(scale, x.shape, device=self.device,
+                                         generator=gen)
 
     def _g_losses(self, params_G: Params, state: GANTrainState, lr, hr, z,
-                  it: int, gen: torch.Generator, train: bool,
+                  it: Optional[int], gen: torch.Generator, train: bool,
                   w: Optional[dict] = None, dropout_mask=None):
-        """Weighted G losses: (total, (losses dict, fake HR))."""
+        """Weighted G losses at iteration ``it`` (None: the one last
+        written by ``_set_iteration``): (total, (losses dict, fake HR))."""
+        if it is not None:
+            self._set_iteration(it)
         w = w or self.default_weights
         fake = self._g_forward_train(params_G, lr, z, train, gen,
                                      dropout_mask)
@@ -344,10 +391,10 @@ class WindFieldGAN:
         losses = {k: zero for k in _LOSS_KEYS}
 
         if self.use_adv:
-            hr_labels, fake_labels = self._make_labels(it, hr.shape[0], gen)
+            hr_labels, fake_labels = self._make_labels(hr.shape[0], gen)
             # D eval-mode forwards with σ=2 instance noise
-            real_in = self._noisy_d_input(hr3, 2.0, it, gen)
-            fake_in = self._noisy_d_input(fake, 2.0, it, gen)
+            real_in = self._noisy_d_input(hr3, 2.0, gen)
+            fake_in = self._noisy_d_input(fake, 2.0, gen)
             with torch.no_grad():
                 y_pred = self._d_apply(state.params_D, state.batch_stats_D,
                                        real_in, train=False)
@@ -399,15 +446,18 @@ class WindFieldGAN:
         losses["total"] = total
         return total, (losses, fake)
 
-    def _d_loss(self, params_D: Params, stats: Params, hr3, fake, it: int,
-                gen: torch.Generator, update_stats: bool):
+    def _d_loss(self, params_D: Params, stats: Params, hr3, fake,
+                it: Optional[int], gen: torch.Generator, update_stats: bool):
         """D loss on train-mode forwards (σ=1 instance noise, batch
-        statistics, dropout); with ``update_stats`` the running statistics
-        in ``stats`` move, real batch first. Returns (loss, y_pred,
+        statistics, dropout) at iteration ``it`` (None: the one last
+        written); with ``update_stats`` the running statistics in
+        ``stats`` move, real batch first. Returns (loss, y_pred,
         fake_y_pred)."""
-        hr_labels, fake_labels = self._make_labels(it, hr3.shape[0], gen)
-        real_in = self._noisy_d_input(hr3, 1.0, it, gen)
-        fake_in = self._noisy_d_input(fake.detach(), 1.0, it, gen)
+        if it is not None:
+            self._set_iteration(it)
+        hr_labels, fake_labels = self._make_labels(hr3.shape[0], gen)
+        real_in = self._noisy_d_input(hr3, 1.0, gen)
+        fake_in = self._noisy_d_input(fake.detach(), 1.0, gen)
         kw = dict(train=True, update_stats=update_stats, generator=gen)
         y_pred = self._d_apply(params_D, stats, real_in, **kw)
         fake_y_pred = self._d_apply(params_D, stats, fake_in, **kw)
@@ -423,27 +473,43 @@ class WindFieldGAN:
         return loss, y_pred, fake_y_pred
 
     # -------------------------------------------------------- optimizer
-    def _adam_step(self, params: Params, grads, opt: AdamState, lr_t: float,
-                   beta1: float, wd: float):
+    def _adam_step(self, params: Params, grads, opt: AdamState, lr_t,
+                   beta1: float, wd: float, finite=None):
         """optax chain (clip_by_global_norm, add_decayed_weights,
-        scale_by_adam(b2=0.999, eps=1e-8), scale(-1)), then p += u · lr,
-        in place. Returns the pre-clip global gradient norm."""
+        scale_by_adam(b2=0.999, eps=1e-8), scale(-1)), then p += u · lr_t
+        (a float or a 0-d tensor), in place, Adam's count included. With
+        ``finite`` (a 0-d bool tensor) the parameters, moments and count
+        keep their old values where it is false. Returns the pre-clip
+        global gradient norm. No host sync."""
         norm = _global_norm(grads)
         if self.clip_norm is not None:
             grads = [torch.where(norm < self.clip_norm, g,
                                  g / norm * self.clip_norm) for g in grads]
+        ps = list(params.values())
         if wd:
-            grads = [g + wd * p for g, p in zip(grads, params.values())]
-        opt.count += 1
-        f32 = torch.float32
-        bc1 = 1.0 - torch.tensor(beta1, dtype=f32) ** opt.count
-        bc2 = 1.0 - torch.tensor(0.999, dtype=f32) ** opt.count
+            grads = torch._foreach_add(grads, torch._foreach_mul(ps, wd))
+        mu, nu = list(opt.mu.values()), list(opt.nu.values())
         with torch.no_grad():
-            for (k, p), g in zip(params.items(), grads):
-                mu = opt.mu[k].mul_(beta1).add_((1 - beta1) * g)
-                nu = opt.nu[k].mul_(0.999).add_((1 - 0.999) * (g * g))
-                u = (mu / bc1.item()) / (torch.sqrt(nu / bc2.item()) + 1e-8)
-                p.add_(-u * lr_t)
+            count = opt.count + 1
+            bc1 = 1.0 - torch.pow(beta1, count.float())
+            bc2 = 1.0 - torch.pow(0.999, count.float())
+            new_mu = torch._foreach_mul(mu, beta1)
+            torch._foreach_add_(new_mu, torch._foreach_mul(grads, 1 - beta1))
+            new_nu = torch._foreach_mul(nu, 0.999)
+            torch._foreach_add_(new_nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - 0.999))
+            u = torch._foreach_div(new_mu, bc1)
+            den = torch._foreach_div(new_nu, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, 1e-8)
+            torch._foreach_div_(u, den)
+            torch._foreach_mul_(u, lr_t)
+            new_p = torch._foreach_sub(ps, u)
+            olds = [*ps, *mu, *nu, opt.count]
+            news = [*new_p, *new_mu, *new_nu, count]
+            if finite is not None:
+                news = [torch.where(finite, n, o) for n, o in zip(news, olds)]
+            torch._foreach_copy_(olds, news)
         return norm
 
     def _grads(self, loss, params: Params):
@@ -458,38 +524,43 @@ class WindFieldGAN:
         """The losses of a G step at iteration ``it`` and the gradients of
         its total w.r.t. ``state.params_G`` (a list in the dict's order),
         without the update: (total, losses, grads)."""
+        self._set_iteration(it)
+        return self._g_grads(state, lr, hr, z, generator, weights,
+                             dropout_mask)
+
+    def _g_grads(self, state, lr, hr, z, generator, weights=None,
+                 dropout_mask=None):
         params = {k: v.detach().requires_grad_() for k, v in
                   state.params_G.items()}
-        loss, (losses, _) = self._g_losses(params, state, lr, hr, z, it,
+        loss, (losses, _) = self._g_losses(params, state, lr, hr, z, None,
                                            generator, True, weights,
                                            dropout_mask)
         grads = self._grads(loss, params)
         return loss.detach(), {k: v.detach() for k, v in losses.items()}, \
             grads
 
-    def _g_branch(self, state: GANTrainState, lr, hr, z, it: int, w):
-        loss, metrics, grads = self.g_grads(state, lr, hr, z, it, state.rng,
-                                            w)
-        if bool(torch.isfinite(loss)):
-            norm = self._adam_step(state.params_G, grads, state.opt_state_G,
-                                   self.lr_G(it), *self.opt_G)
-        else:  # skip the whole optimizer step, Adam's count included
-            norm = _global_norm(grads)
+    def _g_branch(self, state: GANTrainState, lr, hr, z, w):
+        loss, metrics, grads = self._g_grads(state, lr, hr, z, state.rng, w)
+        # a non-finite loss skips the whole optimizer step, Adam's count
+        # included
+        norm = self._adam_step(state.params_G, grads, state.opt_state_G,
+                               self._sc["lr_G"], *self.opt_G,
+                               finite=torch.isfinite(loss))
         metrics["D_train_loss"] = torch.zeros((), device=self.device)
         if self.clip_norm is not None:
             metrics["G_grad_norm"] = norm
         return metrics
 
-    def _d_branch(self, state: GANTrainState, lr, hr, z, it: int):
+    def _d_branch(self, state: GANTrainState, lr, hr, z):
         # G eval, no dropout, no gradient: the trunk kernel if enabled
         fake = self._g_forward_nograd(state.params_G, lr, z)
         params = {k: v.detach().requires_grad_() for k, v in
                   state.params_D.items()}
         loss_D, _, _ = self._d_loss(params, state.batch_stats_D,
-                                    hr[..., :3], fake, it, state.rng, True)
+                                    hr[..., :3], fake, None, state.rng, True)
         grads = self._grads(loss_D, params)
         self._adam_step(state.params_D, grads, state.opt_state_D,
-                        self.lr_D(it), *self.opt_D)
+                        self._sc["lr_D"], *self.opt_D)
         zero = torch.zeros((), device=self.device)
         metrics = {k: zero for k in _LOSS_KEYS}
         metrics["D_train_loss"] = loss_D.detach()
@@ -519,33 +590,87 @@ class WindFieldGAN:
         is first rotated and mirrored per sample (``data/augment.py``),
         with draws from ``state.rng`` before any other of the step's."""
         lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
-        if augment:
-            lr, hr, z = augment_batch(state.rng, lr, hr, z)
-        w = weights or self.default_weights
-        it = state.it + 1
-        if self.use_feature_D and it % self.feature_D_update_period == 0:
-            state.params_D_frozen = _clone(state.params_D)
-        g_step = self.is_g_step(it)
-        if g_step:
-            metrics = self._g_branch(state, lr, hr, z, it, w)
-        else:
-            metrics = self._d_branch(state, lr, hr, z, it)
-        # the EMA moves on G steps only (params_G is unchanged on D steps)
-        if g_step and self.ema_decay > 0.0 and state.params_G_ema is not None:
-            n = np.float32(max(self._n_g_steps(it), 1))
-            d_eff = min(np.float32(self.ema_decay),
-                        (np.float32(1.0) + n) / (np.float32(10.0) + n))
-            a = float(np.float32(1.0) - d_eff)
-            with torch.no_grad():
-                for k, e in state.params_G_ema.items():
-                    e.add_(a * (state.params_G[k] - e))
-        metrics["is_g_step"] = torch.tensor(float(g_step))
-        metrics["lr_G"] = torch.tensor(self.lr_G(it))
+        it = self._begin_step(state)
+        metrics = self._step(state, lr, hr, z, augment, self.is_g_step(it),
+                             weights)
         state.it = it
         return state, metrics
 
-    def train_chunk(self, *args, **kwargs):
-        raise NotImplementedError(f"train_chunk {_NOT_PORTED}")
+    def _begin_step(self, state: GANTrainState) -> int:
+        """The host's part of iteration ``state.it + 1``, before its device
+        work: the schedules' values, and the frozen feature extractor's
+        refresh (copied in place). Returns the iteration."""
+        it = state.it + 1
+        self._set_iteration(it)
+        if self.use_feature_D:
+            frozen = state.params_D_frozen
+            if frozen.keys() != state.params_D.keys():
+                state.params_D_frozen = _clone(state.params_D)
+            elif it % self.feature_D_update_period == 0:
+                with torch.no_grad():
+                    for k, v in state.params_D.items():
+                        frozen[k].copy_(v)
+        return it
+
+    def _step(self, state: GANTrainState, lr, hr, z, augment: bool,
+              g_step: bool, weights=None):
+        """The device work of one iteration, G or D as ``g_step`` says, on
+        the schedules ``_begin_step`` wrote: tensor ops only, every update
+        of ``state`` in place, no host sync, so a CUDA graph can capture
+        it. Returns the metrics."""
+        if augment:
+            lr, hr, z = augment_batch(state.rng, lr, hr, z)
+        w = weights or self.default_weights
+        if g_step:
+            metrics = self._g_branch(state, lr, hr, z, w)
+        else:
+            metrics = self._d_branch(state, lr, hr, z)
+        # the EMA moves on G steps only (params_G is unchanged on D steps)
+        if g_step and self.ema_decay > 0.0 and state.params_G_ema is not None:
+            with torch.no_grad():
+                ema = list(state.params_G_ema.values())
+                step = torch._foreach_sub(
+                    [state.params_G[k] for k in state.params_G_ema], ema)
+                torch._foreach_mul_(step, self._sc["ema"])
+                torch._foreach_add_(ema, step)
+        metrics["is_g_step"] = torch.full((), float(g_step),
+                                          device=self.device)
+        metrics["lr_G"] = self._sc["lr_G"].clone()
+        return metrics
+
+    def train_chunk(self, state: GANTrainState, full, zraw, seed: int, *,
+                    n_steps: int, batch_size: int, patch: int, patch_y: int,
+                    cf: int, enable_slicing: bool, augment: bool = False):
+        """``n_steps`` iterations, each on the batch of its own iteration
+        cut on the device from the resident volumes ``full`` and ``zraw``
+        (``data/device_data.py:batch_at`` of the stream ``seed``: the
+        batch ``DeviceBatcher`` hands the per-step loop for that
+        iteration, so chunked and per-step legs, and a resume, draw the
+        same stream whatever the chunk boundaries). On a CUDA device each
+        step kind runs as a CUDA graph of the step (``step_graphs.py``),
+        captured on its first use and replayed; a failed capture or replay
+        raises. On the CPU the same steps run eagerly. Returns ``(state,
+        the last step's metrics)``."""
+        kw = dict(batch_size=batch_size, patch=patch, patch_y=patch_y, cf=cf,
+                  enable_slicing=enable_slicing)
+        gen = torch.Generator(device=full.device)
+        if self.device.type != "cuda":
+            for _ in range(n_steps):
+                batch = batch_at(full, zraw, seed, state.it, gen, **kw)
+                state, metrics = self.train_step(state, *batch,
+                                                 augment=augment)
+            return state, metrics
+        from gan_sr_wind_field_tpu_torch.train.step_graphs import StepGraphs
+
+        batch = batch_at(full, zraw, seed, state.it, gen, **kw)
+        if self._graphs is None or not self._graphs.fits(state, batch,
+                                                         augment):
+            self._graphs = StepGraphs(self, state, batch, augment)
+        for i in range(n_steps):
+            if i:
+                batch = batch_at(full, zraw, seed, state.it, gen, **kw)
+            metrics = self._graphs.step(state, batch)
+        return state, {k: v.clone() for k, v in metrics.items()}
 
     def val_step(self, state: GANTrainState, lr, hr, z,
                  generator: Optional[torch.Generator] = None, weights=None):
@@ -556,17 +681,16 @@ class WindFieldGAN:
         lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
         gen = state.rng if generator is None else generator
         w = weights or self.default_weights
-        it = state.it
         hr3 = hr[..., :3]
         with torch.no_grad():
             _, (losses, fake) = self._g_losses(state.params_G, state, lr, hr,
-                                               z, it, gen, False, w)
+                                               z, state.it, gen, False, w)
             metrics = {f"G_val_{k}": v for k, v in losses.items()}
             zero = torch.zeros((), device=self.device)
             if self.use_adv:
                 loss_D, y_pred, fake_y_pred = self._d_loss(
-                    state.params_D, state.batch_stats_D, hr3, fake, it, gen,
-                    update_stats=True)
+                    state.params_D, state.batch_stats_D, hr3, fake, None,
+                    gen, update_stats=True)
                 metrics["D_val_loss"] = loss_D
                 metrics["D_pred_HR"] = torch.sigmoid(y_pred).mean()
                 metrics["D_pred_SR"] = torch.sigmoid(fake_y_pred).mean()

@@ -4,14 +4,24 @@ Counterpart of ``gan_sr_wind_field_tpu/train/loop.py:train`` and
 ``run_validation``:
 
 - the hot loop takes the next batch and runs ``WindFieldGAN.train_step``;
-  the G/D alternation and the schedules live in the step;
+  the G/D alternation and the schedules live in the step. With
+  ``device_resident_data`` and ``steps_per_dispatch`` K > 1 it runs chunks
+  of K steps through ``WindFieldGAN.train_chunk`` (CUDA graphs of the step
+  on the card); a chunk never crosses a log, validation or save boundary,
+  ``niter`` or the end of the profiler window, and single steps fill the
+  remainders. A chunk's steps train on the batches the per-step loop would
+  draw for their iterations, so the two loops give the same state;
 - with ``device_resident_data`` the training split is uploaded to the card
   once and batches are cut there (``data/device_data.py``), else a thread
   copies host batches to the device (``data/pipeline.py``); augmentation
   then runs on the card inside the step, and the dataset's own is off;
 - logging, validation and checkpoints run at their periods; SIGTERM
-  checkpoints and exits cleanly, and the stall watchdog turns a hang into
-  that SIGTERM;
+  checkpoints and exits cleanly (at the next chunk end), and the stall
+  watchdog turns a hang into that SIGTERM;
+- with ``profile_dir`` a ``torch.profiler`` window records the host (and
+  the card) from the first iteration to the first boundary at or after
+  ten iterations, and writes a trace that Chrome and Perfetto read
+  (``profile_it{start}-{end}.pt.trace.json``) into ``profile_dir``;
 - warm start: a found resume checkpoint wins; else a ``.npz``
   continuation pack loads G, D, D's statistics, the EMA and ``it`` with
   the Adam moments at zero, and a port checkpoint loads weights only.
@@ -85,10 +95,12 @@ def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
 
 
 def train(cfg, dataset_train, dataset_validation, x, y,
-          max_steps: Optional[int] = None, device=None) -> GANTrainState:
+          max_steps: Optional[int] = None, device=None,
+          profile_dir: Optional[str] = None) -> GANTrainState:
     """Run training to ``cfg.training.niter`` (at most ``max_steps``, an
     absolute iteration) on ``device`` (the card unless the caller asks for
-    the CPU). Returns the final state."""
+    the CPU); with ``profile_dir``, trace the first iterations into it.
+    Returns the final state."""
     device = resolve_device(device)
     status = logging.getLogger("status")
     cfg_t = cfg.training
@@ -166,6 +178,26 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         bar = DisplayBar(max_value=batches_per_epoch, start_it=it,
                          niter=niter)
 
+    profiler = None
+    if profile_dir:
+        profiler = torch.profiler.profile(activities=(
+            [torch.profiler.ProfilerActivity.CPU]
+            + ([torch.profiler.ProfilerActivity.CUDA]
+               if device.type == "cuda" else [])))
+        profiler.start()
+
+    def stop_profile():
+        nonlocal profiler
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir,
+                            f"profile_it{start_it}-{it}.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        profiler = None
+        status.info(f"profile of it {start_it} -> {it} written to {path}")
+
     # graceful preemption: finish the step in flight, checkpoint, exit
     stop_signal = []
     old_handler = None
@@ -205,6 +237,8 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         nonlocal state, t_window, it_window
         if watchdog is not None:
             watchdog.beat()
+        if profiler is not None and it - start_it >= 10:
+            stop_profile()
         if it % cfg_t.log_period == 0:
             host_m = {k: float(metrics[k]) for k in TRAIN_LOSS_KEYS}
             dt = time.time() - t_window
@@ -235,17 +269,47 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         if it % cfg_t.save_model_period == 0:
             save()
 
-    while it < niter and not stop_signal:
-        batch = next(batches, None)
-        if batch is None:
-            break
-        it += 1
-        if bar is not None:
-            bar.update(it % batches_per_epoch,
-                       it * batch_size // len(dataset_train), it)
-        state, metrics = gan.train_step(state, *batch,
-                                        augment=augment_on_device)
-        boundary_work(metrics)
+    chunk_steps = int(getattr(cfg, "steps_per_dispatch", 1) or 1)
+    chunked = chunk_steps > 1 and cfg.device_resident_data
+    if chunk_steps > 1 and not chunked:
+        status.warning(f"steps_per_dispatch = {chunk_steps} needs "
+                       "device_resident_data: stepping one iteration at a "
+                       "time")
+    periods = [cfg_t.log_period, cfg_t.save_model_period]
+    if dataset_validation is not None:
+        periods.append(cfg_t.val_period)
+    periods = [p for p in periods if p and p > 0]
+
+    def next_boundary(i):
+        cands = [((i // p) + 1) * p for p in periods] + [niter]
+        if profiler is not None:
+            cands.append(start_it + 10)
+        return min(c for c in cands if c > i)
+
+    try:
+        while it < niter and not stop_signal:
+            if chunked and next_boundary(it) - it >= chunk_steps:
+                state, metrics = gan.train_chunk(
+                    state, batches.full, batches.zraw, batches.seed,
+                    n_steps=chunk_steps, augment=augment_on_device,
+                    **batches.slice_kwargs())
+                it += chunk_steps
+            else:
+                if cfg.device_resident_data:
+                    batches.count = it  # the batch of iteration it + 1
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                it += 1
+                state, metrics = gan.train_step(state, *batch,
+                                                augment=augment_on_device)
+            if bar is not None:
+                bar.update(it % batches_per_epoch,
+                           it * batch_size // len(dataset_train), it)
+            boundary_work(metrics)
+    finally:
+        if not cfg.device_resident_data:
+            batches.close()
 
     if stop_signal:
         status.warning(f"SIGTERM at it {it}: checkpointing and exiting "
@@ -255,6 +319,8 @@ def train(cfg, dataset_train, dataset_validation, x, y,
             f"batch iterator exhausted at it {it} < niter {niter} — "
             "training ended early"
         )
+    if profiler is not None:  # the loop ended inside the window
+        stop_profile()
     if state.it != start_it and saved_at != state.it:
         # the watchdog stays armed through the final save: a save that
         # hangs still ends in its hard exit

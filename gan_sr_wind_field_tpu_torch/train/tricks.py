@@ -5,7 +5,8 @@ kept: instance noise draws from U[0, 1) although the reference's comment
 says N(0, 1), scaled by the square root of a linearly annealed variance;
 noisy labels are Gaussian-perturbed, then clamped to [0, 1]. The numbers
 differ from JAX's for the same seed: tests feed both sides the same noise
-or turn it off.
+or turn it off. The label values and the noise scale may be 0-d tensors,
+which a captured CUDA graph reads when it is replayed.
 """
 
 from __future__ import annotations
@@ -26,9 +27,13 @@ def noisy_labels(is_real: bool, batch_size: int, noise_stddev: float = 0.05,
     return torch.clamp(base + noise * noise_stddev, lower, upper)
 
 
-def instance_noise(sigma_base: float, shape, it: int, niter: float,
-                   device=None, generator: Optional[torch.Generator] = None):
-    """U[0, 1) · sqrt(σ_base · (1 − (it − 1)/niter)), annealed to zero."""
-    u = torch.rand(shape, generator=generator, device=device)
-    var = sigma_base * (1.0 - (it - 1.0) / niter)
-    return u * math.sqrt(max(var, 0.0))
+def instance_noise_scale(sigma_base: float, it: int, niter: float) -> float:
+    """sqrt(σ_base · (1 − (it − 1)/niter)), annealed to zero."""
+    return math.sqrt(max(sigma_base * (1.0 - (it - 1.0) / niter), 0.0))
+
+
+def instance_noise(scale, shape, device=None,
+                   generator: Optional[torch.Generator] = None):
+    """U[0, 1) · ``scale`` (``instance_noise_scale``, a float or a 0-d
+    tensor)."""
+    return torch.rand(shape, generator=generator, device=device) * scale

@@ -317,6 +317,23 @@ def test_prefetch_copies_batches_and_raises_producer_errors():
         next(it)
 
 
+def test_prefetch_close_stops_the_producer():
+    """A consumer that stops early (the loop at niter) closes the
+    prefetcher: the producer, blocked on a full queue, ends and drops the
+    batches it copied ahead, and the consumer's waits were timed."""
+    def endless():
+        while True:
+            yield np.zeros((2, 3))
+
+    it = prefetch_to_device(endless(), "cpu")
+    next(it)
+    assert it.wait_s >= 0.0
+    it.close()
+    assert not it._thread.is_alive()
+    with pytest.raises(StopIteration):
+        next(it)
+
+
 def test_download_branch_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="downloader"):
         preprocess(_cfg(True, tmp_path), synthetic=False)

@@ -423,3 +423,118 @@ def test_hr_head_grads_match_autograd_on_card(cuda_device, monkeypatch,
         grads.append([v.grad for v in leaves])
     for got, want in zip(*grads):
         assert _rel(got, want) <= 1e-4
+
+
+def _graph_cfg(head: bool):
+    """The tiny training configuration of ``tests/_torch_tiny.py`` (the
+    fused trunk and the stencils on), with dropout, instance noise, grad
+    clipping and an EMA, built without JAX; with ``head`` the HR-head
+    kernel in every G forward."""
+    from gan_sr_wind_field_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.scale = 4
+    cfg.compute_dtype = "float32"
+    cfg.use_fused_trunk = True
+    cfg.use_pallas_stencil = True
+    cfg.use_pallas_head = head
+    g = cfg.gan_config
+    g.include_pressure = False
+    g.include_z_channel = True
+    g.number_of_z_layers = 4
+    g.enable_slicing = True
+    g.slice_size = 16
+    G = cfg.generator
+    G.num_features, G.num_RRDB, G.num_RDB_convs = 8, 1, 3
+    G.RDB_growth_chan, G.hr_kern_size = 4, 3
+    G.terrain_number_of_features = 4
+    G.dropout_probability = 0.1
+    cfg.discriminator.num_features = 4
+    cfg.discriminator.dropout_probability = 0.1
+    t = cfg.training
+    t.niter, t.d_g_train_period, t.d_g_train_ratio = 100, 2, 1
+    t.learning_rate_g = t.learning_rate_d = 1e-3
+    t.use_instance_noise = True
+    t.use_one_sided_label_smoothing = True
+    t.use_grad_clipping = True
+    t.g_ema_decay = 0.999
+    return cfg
+
+
+def _clone_state(state):
+    from gan_sr_wind_field_tpu_torch.train.gan import AdamState
+
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    trees = {t: None if getattr(state, t) is None
+             else {k: v.clone() for k, v in getattr(state, t).items()}
+             for t in ("params_G", "params_D", "batch_stats_D",
+                       "params_D_frozen", "params_G_ema")}
+    opts = {o: AdamState(getattr(state, o).count.clone(),
+                         {k: v.clone() for k, v in getattr(state, o).mu.items()},
+                         {k: v.clone() for k, v in getattr(state, o).nu.items()})
+            for o in ("opt_state_G", "opt_state_D")}
+    return type(state)(**trees, **opts, it=state.it, rng=rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [False, True])
+def test_captured_steps_equal_eager_steps_on_card(cuda_device, monkeypatch,
+                                                  head):
+    """``train_chunk`` over six iterations (G, D, D, G, G, D: each kind
+    warmed up and captured on its first use, then replayed, 4 replays)
+    against six eager ``train_step``s on the same batches, float32 with
+    cuDNN's deterministic algorithms and no TF32 (else two eager runs
+    differ too): every tree, the generator's state and the metrics equal,
+    and each graph's launches those of one eager step of its kind."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+    from gan_sr_wind_field_tpu_torch.train.step_graphs import launch_counts
+
+    coords = torch.arange(32, dtype=torch.float32) * 150
+    gan = WindFieldGAN(_graph_cfg(head), coords[:16], coords[:16],
+                       device=cuda_device)
+    state = gan.init_state(0, (2, 4, 4, 4, 4), (2, 16, 16, 4, 3))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    full = torch.rand((3, 32, 32, 4, 4), generator=gen, device=cuda_device)
+    zraw = torch.cumsum(1.0 + torch.rand((3, 32, 32, 4, 1), generator=gen,
+                                         device=cuda_device), dim=3) * 10
+    kw = dict(batch_size=2, patch=16, patch_y=16, cf=4, enable_slicing=True)
+    eager = _clone_state(state)
+    before = launch_counts()
+    state, metrics = gan.train_chunk(state, full, zraw, 5, n_steps=6,
+                                     augment=True, **kw)
+    torch.cuda.synchronize()
+    chunk_launches = tuple(a - b for a, b in zip(launch_counts(), before))
+    graphs = gan._graphs
+    assert graphs.replays == 4 and sorted(graphs.graphs) == [False, True]
+    per_step = {}
+    for _ in range(6):
+        kind = gan.is_g_step(eager.it + 1)
+        c0 = launch_counts()
+        eager, want = gan.train_step(
+            eager, *batch_at(full, zraw, 5, eager.it, **kw), augment=True)
+        per_step[kind] = tuple(a - b for a, b in zip(launch_counts(), c0))
+    torch.cuda.synchronize()
+    for kind, (_, _, captured) in graphs.graphs.items():
+        assert captured == per_step[kind], kind
+    assert chunk_launches == tuple(3 * g + 3 * d for g, d in
+                                   zip(per_step[True], per_step[False]))
+    assert per_step[True][:4] == (1, 1, 2, 1)
+    assert per_step[True][4] == per_step[False][4] == int(head)
+    assert state.it == eager.it == 6
+    assert torch.equal(state.rng.get_state(), eager.rng.get_state())
+    pairs = [(f"{t}/{k}", v, getattr(eager, t)[k])
+             for t in ("params_G", "params_D", "batch_stats_D",
+                       "params_G_ema") for k, v in getattr(state, t).items()]
+    for o in ("opt_state_G", "opt_state_D"):
+        mine, theirs = getattr(state, o), getattr(eager, o)
+        pairs.append((f"{o}.count", mine.count, theirs.count))
+        pairs += [(f"{o}.{m}/{k}", v, getattr(theirs, m)[k])
+                  for m in ("mu", "nu") for k, v in getattr(mine, m).items()]
+    pairs += [(f"metrics/{k}", v, want[k]) for k, v in metrics.items()]
+    differ = [(n, _rel(a, b)) for n, a, b in pairs if not torch.equal(a, b)]
+    assert differ == []

@@ -19,6 +19,7 @@ import json
 import os
 import re
 import signal
+import threading
 
 import jax
 import numpy as np
@@ -94,7 +95,7 @@ def _copy_state(state: GANTrainState) -> GANTrainState:
                 else {k: v.clone() for k, v in tree.items()})
     for name in ("opt_state_G", "opt_state_D"):
         o = getattr(state, name)
-        setattr(out, name, type(o)(o.count,
+        setattr(out, name, type(o)(o.count.clone(),
                                    {k: v.clone() for k, v in o.mu.items()},
                                    {k: v.clone() for k, v in o.nu.items()}))
     out.rng = rng
@@ -371,6 +372,16 @@ def test_sigterm_checkpoints_and_exits(tmp_path, monkeypatch):
                         state)
 
 
+def test_host_data_path_stops_its_producer(tmp_path):
+    """The host path (``device_resident_data`` off) ends its prefetch
+    thread with the leg: before, the producer stayed blocked on its full
+    queue after ``train`` returned, holding the batches it had copied."""
+    before = set(threading.enumerate())
+    state = _train(loop_cfg(True, tmp_path, niter=2))
+    assert state.it == 2
+    assert [t for t in threading.enumerate() if t not in before] == []
+
+
 def test_train_loop_arms_and_stops_watchdog(tmp_path, monkeypatch):
     created = []
 
@@ -414,10 +425,41 @@ def test_cli_trains_in_process(tmp_path):
     assert "it 4 G_total" in (tmp_path / "log" / "status.log").read_text()
 
 
+@pytest.mark.parametrize("steps,chunk,end", [
+    (12, 1, 10),  # per step: stops at iteration 10's boundary
+    (12, 4, 10),  # chunks of 4 to 8, then single steps to the window's end
+    (6, 1, 6),    # the leg ends first: the trace is written at its end
+])
+def test_cli_profile_writes_a_trace(tmp_path, steps, chunk, end):
+    """``--profile``: a torch.profiler window from the leg's start to the
+    first boundary at or after 10 iterations, written as a Chrome/Perfetto
+    trace into the run's TensorBoard folder, as JAX writes its trace."""
+    cfg = loop_cfg(True, tmp_path, niter=steps)
+    cfg.name = "profiled"
+    cfg.device_resident_data = chunk > 1
+    cfg.steps_per_dispatch = chunk
+    cfg.also_log_to_terminal = False
+    ini = str(tmp_path / "tiny.ini")
+    cfg.save(ini)
+    state = run.main(["--cfg", ini, "--train", "--synthetic",
+                      "--synthetic_hours", str(HOURS), "--synthetic_size",
+                      str(SIZE), "--device", "cpu", "--profile"])
+    assert state.it == steps
+    (name,) = os.listdir(tmp_path / "tensorboard_log")
+    folder = tmp_path / "tensorboard_log" / name
+    traces = [n for n in os.listdir(folder) if n.endswith(".pt.trace.json")]
+    assert traces == [f"profile_it0-{end}.pt.trace.json"]
+    with open(folder / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    status = (tmp_path / "log" / "status.log").read_text()
+    assert f"profile of it 0 -> {end} written to" in status
+
+
 @pytest.mark.parametrize("flag", [["--serve_int8", "4"],
                                   ["--serve_int8_trunk", "4"],
                                   ["--download"], ["--param_search"],
-                                  ["--export", "x"], ["--profile"]])
+                                  ["--export", "x"]])
 def test_cli_flags_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run.main(["--train", "--synthetic", "--device", "cpu"] + flag)

@@ -14,8 +14,15 @@ import numpy as np
 import pytest
 
 from gan_sr_wind_field_tpu.eval.serve import WindFieldSR as JaxWindFieldSR
+from gan_sr_wind_field_tpu.eval.serve import (
+    _cosine_window as jax_cosine_window,
+)
 from gan_sr_wind_field_tpu.train.gan import WindFieldGAN
-from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+from gan_sr_wind_field_tpu_torch.eval.serve import (
+    WindFieldSR,
+    _cosine_window,
+    _tiling,
+)
 from gan_sr_wind_field_tpu_torch.eval.server import MicroBatcher, serve
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
 from test_train_step import tiny_cfg
@@ -139,3 +146,74 @@ def test_tiled_upscale_via_matches_jax_copy():
     want = jax_tiled(submit_many, lr, z, 4, tile=4, overlap=1)
     assert got.shape == (40, 28, 4, 3)
     np.testing.assert_array_equal(got, want)
+
+
+def _field(rng, X, Y):
+    """One LR field (X, Y, 4, 4) and its terrain at 4x."""
+    lr = rng.standard_normal((X, Y, 4, 4)).astype(np.float32)
+    z = rng.standard_normal((4 * X, 4 * Y, 4, 1)).astype(np.float32)
+    return lr, z
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 16, 64])
+def test_cosine_window_matches_jax(n):
+    np.testing.assert_array_equal(_cosine_window(n), jax_cosine_window(n))
+
+
+@pytest.mark.parametrize("X,Y,tile,overlap,batch", [
+    (10, 7, 4, 2, 1),   # 12 tiles, one at a time
+    (10, 7, 4, 2, 4),   # 3 batches of 4
+    (9, 9, 4, 2, 4),    # 16 tiles, the last origins clamped
+    (6, 11, 4, 1, 3),   # a last batch padded under a zero mask
+    (4, 4, 4, 2, 4),    # the tile covers the field: one upscale
+    (3, 10, 4, 2, 2),   # a side smaller than the tile: tile 3, overlap 2
+    (3, 10, 4, 3, 2),   # ... whose overlap no longer fits: overlap 0
+])
+def test_upscale_tiled_matches_jax(pair, X, Y, tile, overlap, batch):
+    jax_sr, port_sr = pair
+    lr, z = _field(np.random.default_rng(X * 100 + Y), X, Y)
+    got = port_sr.upscale_tiled(lr, z, tile=tile, overlap=overlap,
+                                batch=batch)
+    want = np.asarray(jax_sr.upscale_tiled(lr, z, tile=tile,
+                                           overlap=overlap, batch=batch))
+    assert got.dtype == np.float32 and got.shape == (4 * X, 4 * Y, 4, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 4, 5])
+def test_upscale_tiled_is_the_host_loop(pair, batch):
+    """The device pipeline against ``_upscale_tiled_host`` on the same
+    tiles: the same forwards, blended in another place."""
+    _, port_sr = pair
+    lr, z = _field(np.random.default_rng(batch), 11, 9)
+    tile, win, coords = _tiling(11, 9, 4, 2, batch, port_sr.scale)
+    want = port_sr._upscale_tiled_host(lr, z, coords, tile, batch, win)
+    got = port_sr.upscale_tiled(lr, z, tile=4, overlap=2, batch=batch)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_upscale_physical_tiled_matches_jax(pair):
+    jax_sr, port_sr = pair
+    rng = np.random.default_rng(5)
+    lr_uvw = rng.standard_normal((9, 6, 4, 3)).astype(np.float32) * 8
+    z = np.cumsum(rng.random((36, 24, 4)).astype(np.float32) * 50, axis=2)
+    kw = dict(tiled=True, tile=4, overlap=2, batch=3)
+    got = port_sr.upscale_physical(lr_uvw, z, **kw)
+    want = np.asarray(jax_sr.upscale_physical(lr_uvw, z, **kw))
+    assert got.shape == (36, 24, 4, 3)
+    # the model-space tolerance of test_upscale_tiled_matches_jax, in m/s
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * STATS["uvw_max"])
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(tile=4, overlap=4), "overlap"),
+    (dict(tile=4, overlap=6), "overlap"),
+    (dict(tile=4, overlap=1, batch=0), "batch"),
+])
+def test_upscale_tiled_rejects_what_jax_rejects(pair, kw, match):
+    jax_sr, port_sr = pair
+    lr, z = _field(np.random.default_rng(6), 8, 8)
+    for sr in (jax_sr, port_sr):
+        with pytest.raises(ValueError, match=match):
+            sr.upscale_tiled(lr, z, **kw)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: serve, train and evaluate the
 full-width 4x generator on one NVIDIA card through the hand-written CUDA
-kernels, train in chunks of CUDA graphs and SR a field of any extent.
+kernels, train in chunks of CUDA graphs, SR a field of any extent, and
+deploy it: int8 serving, the torch.export artifact, interpolation.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -53,7 +54,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      launch count rises by what one step predicts (no head launches);
      then the same on a copy with use_pallas_head, after its G step's
      gradients against the module head's (<= 2e-2);
-  6. CUDA-event times (1 warm-up, 5 repeats): the serving forward at batch
+  6. CUDA-event times (1 warm-up, 5 repeats; 2 for a call over 0.2 s):
+     the serving forward at batch
      8 with each layer alone, the trunk kernel, its plain version and a
      bf16 cuDNN chain; at batch 32 the G and D steps with their parts
      (the rest of the G step split into its layers, D, losses and Adam),
@@ -99,7 +101,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1e-3 relative L2 where the card's step is not deterministic);
   8. evaluate, use and serve what the port trains, in phase 7's temporary
      directory on its data: pack_from_state of the live state at 6016 in
-     float32 and bf16, read back bit for bit (bf16: the state rounded by
+     float32 and bf16 (in two threads, beside the rest of phase 8), read
+     back bit for bit (bf16: the state rounded by
      torch); WindFieldSR.from_checkpoint(ckpt_6016) serves a batch of 8
      (one trunk launch), equal bit for bit to gan.generate with the
      state's EMA, and eval/server.py's main with --checkpoint builds the
@@ -139,6 +142,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      standard deviation <= 0.25, JAX's bound), then a 512x512x10 field
      (121 tiles, 16 batches) with the module head and through kernel 5,
      its ms, HR voxels/s and one trunk (and head) launch per batch.
+  10. deploy what the port trains, in phase 7's temporary directory on
+     its data with a copy of configs/test_milestone6k.ini and the 6k pack:
+     (a) the int8 conv kernel (conv_int8.cu): its ptxas report and IMMA
+     count (0 fails), bit for bit against its plain version (float64
+     F.conv3d) at each full-width shape it serves (the head's main conv
+     5x5x5 128->128 and remainder 1x1x5 128->400 at batch 8, HR
+     64x64x10; the last growth conv 224->32 and an LFF 256->128 with bias
+     at LR 16x16x10), each timed beside its bound; whether F.conv3d takes
+     int8 on the card; the head's two launches at batch 8 and 32 beside
+     their bound at 1979 TOPS, their plain version, bf16 cuDNN of
+     hr_conv0_x and kernel 5; (b) run.py --serve 0 --serve_int8 8
+     --serve_int8_trunk 8 (its main, with eval.server.serve replaced to
+     keep the backend) calibrates on the first 8 test fields; one batch
+     of 8 other test fields through the exact bf16 path, the int8 head,
+     the int8 trunk and both, within JAX's 2e-2 / 3e-2 / 4e-2 relative L2
+     of the exact path, their PSNR against it, their launches as
+     predicted (trunk kernel / conv_int8: (1, 0), (1, 2), (0, 240), (0,
+     242)), and each path's serving ms at batch 8 and 32 beside kernel
+     5's; (c) run.py --use --export writes the artifact (bytes, export
+     seconds); eval/server.py --artifact builds its ExportedSR on the
+     card (seconds); at batch 1 and 8 it is within 1e-5 of WindFieldSR's
+     plain path and 3e-2 of the kernel path, launching no kernel; its
+     serving ms beside the kernel path's; a subprocess importing only
+     torch, json and struct runs the payload (1e-5); (d) eval.interp
+     blends the 9k and 6k packs: alpha 1 and 0 reproduce each pack's
+     generator tensor by tensor, alpha 0.5 writes an artifact that
+     serves a finite batch within 1e-5 of the blend's plain path.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -183,6 +213,7 @@ TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
 TC_MMA = {"rdb_trunk": "mma.sync", "rdb_trunk_bwd": "mma.sync",
           "hr_head": "wgmma"}
 TURN_ROUNDS = 3
+LONG_CALL_S = 0.2  # see cuda_ms
 # the card's names of kernels 3 and 4 (substrings of the profiler's keys)
 STENCIL_KERNELS = {"gradient": "grad_fwd", "adjoint": "grad_adj"}
 # the scratch read before a cold-L2 launch: 128 MiB, over twice the L2
@@ -236,10 +267,16 @@ def card_line():
 
 
 def cuda_ms(fn, reps=5):
+    """Mean CUDA-event ms of ``reps`` calls after one warm-up; a call whose
+    warm-up took over LONG_CALL_S gets at most 2 repeats (the smoke's
+    time limit; the spread of such calls is about 1 %)."""
     import torch
 
+    t0 = time.monotonic()
     fn()  # warm-up
     torch.cuda.synchronize()
+    if time.monotonic() - t0 > LONG_CALL_S:
+        reps = min(reps, 2)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -352,9 +389,9 @@ def ptxas_reports(log_text):
 
 
 def sass_mma_counts(lib_path):
-    """{kernel name: [HMMA, HGMMA] instruction counts} in a built library,
-    from cuobjdump -sass of the toolkit that built it; None without
-    cuobjdump."""
+    """{kernel name: [HMMA, HGMMA, IMMA] instruction counts} in a built
+    library, from cuobjdump -sass of the toolkit that built it; None
+    without cuobjdump."""
     from gan_sr_wind_field_tpu_torch.ops.kernels import build
 
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -367,11 +404,11 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = [0, 0]
+            out[fn] = [0, 0, 0]
         elif fn:
-            hit = re.search(r"\bH(G)?MMA\b", line)
+            hit = re.search(r"\b(H|HG|I)MMA\b", line)
             if hit:
-                out[fn][hit.group(1) is not None] += 1
+                out[fn][("H", "HG", "I").index(hit.group(1))] += 1
     return out
 
 
@@ -413,11 +450,23 @@ def counters():
 
 
 def reset_counters():
-    from gan_sr_wind_field_tpu_torch.ops import hr_head, rdb_trunk, stencil
+    from gan_sr_wind_field_tpu_torch.ops import (
+        conv_int8,
+        hr_head,
+        rdb_trunk,
+        stencil,
+    )
 
     rdb_trunk.launches = rdb_trunk.bwd_launches = 0
     stencil.launches = stencil.adjoint_launches = 0
     hr_head.launches = 0
+    conv_int8.launches = 0
+
+
+def int8_launches():
+    from gan_sr_wind_field_tpu_torch.ops import conv_int8
+
+    return conv_int8.launches
 
 
 def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2,
@@ -2212,30 +2261,47 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
         params_from_jax,
     )
 
-    # 1. the pack of the live state, read back
+    # 1. the pack of the live state, written in two threads (zlib, the
+    # bulk of a write, runs without the GIL) while steps 2 to 5 run; read
+    # back before step 6 times anything
+    from concurrent.futures import ThreadPoolExecutor
+
     want = {"G": state.params_G, "Gema": state.params_G_ema,
             "D": {**state.params_D, **state.batch_stats_D}}
-    for store in ("float32", "bfloat16"):
-        t = time.monotonic()
-        path = pack_from_state(os.path.join(tmp, f"pack_{store}.npz"), state,
-                               store_dtype=store)
-        secs = time.monotonic() - t
-        pack = load_continuation(path)
-        got = {"G": params_from_jax(pack["params_G"]),
-               "Gema": params_from_jax(pack["params_G_ema"]),
-               "D": d_params_from_jax(pack["params_D"],
-                                      pack["batch_stats_D"])}
-        exact = {}
-        for tree, ref in want.items():
-            exact[tree] = sorted(got[tree]) == sorted(ref) and all(
-                torch.equal(got[tree][k], v.cpu() if store == "float32"
-                            else v.cpu().to(torch.bfloat16).float())
-                for k, v in ref.items())
-        log(f"  pack_from_state(it {state.it}) in {store}: "
-            f"{os.path.getsize(path)} bytes in {secs:.3f} s; read back "
-            f"bit for bit {exact}, it {pack['it']}")
-        if not all(exact.values()) or pack["it"] != state.it:
-            fail(f"the {store} pack does not read back as the state")
+
+    def write(store):
+        t0 = time.monotonic()
+        out = pack_from_state(os.path.join(tmp, f"pack_{store}.npz"), state,
+                              store_dtype=store)
+        return out, time.monotonic() - t0
+
+    t_packs = time.monotonic()
+    pool = ThreadPoolExecutor(max_workers=2)
+    writes = {store: pool.submit(write, store)
+              for store in ("float32", "bfloat16")}
+    pool.shutdown(wait=False)
+
+    def check_packs():
+        for store, future in writes.items():
+            path, secs = future.result()
+            pack = load_continuation(path)
+            got = {"G": params_from_jax(pack["params_G"]),
+                   "Gema": params_from_jax(pack["params_G_ema"]),
+                   "D": d_params_from_jax(pack["params_D"],
+                                          pack["batch_stats_D"])}
+            exact = {}
+            for tree, ref in want.items():
+                exact[tree] = sorted(got[tree]) == sorted(ref) and all(
+                    torch.equal(got[tree][k], v.cpu() if store == "float32"
+                                else v.cpu().to(torch.bfloat16).float())
+                    for k, v in ref.items())
+            log(f"  pack_from_state(it {state.it}) in {store}: "
+                f"{os.path.getsize(path)} bytes in {secs:.3f} s; read back "
+                f"bit for bit {exact}, it {pack['it']}")
+            if not all(exact.values()) or pack["it"] != state.it:
+                fail(f"the {store} pack does not read back as the state")
+        log(f"  the two packs written beside steps 2-5, done "
+            f"{time.monotonic() - t_packs:.3f} s after their start")
 
     # 2. serve ckpt_6016: from_checkpoint, and the server's --checkpoint
     run_cfg = os.path.join(os.path.dirname(ckpt_path), "config.ini")
@@ -2365,6 +2431,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     if len(dumps) != TEST_FIELDS:
         fail(f"--use wrote {len(dumps)} dumps")
 
+    check_packs()
     # 6. times of one full-volume generate, module head and head kernel
     per_field = {}
     for label, probe in (("module head", raw_probe),
@@ -2698,6 +2765,486 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
 
 
 
+# phase 10: deploy what the port trains, in phase 7's temporary directory
+# on its data, with a copy of configs/test_milestone6k.ini and the 6k pack:
+# (a) the int8 conv kernel against its plain version at every shape it
+# serves at full width, and the head's two launches timed; (b) int8
+# serving through run.py --serve_int8 / --serve_int8_trunk; (c) the
+# torch.export artifact through run.py --use --export and eval/server.py
+# --artifact; (d) eval.interp on the 9k and 6k packs
+PACK_9K = os.path.join(REPO, "docs", "evidence",
+                       "milestone9k_continuation_9000.npz")
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
+# JAX's own bounds on int8 serving against the exact path, relative L2
+# (tests/test_quant.py:156, tests/test_quant_trunk.py:153,160)
+INT8_TOL = {"int8 head": 2e-2, "int8 trunk": 3e-2, "both": 4e-2}
+# the JAX package's int8 head against its exact path on a TPU, in dB
+# (gan_sr_wind_field_tpu/ops/quant.py:26): model quality, not speed
+JAX_INT8_PSNR_DB = 67.7
+EXPORT_PLAIN_TOL = 1e-5   # the artifact against the same aten ops
+EXPORT_KERNEL_TOL = 3e-2  # against the kernel path: phase 4's bound
+
+
+def int8_calls(cfg, n):
+    """The int8 kernel's calls at the full width of ``cfg``, batch n: the
+    head's main conv and its remainder on the HR grid, the trunk's last
+    growth conv and an LFF on the LR grid; each (label, (n, X, Y, Z), ci,
+    co, k, padding, bias)."""
+    g, G = cfg.gan_config, cfg.generator
+    hr, zl, k = g.slice_size, g.number_of_z_layers, G.hr_kern_size
+    lr = hr // cfg.scale
+    nf, gc, K = G.num_features, G.RDB_growth_chan, G.num_RDB_convs - 1
+    C = nf + G.terrain_number_of_features
+    cm, p = C // 128 * 128, (k - 1) // 2
+    rem = k * k * (C - cm)
+    return [
+        (f"head main {k}x{k}x{k} {nf}->{cm}", (n, hr, hr, zl), nf, cm,
+         (k, k, k), (p, p, p), False),
+        (f"head remainder 1x1x{k} {nf}->{rem}", (n, hr, hr, zl), nf, rem,
+         (1, 1, k), (0, 0, p), False),
+        (f"growth 3x3x3 {nf + gc * (K - 1)}->{gc}", (n, lr, lr, zl),
+         nf + gc * (K - 1), gc, (3, 3, 3), (1, 1, 1), False),
+        (f"LFF 1x1x1 {nf + gc * K}->{nf} + bias", (n, lr, lr, zl),
+         nf + gc * K, nf, (1, 1, 1), (0, 0, 0), True),
+    ]
+
+
+def int8_inputs(dev, call, seed):
+    """Seeded int8 input and weights in [-127, 127], scales of a served
+    model's size and, where the call has one, a bias, on the card."""
+    import torch
+
+    _, shape, ci, co, k, _, bias = call
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, (*shape, ci), dtype=torch.int8,
+                       device=dev, generator=gen)
+    wq = torch.randint(-127, 128, (*k, ci, co), dtype=torch.int8,
+                       device=dev, generator=gen)
+    s = torch.rand(co, device=dev, generator=gen) * 1e-4 + 1e-6
+    b = torch.randn(co, device=dev, generator=gen) if bias else None
+    return xq, wq, s, b
+
+
+def int8_work(calls):
+    """(int8 operations, bytes) of calls on one input as one function:
+    the input read once, each call's weights, scales and bias read once,
+    each float32 output written once."""
+    _, shape, ci = calls[0][:3]
+    rows = math.prod(shape)
+    ops = sum(2 * rows * co * ci * math.prod(k)
+              for _, _, ci, co, k, _, _ in calls)
+    nbytes = rows * ci + sum(
+        math.prod(k) * ci * co + 4 * co * (2 if b else 1) + 4 * rows * co
+        for _, _, ci, co, k, _, b in calls)
+    return ops, nbytes
+
+
+def psnr_db(got, ref):
+    """PSNR of got against ref over ref's range, as the JAX package's
+    probe computes it (scripts/probe_quant_serve.py:68-71)."""
+    import numpy as np
+
+    mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
+    return 10 * math.log10(float(ref.max() - ref.min()) ** 2
+                           / max(mse, 1e-30))
+
+
+def check_int8_kernel(cfg, dev, card, built):
+    """Phase 10 (a): the kernel's ptxas report and IMMA count; bit for bit
+    against its plain version at the four full-width shapes, each timed
+    beside its bound; the probe of F.conv3d on int8; the head's two
+    launches together at batch 8 and 32 beside their bound, their plain
+    version, bf16 cuDNN of hr_conv0_x (the conv they replace) and kernel
+    5. Returns (largest error, {batch: (ms, plain_ms, bound, library_ms,
+    kernel-5 ms)})."""
+    import torch
+    import torch.nn.functional as F
+
+    from gan_sr_wind_field_tpu_torch.models.blocks import conv3d_cl
+    from gan_sr_wind_field_tpu_torch.ops import conv_int8
+    from gan_sr_wind_field_tpu_torch.ops.hr_head import (
+        hr_head_conv,
+        pack_head_weights,
+    )
+
+    path, _, report = built["conv_int8"]
+    for fn, lines in ptxas_reports(report).items():
+        log(f"  conv_int8 {fn} ptxas: {'; '.join(lines)}")
+    sass = sass_mma_counts(path)
+    if sass is None:
+        log("  conv_int8: cuobjdump not found, no SASS count")
+    else:
+        imma = sum(c[2] for c in sass.values())
+        log(f"  conv_int8: {imma} IMMA instructions in its SASS")
+        if imma == 0:
+            fail("conv_int8 has no int8 tensor-core instruction in its SASS")
+    max_err = 0.0
+    for i, call in enumerate(int8_calls(cfg, 8)):
+        label, shape, _, _, _, pad, _ = call
+        xq, wq, s, b = int8_inputs(dev, call, 2010 + i)
+        got = conv_int8.conv3d_int8(xq, wq, pad, s, b)
+        want = conv_int8.conv3d_int8_reference(xq, wq, pad, s, b)
+        err = (got - want).abs().max().item()
+        exact = torch.equal(got, want)
+        packed = conv_int8.pack_conv_int8(wq)
+        ms = cuda_ms(lambda: conv_int8.conv3d_int8(xq, wq, pad, s, b,
+                                                   packed=packed))
+        ops, nbytes = int8_work([call])
+        bd = bound(ops, nbytes, H100_INT8_OPS)
+        log(f"  {label} at {shape}: bit for bit {exact} (max abs "
+            f"{err:.1e}); kernel {ms:.3f} ms, bound {bd[0]:.4f} ms by "
+            f"{bd[1]} ({100 * bd[0] / ms:.1f} %), {ops / ms / 1e9:.1f} "
+            f"TOP/s ({card})")
+        if not exact:
+            fail(f"conv_int8 disagrees with its plain version at {label}")
+        max_err = max(max_err, err)
+        del xq, wq, got, want, packed
+    probe = torch.zeros((1, 32, 4, 4, 4), dtype=torch.int8, device=dev)
+    try:
+        F.conv3d(probe, torch.zeros((32, 32, 3, 3, 3), dtype=torch.int8,
+                                    device=dev), padding=1)
+        torch.cuda.synchronize()
+        library_int8 = "accepted"
+    except RuntimeError as e:
+        library_int8 = f"refused ({str(e).splitlines()[0][:100]})"
+    log(f"  F.conv3d on int8 CUDA tensors, torch {torch.__version__}: "
+        f"{library_int8}")
+
+    G = cfg.generator
+    nf, tc, k = (G.num_features, G.terrain_number_of_features,
+                 G.hr_kern_size)
+    gen = torch.Generator(device=dev).manual_seed(2012)
+    head = {}
+    for n in (8, 32):
+        calls = int8_calls(cfg, n)[:2]
+        ins = [int8_inputs(dev, c, 2020 + n + i) for i, c in enumerate(calls)]
+        xq = ins[0][0]  # the two launches read one input
+        packs = [conv_int8.pack_conv_int8(v[1]) for v in ins]
+
+        def pair():
+            for c, (_, wq, s, b), pk in zip(calls, ins, packs):
+                conv_int8.conv3d_int8(xq, wq, c[5], s, b, packed=pk)
+
+        def plain():
+            for c, (_, wq, s, b) in zip(calls, ins):
+                conv_int8.conv3d_int8_reference(xq, wq, c[5], s, b)
+
+        ms = cuda_ms(pair)
+        plain_ms = cuda_ms(plain, reps=1)
+        ops, nbytes = int8_work(calls)
+        bd = bound(ops, nbytes, H100_INT8_OPS)
+        shape = calls[0][1]
+        xb = torch.randn((*shape, nf), device=dev, generator=gen).to(
+            torch.bfloat16)
+        tb = torch.randn((*shape, tc), device=dev, generator=gen).to(
+            torch.bfloat16)
+        wx = (torch.randn((nf + tc, nf, k, k, k), device=dev, generator=gen)
+              * 0.01).to(torch.bfloat16)
+        wt = (torch.randn((nf + tc, tc, k, k, k), device=dev, generator=gen)
+              * 0.01).to(torch.bfloat16)
+        with torch.inference_mode():
+            lib_ms = cuda_ms(lambda: conv3d_cl(xb, wx, (k - 1) // 2),
+                             reps=5 if n == 8 else 3)
+            packed5 = pack_head_weights(wx, wt, torch.bfloat16, dev)
+            k5_ms = cuda_ms(lambda: hr_head_conv(packed5, xb, tb, k=k))
+        head[n] = (ms, plain_ms, bd, lib_ms, k5_ms)
+        log(f"int8 head's two launches at batch {n} ({ops:.4e} int8 ops): "
+            f"kernel {ms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]} "
+            f"({100 * bd[0] / ms:.1f} %), plain {plain_ms:.3f} ms; the "
+            f"conv they replace, hr_conv0_x in bf16 cuDNN, {lib_ms:.3f} "
+            f"ms; kernel 5 (the whole bf16 head) {k5_ms:.3f} ms ({card})")
+        del xq, ins, packs, xb, tb, wx, wt, packed5
+        torch.cuda.empty_cache()
+    return max_err, head
+
+
+def deploy_phase(dev, card, tmp, built):
+    """Phase 10: (a) ``check_int8_kernel``; (b) run.py --serve 0
+    --serve_int8 8 --serve_int8_trunk 8 (its main in process, with
+    eval.server.serve replaced to keep the backend) calibrates on the
+    first 8 test fields, then one batch of 8 other test fields through
+    the exact path, the int8 head, the int8 trunk and both, each held to
+    JAX's bound with its launches as predicted, and each path's serving
+    ms at batch 8 and 32 beside kernel 5's; (c) run.py --use --export, the
+    artifact's bytes and seconds, eval/server.py --artifact's backend
+    against the plain path and the kernel path at batch 1 and 8 and
+    timed, and a torch-only subprocess that runs the payload; (d)
+    eval.interp (its command line in another process, started before (b)):
+    the endpoints reproduce each pack, alpha 0.5 serves."""
+    from gan_sr_wind_field_tpu_torch.config import load_config
+
+    cfg = load_config(TEST_CFG)
+    log(f"deploy: int8 conv kernel at {os.path.basename(TEST_CFG)}'s full "
+        f"width ({card})")
+    max_err, head = check_int8_kernel(cfg, dev, card, built)
+
+    # (d) starts first: eval.interp's command line in another process, on
+    # the card, while (b) and (c) run here
+    ini = test_copy(tmp, "deploy")
+    blend = os.path.join(tmp, "blend.wsrx")
+    t_interp = time.monotonic()
+    interp_proc = subprocess.Popen(
+        [sys.executable, "-m", "gan_sr_wind_field_tpu_torch.eval.interp",
+         "--cfg", ini, "--gan", PACK_9K, "--psnr", PACK_6K, "--alpha",
+         "0.5", "--out", blend, "--device", str(dev)], cwd=REPO,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        return _deploy(dev, card, tmp, cfg, ini, blend, interp_proc,
+                       t_interp, max_err, head)
+    finally:
+        if interp_proc.poll() is None:
+            interp_proc.kill()
+            interp_proc.wait()
+
+
+def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
+            max_err, head):
+    """Phase 10 (b) to (d), beside the running eval.interp process."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval import interp, server
+    from gan_sr_wind_field_tpu_torch.eval.export import (
+        ExportedSR,
+        load_exported,
+        read_header,
+    )
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+
+    # (b) int8 serving through the command line
+    cwd = os.path.join(tmp, "cwd_deploy")
+    os.makedirs(cwd, exist_ok=True)
+    kept = {}
+    real_serve, real_pre = server.serve, run.preprocess
+
+    def keep_data(*a, **kw):
+        kept["data"] = real_pre(*a, **kw)
+        return kept["data"]
+
+    server.serve = lambda backend, **kw: kept.update(backend=backend)
+    run.preprocess = keep_data
+    old = os.getcwd()
+    t = time.monotonic()
+    try:
+        os.chdir(cwd)
+        run.main(["--cfg", ini, "--serve", "0", "--serve_int8", "8",
+                  "--serve_int8_trunk", "8", "--synthetic", *LEG_DATA])
+    finally:
+        os.chdir(old)
+        server.serve, run.preprocess = real_serve, real_pre
+    sr = kept.pop("backend")
+    ds_test = kept.pop("data")[1]
+    log(f"  run.py --serve 0 --serve_int8 8 --serve_int8_trunk 8: "
+        f"calibrated on the first {min(8, len(ds_test))} of "
+        f"{len(ds_test)} test fields, "
+        f"backend ready in {time.monotonic() - t:.3f} s wall")
+    if sr.qhead is None or sr.qtrunk is None:
+        fail("--serve_int8[_trunk] did not calibrate the served backend")
+    rng = np.random.default_rng(2013)
+    # 8 other test fields, each cut to the training patch at its centre
+    n_test = len(ds_test)
+    fields = [ds_test.get((8 + i) % n_test, rng) for i in range(8)]
+    p = cfg.gan_config.slice_size // cfg.scale
+    o = (fields[0][0].shape[0] - p) // 2
+    lr = np.stack([f[0][o:o + p, o:o + p] for f in fields])
+    s = cfg.scale
+    z = np.stack([f[2][s * o:s * (o + p), s * o:s * (o + p)]
+                  for f in fields])
+    qh, qt = sr.qhead, sr.qtrunk
+    paths = {"bf16 module head": (None, None), "int8 head": (qh, None),
+             "int8 trunk": (None, qt), "both": (qh, qt)}
+    J = 3 * cfg.generator.num_RRDB
+    per_trunk = J * cfg.generator.num_RDB_convs
+    want_launches = {"bf16 module head": (1, 0), "int8 head": (1, 2),
+                     "int8 trunk": (0, per_trunk),
+                     "both": (0, per_trunk + 2)}
+    outs = {}
+    reset_counters()
+    for name, (h, q) in paths.items():
+        sr.qhead, sr.qtrunk = h, q
+        before = (counters()[0], counters()[4], int8_launches())
+        outs[name] = sr.upscale(lr, z)
+        got = (counters()[0] - before[0], int8_launches() - before[2])
+        log(f"  {name}: served 8 test fields at LR {lr.shape[1:4]}; "
+            f"launches trunk kernel / conv_int8 {got}, predicted "
+            f"{want_launches[name]}; head kernel "
+            f"{counters()[4] - before[1]}")
+        if got != want_launches[name] or counters()[4] != before[1]:
+            fail(f"{name} launched {got}")
+        if not np.isfinite(outs[name]).all():
+            fail(f"{name} served a non-finite output")
+    serve_int8 = int8_launches()
+    exact = outs["bf16 module head"]
+    for name, tol in INT8_TOL.items():
+        err = rel_l2(torch.from_numpy(outs[name]), torch.from_numpy(exact))
+        log(f"  {name} vs the exact bf16 path: PSNR "
+            f"{psnr_db(outs[name], exact):.1f} dB (the JAX package's int8 "
+            f"head on a TPU: {JAX_INT8_PSNR_DB} dB)")
+        check(f"{name} vs the exact bf16 path", err, tol)
+    hcfg = load_config(ini)
+    hcfg.use_pallas_head_nograd = True
+    sr_h = WindFieldSR(hcfg, sr.G.state_dict(), device=dev)
+    lr_d, z_d = (torch.from_numpy(v).to(dev) for v in (lr, z))
+    lr32, z32 = (torch.cat([v] * 4) for v in (lr_d, z_d))
+    serve_ms = {}
+    for n, (lb, zb) in ((8, (lr_d, z_d)), (32, (lr32, z32))):
+        reps = 5 if n == 8 else 1
+        for name, (h, q) in paths.items():
+            sr.qhead, sr.qtrunk = h, q
+            serve_ms[(name, n)] = cuda_ms(lambda: sr._generate(lb, zb),
+                                          reps=reps)
+        serve_ms[("kernel 5", n)] = cuda_ms(lambda: sr_h._generate(lb, zb),
+                                            reps=reps)
+        log(f"  serving at batch {n}: " + ", ".join(
+            f"{name} {serve_ms[(name, n)]:.3f} ms" for name in
+            (*paths, "kernel 5")) + f" ({card})")
+    # the served backend, back on the exact path: the 6k pack's EMA
+    # generator, as --use and --export take it
+    sr.dequantize()
+    sr6 = sr
+    del sr, sr_h, lr32, z32, outs
+    torch.cuda.empty_cache()
+
+    # (c) the artifact: run.py --use --export, eval/server.py --artifact
+    art = os.path.join(tmp, "gen.wsrx")
+    real_export = run.export_generator
+    timing = {}
+
+    def timed_export(*a, **kw):
+        t0 = time.monotonic()
+        out = real_export(*a, **kw)
+        timing["export"] = time.monotonic() - t0
+        return out
+
+    run.export_generator = timed_export
+    try:
+        os.chdir(cwd)
+        run.main(["--cfg", ini, "--use", "--export", art, "--synthetic",
+                  *LEG_DATA])
+    finally:
+        os.chdir(old)
+        run.export_generator = real_export
+    header = read_header(art)
+    if header["format_version"] != 2 or "norm_stats" not in header:
+        fail(f"the artifact's header is {header}")
+    # the payload with torch alone, in another process, while this goes on
+    check_out = os.path.join(tmp, "torch_only.pt")
+    code = (
+        "import json, struct, sys, torch\n"
+        "from torch.export.passes import move_to_device_pass\n"
+        "f = open(sys.argv[1], 'rb')\n"
+        "assert f.read(4) == b'WSRX'\n"
+        "(n,) = struct.unpack('<I', f.read(4))\n"
+        "h = json.loads(f.read(n))\n"
+        "dev = sys.argv[3]\n"
+        "m = move_to_device_pass(torch.export.load(f), dev).module()\n"
+        "g = torch.Generator().manual_seed(2014)\n"
+        "lr = torch.randn(2, *h['lr_shape'][1:], generator=g)\n"
+        "z = torch.rand(2, *h['z_shape'][1:], generator=g)\n"
+        "with torch.inference_mode():\n"
+        "    torch.save(m(lr.to(dev), z.to(dev)).cpu(), sys.argv[2])\n"
+        "bad = [k for k in sys.modules if k.startswith('gan_sr')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code, art, check_out,
+                             str(dev)],
+                            cwd=tmp, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        t = time.monotonic()
+        server.serve = lambda backend, **kw: kept.update(backend=backend,
+                                                         **kw)
+        try:
+            server.main(["--artifact", art, "--port", "0"])
+        finally:
+            server.serve = real_serve
+        load_s = time.monotonic() - t
+        ex = kept.pop("backend")
+        log(f"  run.py --use --export: {os.path.getsize(art)} bytes, "
+            f"exported in {timing['export']:.3f} s; eval/server.py "
+            f"--artifact built its {type(ex).__name__} backend in "
+            f"{load_s:.3f} s (tile {kept['tile']}, overlap "
+            f"{kept['tile_overlap']})")
+        if not isinstance(ex, ExportedSR) or ex.device.type != dev.type:
+            fail("eval/server.py --artifact built no ExportedSR on the card")
+        for n in (1, 8):
+            reset_counters()
+            got = torch.from_numpy(ex.upscale(lr[:n], z[:n]))
+            with torch.inference_mode():
+                plain = sr6.G(lr_d[:n], z_d[:n]).cpu()
+            if counters() != (0, 0, 0, 0, 0) or int8_launches():
+                fail(f"the artifact or the plain path launched "
+                     f"{counters()}")
+            check(f"artifact at batch {n} vs WindFieldSR's plain path",
+                  rel_l2(got, plain), EXPORT_PLAIN_TOL)
+            check(f"artifact at batch {n} vs the kernel path",
+                  rel_l2(got, torch.from_numpy(sr6.upscale(lr[:n], z[:n]))),
+                  EXPORT_KERNEL_TOL)
+        with torch.inference_mode():
+            art_ms = cuda_ms(lambda: ex._module(lr_d, z_d))
+            kern_ms = cuda_ms(lambda: sr6._generate(lr_d, z_d))
+        log(f"  serving at batch 8: artifact {art_ms:.3f} ms, kernel path "
+            f"{kern_ms:.3f} ms ({card})")
+
+        # (d) network interpolation of the two committed packs
+        sr9 = WindFieldSR.from_continuation(load_config(ini), PACK_9K,
+                                            device=dev)
+        p9, p6 = sr9.G.state_dict(), sr6.G.state_dict()
+        for alpha, want in ((1.0, p9), (0.0, p6)):
+            got = interp.blend_params(p9, p6, alpha)
+            same = all(torch.equal(got[k], v) for k, v in want.items())
+            log(f"  blend_params(9k, 6k, {alpha}) equals the "
+                f"{'9k' if alpha else '6k'} pack's generator tensor by "
+                f"tensor: {same}")
+            if not same:
+                fail(f"alpha {alpha} does not reproduce its pack")
+        interp_out, _ = interp_proc.communicate(timeout=TIMEOUT_S * 5)
+        interp_s = time.monotonic() - t_interp
+        if interp_proc.returncode != 0:
+            fail(f"eval.interp failed:\n{interp_out}")
+        log(f"  {interp_out.strip().splitlines()[-1]}")
+        exb = load_exported(blend, device=dev)
+        got = torch.from_numpy(exb.upscale(lr, z))
+        mid = WindFieldSR(load_config(ini),
+                          interp.blend_params(p9, p6, 0.5), device=dev)
+        with torch.inference_mode():
+            plain = mid.G(lr_d, z_d).cpu()
+        log(f"  eval.interp --alpha 0.5 (another process, beside (b) and "
+            f"(c)): {os.path.getsize(blend)} bytes, done {interp_s:.3f} s "
+            f"after its start; served 8 fields, finite "
+            f"{bool(torch.isfinite(got).all())}")
+        if not torch.isfinite(got).all():
+            fail("the blended artifact served a non-finite output")
+        check("blended artifact vs WindFieldSR's plain path on the blend",
+              rel_l2(got, plain), EXPORT_PLAIN_TOL)
+        del sr9, mid, exb, p9, p6
+        # the torch-only subprocess, against this process on its inputs
+        out, _ = proc.communicate(timeout=TIMEOUT_S)
+        if proc.returncode != 0:
+            fail(f"the torch-only subprocess failed:\n{out}")
+        gen = torch.Generator().manual_seed(2014)
+        lr2 = torch.randn(2, *header["lr_shape"][1:], generator=gen)
+        z2 = torch.rand(2, *header["z_shape"][1:], generator=gen)
+        with torch.inference_mode():
+            want = ex._module(lr2.to(dev), z2.to(dev)).cpu()
+        check("the payload run by torch alone in a subprocess vs "
+              "ExportedSR", rel_l2(torch.load(check_out), want),
+              EXPORT_PLAIN_TOL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    del ex, sr6
+    torch.cuda.empty_cache()
+    return dict(max_err=max_err, head=head, launches=serve_int8,
+                serve_ms=serve_ms, artifact_ms=art_ms, kernel_path_ms=kern_ms,
+                export_s=timing["export"], load_s=load_s,
+                artifact_bytes=os.path.getsize(art))
+
+
 def main():
     import torch
 
@@ -2934,6 +3481,8 @@ def main():
         torch.cuda.empty_cache()
         # --------------------------------- 9. chunks, host path, tiled SR
         ch = chunk_phase(dev, card, tmp, leg_ms, ev.pop("field"))
+        # ------------------------ 10. int8 serving, export, interpolation
+        dp = deploy_phase(dev, card, tmp, built)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2993,6 +3542,25 @@ def main():
             library_ms_b32_benchmark_on=th[32][5],
             backward_library_ms_b32=th["vjp"], mma=TC_MMA["hr_head"],
             sass_mma_count=mma_counts["hr_head"]),
+        # the port's own kernel: the JAX package's int8 convs are XLA
+        {"name": "conv_int8", "route": "cuda",
+         "source": f"{CSRC}/conv_int8.cu",
+         "replaces": "gan_sr_wind_field_tpu/ops/quant.py:87",
+         "replaces_kind": "XLA int8 conv_general_dilated, no Pallas kernel",
+         "launches": dp["launches"], "max_abs_err": dp["max_err"],
+         "ms": dp["head"][8][0], "plain_ms": dp["head"][8][1],
+         "bound_ms": dp["head"][8][2][0], "bound_by": dp["head"][8][2][1],
+         "library_ms": dp["head"][8][3],
+         "library": "bf16 cuDNN hr_conv0_x, the conv the head's two "
+                    "launches replace",
+         "ms_b32": dp["head"][32][0], "plain_ms_b32": dp["head"][32][1],
+         "bound_ms_b32": dp["head"][32][2][0],
+         "library_ms_b32": dp["head"][32][3],
+         "kernel5_ms": dp["head"][8][4], "kernel5_ms_b32": dp["head"][32][4],
+         "serving_ms": {f"{name} b{n}": ms
+                        for (name, n), ms in dp["serve_ms"].items()},
+         "artifact_ms": dp["artifact_ms"],
+         "kernel_path_ms": dp["kernel_path_ms"], "mma": "mma.sync s8"},
     ]}
     log(f"total {time.monotonic() - T0:.1f} s")
     log(json.dumps(table))

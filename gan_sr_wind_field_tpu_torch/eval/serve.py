@@ -22,6 +22,12 @@ each batch of tiles is cut on the device, run through the same forward and
 blended into float32 accumulators there, and the blended volume is
 downloaded once. The HTTP server tiles through its micro-batcher instead
 (``server.py:tiled_upscale_via``), so that tiles batch with other traffic.
+
+``quantize`` and ``quantize_trunk`` calibrate the int8 serving paths
+(``ops/quant.py``, ``ops/quant_trunk.py``, through the port's int8 conv
+kernel) on representative LR fields; every later ``upscale``,
+``upscale_tiled`` and ``upscale_physical`` runs the quantized forward until
+``dequantize``. Both are opt-in, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,11 +43,22 @@ from gan_sr_wind_field_tpu_torch.data.transform import (
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     generate_fused,
+    head_features_fused,
     head_kernel_flags,
+    trunk_input_features,
 )
 from gan_sr_wind_field_tpu_torch.models.generator import generator_from_config
 from gan_sr_wind_field_tpu_torch.ops.hr_head import pack_head_weights
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
+from gan_sr_wind_field_tpu_torch.ops.quant import (
+    head_input_amax,
+    quantize_split_head,
+    scales_from_amax,
+)
+from gan_sr_wind_field_tpu_torch.ops.quant_trunk import (
+    quantize_trunk as _quantize_trunk,
+)
+from gan_sr_wind_field_tpu_torch.ops.quant_trunk import trunk_reference_amax
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     trunk_fusable,
@@ -90,6 +107,8 @@ class WindFieldSR:
             build.warm((["rdb_trunk"] if self.packed is not None else [])
                        + (["hr_head"] if self.head_packed is not None
                           else []))
+        self.qhead = None   # set by quantize()
+        self.qtrunk = None  # set by quantize_trunk()
 
     @classmethod
     def from_continuation(cls, cfg, path: str, use_ema: bool = True,
@@ -126,8 +145,90 @@ class WindFieldSR:
             params = state.params_G
         return cls(cfg, params, device=device, norm_stats=norm_stats)
 
+    def _check_quantizable(self) -> None:
+        """The precondition JAX ``_generate_q`` raises on: the trunk-kernel
+        path (``use_fused_trunk`` and a geometry the kernel takes)."""
+        if not (getattr(self.cfg, "use_fused_trunk", False)
+                and self.packed is not None):
+            raise ValueError(
+                "quantized serving needs the single-device fused-trunk "
+                "path (use_fused_trunk=True, a geometry the trunk kernel "
+                "takes)")
+
+    def _calibration_chunks(self, calib_lr, batch: int):
+        """calib_lr (n, x, y, zl, C) or one field, on the device in chunks
+        of ``batch``, the last padded with copies of its last field (the
+        abs-max ignores duplicates)."""
+        calib_lr = np.asarray(calib_lr, np.float32)
+        if calib_lr.ndim == 4:
+            calib_lr = calib_lr[None]
+        for i in range(0, calib_lr.shape[0], batch):
+            chunk = calib_lr[i:i + batch]
+            if chunk.shape[0] < batch:
+                pad = batch - chunk.shape[0]
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+            yield torch.from_numpy(chunk).to(self.device)
+
+    @torch.inference_mode()
+    def quantize(self, calib_lr, batch: int = 8):
+        """Calibrate and turn on the int8 HR-head serving path
+        (``ops/quant.py``): per-channel abs-max of hr_conv0's input over
+        ``calib_lr`` (representative LR fields, (n, x, y, zl, C); the input
+        depends on LR alone), in padded batches of ``batch``. Later
+        forwards run hr_conv0's x-part in int8 (two launches of the int8
+        conv kernel) and keep the trunk kernel; the HR-head kernel is off
+        while it is on. ``dequantize()`` returns to the exact path.
+        Raises ValueError without the trunk-kernel path."""
+        self._check_quantizable()
+        amax = None
+        for chunk in self._calibration_chunks(calib_lr, batch):
+            a = head_input_amax(
+                head_features_fused(self.G, chunk, self.packed)).cpu().numpy()
+            amax = a if amax is None else np.maximum(amax, a)
+        wx = self.G.hr_conv0_x.weight.detach().float().permute(2, 3, 4, 1, 0)
+        self.qhead = quantize_split_head(wx, scales_from_amax(amax))
+        if self.device.type == "cuda":
+            build.warm(["conv_int8"])
+        return self.qhead
+
+    @torch.inference_mode()
+    def quantize_trunk(self, calib_lr, batch: int = 8):
+        """Calibrate and turn on the int8 trunk serving path
+        (``ops/quant_trunk.py``), with ``quantize``'s calibration contract:
+        the abs-max of every tensor the int8 trunk quantizes, from the
+        float32 trunk with plain convs on the trunk's input. Composes with
+        ``quantize``. Raises ValueError without the trunk-kernel path."""
+        self._check_quantizable()
+        G = self.G
+        params = {k: v.detach() for k, v in G.state_dict().items()}
+        geom = dict(num_rrdb=G.num_rrdb, num_convs=G.num_rdb_convs,
+                    lff_kern=G.lff_kern_size,
+                    rdb_scale=G.rdb_residual_scaling,
+                    rrdb_scale=G.rrdb_residual_scaling,
+                    negative_slope=G.negative_slope)
+        ax = ac = None
+        for chunk in self._calibration_chunks(calib_lr, batch):
+            _, a_x, a_c = trunk_reference_amax(
+                params, trunk_input_features(G, chunk), **geom)
+            a_x, a_c = a_x.cpu().numpy(), a_c.cpu().numpy()
+            ax = a_x if ax is None else np.maximum(ax, a_x)
+            ac = a_c if ac is None else np.maximum(ac, a_c)
+        self.qtrunk = _quantize_trunk(params, torch.from_numpy(ax),
+                                      torch.from_numpy(ac), **geom)
+        if self.device.type == "cuda":
+            build.warm(["conv_int8"])
+        return self.qtrunk
+
+    def dequantize(self) -> None:
+        """Back to the exact serving forward."""
+        self.qhead = None
+        self.qtrunk = None
+
     @torch.inference_mode()
     def _generate(self, lr: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        if self.qhead is not None or self.qtrunk is not None:
+            return generate_fused(self.G, lr, z, self.packed,
+                                  qhead=self.qhead, qtrunk=self.qtrunk)
         if self.packed is None:
             return self.G(lr, z)
         return generate_fused(self.G, lr, z, self.packed, self.head_packed,

@@ -27,6 +27,11 @@ Serve a continuation pack, or a checkpoint of a port run, on the card:
         --port 8000 --warmup 1,8
     python -m gan_sr_wind_field_tpu_torch.eval.server \
         --cfg <the run's config.ini> --checkpoint <the run>/ckpt_6016
+
+or an exported artifact (``eval/export.py``), with no config:
+
+    python -m gan_sr_wind_field_tpu_torch.eval.server \
+        --artifact generator.wsrx [--tile 16 --tile-overlap 4]
 """
 
 from __future__ import annotations
@@ -598,9 +603,12 @@ def main(argv=None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(
-        description="Serve a trained generator over HTTP"
+        description="Serve a trained generator, or an exported artifact, "
+                    "over HTTP"
     )
-    p.add_argument("--cfg", required=True, help="generator INI config")
+    p.add_argument("--cfg", default=None,
+                   help="generator INI config (with --continuation or "
+                        "--checkpoint)")
     weights = p.add_mutually_exclusive_group(required=True)
     weights.add_argument("--continuation",
                          help="continuation pack (.npz) holding the weights")
@@ -608,6 +616,9 @@ def main(argv=None) -> int:
                          help="a port checkpoint folder (ckpt_{it}) of a "
                               "run of this configuration; its EMA slot is "
                               "preferred, as in the pack")
+    weights.add_argument("--artifact",
+                         help="a .wsrx file from run.py --export or "
+                              "eval.interp, served with no config")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     p.add_argument("--host", default="0.0.0.0")
@@ -617,37 +628,58 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", metavar="B1,B2,...", default="",
                    help="run the forward at these batch sizes before "
                         "accepting traffic")
+    p.add_argument("--tile", type=int, default=0,
+                   help="/v1/upscale_tiled tile in LR pixels; default the "
+                        "training patch (an artifact's static LR extent, "
+                        "the only one it runs)")
+    p.add_argument("--tile-overlap", type=int, default=None,
+                   help="/v1/upscale_tiled overlap in LR pixels; default a "
+                        "quarter of the tile")
     args = p.parse_args(argv)
+    if (args.cfg is None) == (args.artifact is None):
+        p.error("--artifact serves without --cfg; --continuation and "
+                "--checkpoint need it")
 
     from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.export import load_exported
     from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
 
-    cfg = load_config(args.cfg)
-    weights = args.continuation or args.checkpoint
-    if args.continuation:
-        backend = WindFieldSR.from_continuation(cfg, args.continuation,
-                                                device=args.device)
+    weights = args.continuation or args.checkpoint or args.artifact
+    if args.artifact:
+        backend = load_exported(args.artifact, device=args.device)
+        lr_shape = tuple(backend.header["lr_shape"][1:])
+        z_shape = tuple(backend.header["z_shape"][1:])
     else:
-        # serving reads no coordinates: they feed the training losses only
-        coords = np.arange(cfg.gan_config.slice_size, dtype=np.float32)
-        backend = WindFieldSR.from_checkpoint(
-            cfg, args.checkpoint, coords, coords, device=args.device)
-    g = cfg.gan_config
-    tile = (g.slice_size if g.enable_slicing else 64) // cfg.scale
+        cfg = load_config(args.cfg)
+        if args.continuation:
+            backend = WindFieldSR.from_continuation(cfg, args.continuation,
+                                                    device=args.device)
+        else:
+            # serving reads no coordinates: they feed the training losses
+            coords = np.arange(cfg.gan_config.slice_size, dtype=np.float32)
+            backend = WindFieldSR.from_checkpoint(
+                cfg, args.checkpoint, coords, coords, device=args.device)
+        g = cfg.gan_config
+        lr_tile = (g.slice_size if g.enable_slicing else 64) // cfg.scale
+        zl = g.number_of_z_layers
+        lr_shape = (lr_tile, lr_tile, zl, cfg.lr_num_channels)
+        z_shape = (lr_tile * cfg.scale, lr_tile * cfg.scale, zl, 1)
+    tile = args.tile if args.tile > 0 else int(lr_shape[0])
+    overlap = (args.tile_overlap if args.tile_overlap is not None
+               else tile // 4)
     if args.warmup:
         import logging
 
         logging.basicConfig(level=logging.INFO)
-        hr = tile * cfg.scale
-        zl = g.number_of_z_layers
-        warmup(backend, (tile, tile, zl, cfg.lr_num_channels),
-               (hr, hr, zl, 1), [int(b) for b in args.warmup.split(",")],
+        warmup(backend, lr_shape, z_shape,
+               [int(b) for b in args.warmup.split(",")],
                log=logging.getLogger("windsr-serve"))
     print(f"serving {weights} (scale {backend.scale}) on "
-          f"{args.host}:{args.port} ({backend.device})", flush=True)
+          f"{args.host}:{args.port} ({backend.device}, tile {tile})",
+          flush=True)
     serve(backend, host=args.host, port=args.port,
           max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-          block=True, tile=tile, tile_overlap=tile // 4)
+          block=True, tile=tile, tile_overlap=overlap)
     return 0
 
 

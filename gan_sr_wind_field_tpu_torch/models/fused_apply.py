@@ -12,6 +12,12 @@ lr_conv and the long skip, upsampling convs, terrain branch and hr_conv1)
 are plain ``F.conv3d`` calls; the JAX package's lane tricks for them
 (split_hr_out, tap-stacked hr_conv1) are the same math and need no
 counterpart here.
+
+Serving may swap in calibrated int8: ``qhead`` runs hr_conv0's x-part as
+``ops/quant.py:split_head_conv_int8`` (the terrain part stays exact), and
+``qtrunk`` the trunk as ``ops/quant_trunk.py:trunk_int8_apply``.
+``trunk_input_features`` and ``head_features_fused`` are their calibration
+probes.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from gan_sr_wind_field_tpu_torch.models.blocks import (
     dropout_scale,
 )
 from gan_sr_wind_field_tpu_torch.ops.hr_head import hr_head
+from gan_sr_wind_field_tpu_torch.ops.quant import split_head_conv_int8
+from gan_sr_wind_field_tpu_torch.ops.quant_trunk import trunk_int8_apply
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     rrdb_trunk,
@@ -33,14 +41,20 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_nearest_xy
 
 
-def _head_features(G, lr: torch.Tensor, z_terrain: torch.Tensor,
-                   trunk_fn: Callable):
-    """The generator up to, not including, hr_conv0: the HR-resolution
-    features x and the terrain features t, both channels-last."""
+def _x_features(G, lr: torch.Tensor, trunk_fn: Callable) -> torch.Tensor:
+    """The HR-resolution features that enter hr_conv0's x-part."""
     x = G.feature_conv(lr.to(G.dtype))
     x = x + G.lr_conv(trunk_fn(x))  # long skip connection
     for up in G.upconvs:
         x = up(upsample_nearest_xy(x, 2))
+    return x
+
+
+def _head_features(G, lr: torch.Tensor, z_terrain: torch.Tensor,
+                   trunk_fn: Callable):
+    """The generator up to, not including, hr_conv0: the HR-resolution
+    features x and the terrain features t, both channels-last."""
+    x = _x_features(G, lr, trunk_fn)
     t = G.terrain_conv1(G.terrain_conv0(z_terrain.to(G.dtype)))
     return x, t
 
@@ -49,7 +63,8 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                       trunk_fn: Callable, train: bool = False,
                       dropout_mask: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      head_fn: Optional[Callable] = None) -> torch.Tensor:
+                      head_fn: Optional[Callable] = None,
+                      qhead=None) -> torch.Tensor:
     """Generator forward with a pluggable trunk; returns float32
     (N, x·s, y·s, zl, out_channels). With ``train`` and a dropout
     probability p > 0, whole channels after lrelu(hr_conv0) are dropped:
@@ -57,10 +72,20 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
     keep probability 1 − p from ``generator`` when not given. ``head_fn``
     (x, t, scale) -> h, when given, computes hr_conv0, its LeakyReLU and
     the dropout scale (N, C) or None in one (``kernel_head_fn``); the same
-    channels are drawn from the same generator either way."""
+    channels are drawn from the same generator either way. ``qhead`` (a
+    ``QuantizedHead``, serving only: it raises under ``train``) computes
+    hr_conv0's x-part in int8, the terrain part exactly, and leaves
+    ``head_fn`` unused."""
+    if qhead is not None and train:
+        raise ValueError("int8 head quantization is a serving-only option "
+                         "(the terrain part stays exact)")
     x, t = _head_features(G, lr, z_terrain, trunk_fn)
     p = G.dropout_probability if train else 0.0
-    if head_fn is None:
+    if qhead is not None:
+        cx = split_head_conv_int8(x, qhead, (G.hr_kern_size - 1) // 2,
+                                  out_dtype=G.dtype)
+        x = F.leaky_relu(cx + G.hr_conv0_t(t), G.negative_slope)
+    elif head_fn is None:
         x = F.leaky_relu(G.hr_conv0_x(x) + G.hr_conv0_t(t), G.negative_slope)
         if p > 0.0:
             x = channel_dropout(x, p, dropout_mask, generator)
@@ -119,14 +144,39 @@ def kernel_trunk_fn(G, packed: Optional[dict] = None) -> Callable:
     return trunk_fn
 
 
+def int8_trunk_fn(G, qtrunk) -> Callable:
+    """The trunk as ``trunk_int8_apply`` of the calibrated ``qtrunk``."""
+    return lambda x: trunk_int8_apply(qtrunk, x, out_dtype=G.dtype)
+
+
 def generate_fused(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                    packed: Optional[dict] = None,
                    head_packed: Optional[torch.Tensor] = None,
-                   head: bool = False) -> torch.Tensor:
+                   head: bool = False, qhead=None,
+                   qtrunk=None) -> torch.Tensor:
     """``G.forward`` with the trunk kernel, and with ``head`` the HR-head
     kernel. ``packed`` is ``pack_trunk_weights(G.rrdbs, G.dtype)`` and
     ``head_packed`` ``pack_head_weights`` of G's hr_conv0 weights, both on
-    lr's device; pass them to skip repacking on every call."""
+    lr's device; pass them to skip repacking on every call. ``qtrunk``
+    swaps the trunk kernel for the int8 trunk, ``qhead`` hr_conv0's x-part
+    (and the HR-head kernel, as in the JAX package) for the int8 head."""
+    trunk_fn = (int8_trunk_fn(G, qtrunk) if qtrunk is not None
+                else kernel_trunk_fn(G, packed))
+    use_head = head and qhead is None
     return generator_forward(
-        G, lr, z_terrain, kernel_trunk_fn(G, packed),
-        head_fn=kernel_head_fn(G, head_packed) if head else None)
+        G, lr, z_terrain, trunk_fn,
+        head_fn=kernel_head_fn(G, head_packed) if use_head else None,
+        qhead=qhead)
+
+
+def trunk_input_features(G, lr: torch.Tensor) -> torch.Tensor:
+    """feature_conv's output, the trunk's input (the int8 trunk's
+    calibration probe)."""
+    return G.feature_conv(lr.to(G.dtype))
+
+
+def head_features_fused(G, lr: torch.Tensor,
+                        packed: Optional[dict] = None) -> torch.Tensor:
+    """The features x that enter hr_conv0's x-part, with the trunk kernel
+    (the int8 head's calibration probe: x depends on lr alone)."""
+    return _x_features(G, lr, kernel_trunk_fn(G, packed))

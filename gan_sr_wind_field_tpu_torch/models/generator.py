@@ -27,6 +27,7 @@ from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.blocks import ConvLReLU, RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     generator_forward,
+    int8_trunk_fn,
     kernel_head_fn,
 )
 from gan_sr_wind_field_tpu_torch.models.fused_train import trainable_trunk_fn
@@ -96,7 +97,8 @@ class Generator3D(nn.Module):
                 train: bool = False, trunk: str = "modules",
                 head: str = "modules",
                 dropout_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                qhead=None, qtrunk=None):
         """lr: (N, x, y, zl, C_in); z_terrain: (N, x·s, y·s, zl, 1).
         ``trunk`` picks how the RRDB trunk runs: "modules" (the RRDB
         modules, autograd through them) or "kernel" (the trunk kernels,
@@ -106,19 +108,24 @@ class Generator3D(nn.Module):
         run: "modules" or "kernel" (the HR-head kernel,
         ``models/fused_apply.py:kernel_head_fn``). ``train`` turns on
         channel dropout, with ``dropout_mask`` or drawn from
-        ``generator``."""
-        if trunk == "modules":
-            trunk_fn = self.trunk
-        elif trunk == "kernel":
-            trunk_fn = trainable_trunk_fn(self)
-        else:
+        ``generator``. Serving's calibrated int8 replaces the trunk
+        (``qtrunk``, whatever ``trunk`` says) and hr_conv0's x-part
+        (``qhead``, which turns the head kernel off)."""
+        if trunk not in ("modules", "kernel"):
             raise ValueError(f"unknown trunk {trunk!r}")
         if head not in ("modules", "kernel"):
             raise ValueError(f"unknown head {head!r}")
+        if qtrunk is not None:
+            trunk_fn = int8_trunk_fn(self, qtrunk)
+        elif trunk == "modules":
+            trunk_fn = self.trunk
+        else:
+            trunk_fn = trainable_trunk_fn(self)
+        use_head = head == "kernel" and qhead is None
         return generator_forward(
             self, lr, z_terrain, trunk_fn, train=train,
             dropout_mask=dropout_mask, generator=generator,
-            head_fn=kernel_head_fn(self) if head == "kernel" else None)
+            head_fn=kernel_head_fn(self) if use_head else None, qhead=qhead)
 
 
 def _act_slope(act_type: str) -> float:

@@ -10,7 +10,12 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
 - ``--test [--test_ema]``: the held-out test chain (``eval/test_loop.py``);
 - ``--use [--no_ema]``: the SR field dumps of the test split;
 - ``--serve PORT [--serve_warmup B1,B2] [--serve_strict_shapes]
-  [--no_ema]``: the micro-batching HTTP server (``eval/server.py``).
+  [--no_ema] [--serve_int8 N] [--serve_int8_trunk N]``: the
+  micro-batching HTTP server (``eval/server.py``), with ``--serve_int8``
+  / ``--serve_int8_trunk`` the int8 serving head / trunk calibrated on N
+  test fields first;
+- ``--export PATH [--no_ema]``: the ``torch.export`` serving artifact
+  (``eval/export.py``), alone or beside ``--use`` and ``--serve``.
 
 ::
 
@@ -20,7 +25,7 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
     python -m gan_sr_wind_field_tpu_torch.run --test --synthetic \\
         --synthetic_hours 240 --synthetic_size 128 --cfg <config.ini>
 
-``--test``, ``--use`` and ``--serve`` take their weights from
+``--test``, ``--use``, ``--serve`` and ``--export`` take their weights from
 ``env.generator_load_path``: a continuation pack (``.npz``) or a port
 checkpoint folder (``ckpt_{it}``). Each mode runs on the card;
 ``--device cpu`` runs the plain PyTorch path on the CPU instead, and
@@ -37,11 +42,13 @@ import logging
 import os
 import time
 
+import numpy as np
 import torch
 
 from gan_sr_wind_field_tpu_torch.config import Config
 from gan_sr_wind_field_tpu_torch.data import preprocess
 from gan_sr_wind_field_tpu_torch.device import resolve_device
+from gan_sr_wind_field_tpu_torch.eval.export import export_generator
 from gan_sr_wind_field_tpu_torch.eval.test_loop import run_test, run_use
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
@@ -51,9 +58,6 @@ from gan_sr_wind_field_tpu_torch.utils.logging import setup_loggers
 _SEARCH = "the hyperparameter search (search/, ASHA)"
 # run.py's other flags: their defaults and what they need
 _NOT_PORTED = {
-    "export": (None, "eval/export.py"),
-    "serve_int8": (0, "quantization (ops/quant.py)"),
-    "serve_int8_trunk": (0, "quantization (ops/quant_trunk.py)"),
     "download": (False, "data/downloader.py (no network: use --synthetic)"),
     "param_search": (False, _SEARCH), "num_samples": (250, _SEARCH),
     "asha_grace": (1200, _SEARCH), "asha_eta": (3, _SEARCH),
@@ -87,6 +91,17 @@ def argv_to_cfg(argv=None):
                    help="with --serve: reject /v1/upscale requests whose "
                         "LR sample shape differs from the training patch; "
                         "other extents go through /v1/upscale_tiled")
+    p.add_argument("--serve_int8", metavar="N", type=int, default=0,
+                   help="with --serve: calibrate the int8 HR-head serving "
+                        "path over N test samples before serving "
+                        "(ops/quant.py; needs the trunk-kernel path)")
+    p.add_argument("--serve_int8_trunk", metavar="N", type=int, default=0,
+                   help="with --serve: calibrate the int8 trunk serving "
+                        "path over N test samples (ops/quant_trunk.py)")
+    p.add_argument("--export", metavar="PATH", default=None,
+                   help="write the generator as a self-contained "
+                        "torch.export artifact at PATH (eval/export.py); "
+                        "loads weights like --use")
     p.add_argument("--synthetic", action="store_true",
                    help="use analytic synthetic data (the only source "
                         "the port has)")
@@ -117,8 +132,10 @@ def argv_to_cfg(argv=None):
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} is not ported: it needs {needs} (see ROADMAP.md)")
-    if not (args.train or args.test or args.use or args.serve is not None):
-        p.error("nothing to do: pass --train, --test, --use or --serve")
+    if not (args.train or args.test or args.use or args.export
+            or args.serve is not None):
+        p.error("nothing to do: pass --train, --test, --use, --export or "
+                "--serve")
 
     cfg = Config.from_ini(args.cfg)
     cfg.is_train = args.train
@@ -148,7 +165,7 @@ def setup_env_and_cfg(cfg):
 
 
 def deployment_state(cfg, gan: WindFieldGAN, no_ema: bool, status):
-    """The state ``--use`` and ``--serve`` run: the weights of
+    """The state ``--use``, ``--serve`` and ``--export`` run: the weights of
     ``env.generator_load_path`` (``ckpt.load_generator_state``), or random
     ones, with a warning, where none is set; then the EMA slot in G's
     place where there is one, unless ``no_ema``."""
@@ -171,7 +188,8 @@ def deployment_state(cfg, gan: WindFieldGAN, no_ema: bool, status):
 def main(argv=None):
     """Run the mode the command line asks for; → the final training state
     (``--train``), the test averages (``--test``), the state whose G was
-    run (``--use``) or the stopped server (``--serve``)."""
+    run (``--use``), the artifact's header (``--export`` alone) or the
+    stopped server (``--serve``)."""
     cfg, args = argv_to_cfg(argv)
     device = resolve_device(args.device)
     log_dir = setup_env_and_cfg(cfg)
@@ -201,19 +219,37 @@ def main(argv=None):
 
     state = deployment_state(cfg, WindFieldGAN(cfg, x, y, device=device),
                              args.no_ema, status)
+    g = cfg.gan_config
+    patch = g.slice_size if g.enable_slicing else len(x)
+    lr_tile = patch // cfg.scale
+    header = None
+    if args.export:
+        header = export_generator(cfg, state.params_G, args.export,
+                                  lr_size=(lr_tile, lr_tile),
+                                  norm_stats=ds_test.stats)
+        status.info(f"exported generator -> {args.export} "
+                    f"(platforms {header['platforms']}, "
+                    f"lr_shape {header['lr_shape']})")
     if cfg.is_use:
         run_use(cfg, ds_test, x, y, state=state, device=device)
-        if args.serve is None:
-            return state
+    if args.serve is None:
+        return state if cfg.is_use else header
     from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
     from gan_sr_wind_field_tpu_torch.eval.server import serve, warmup
 
     sr = WindFieldSR(cfg, state.params_G, device=device,
                      norm_stats=ds_test.stats)
     del state
-    g = cfg.gan_config
-    patch = g.slice_size if g.enable_slicing else len(x)
-    lr_tile = patch // cfg.scale
+    for n_calib, quantize, part in (
+            (args.serve_int8, sr.quantize, "head"),
+            (args.serve_int8_trunk, sr.quantize_trunk, "trunk")):
+        if n_calib > 0:
+            rng_np = np.random.default_rng(0)
+            n = min(n_calib, len(ds_test))
+            quantize(np.stack([ds_test.get(i, rng_np)[0]
+                               for i in range(n)]))
+            status.info(f"int8 serving {part} calibrated over {n} test "
+                        f"samples")
     lr_shape = (lr_tile, lr_tile, g.number_of_z_layers, cfg.lr_num_channels)
     if args.serve_warmup:
         warmup(sr, lr_shape, (patch, patch, g.number_of_z_layers, 1),

@@ -333,6 +333,23 @@ class WindFieldGAN:
         return self._g_forward_nograd(state.params_G, self._as_input(lr),
                                       self._as_input(z))
 
+    def generate_quantized(self, params_G: Params, qhead, lr, z,
+                           qtrunk=None) -> torch.Tensor:
+        """Serving forward of ``params_G`` with the calibrated int8 HR head
+        (``ops/quant.py``) and/or int8 trunk (``ops/quant_trunk.py``), as
+        ``WindFieldSR.quantize[_trunk]`` make them. Needs the trunk-kernel
+        path (``use_fused_trunk`` and a geometry the kernel takes), as JAX
+        ``_generate_q`` does; raises ValueError otherwise."""
+        if not self.use_fused_trunk:
+            raise ValueError(
+                "quantized serving needs the single-device fused-trunk "
+                "path (use_fused_trunk=True, a geometry the trunk kernel "
+                "takes)")
+        with torch.no_grad():
+            return self._g_apply(params_G, self._as_input(lr),
+                                 self._as_input(z), trunk=self._trunk,
+                                 qhead=qhead, qtrunk=qtrunk)
+
     # -------------------------------------------------------- schedules
     def _set_iteration(self, it: int) -> None:
         """Write the schedules' values at iteration ``it`` (learning

@@ -12,10 +12,12 @@ import torch
 import torch.nn.functional as F
 
 from _torch_head_geoms import HEAD_GEOMS
+from _torch_int8_geoms import INT8_GEOMS
 from _torch_stencil_geoms import STENCIL_GEOMS
 from _torch_trunk_geoms import TC_GEOMS
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
 from gan_sr_wind_field_tpu_torch.models.fused_train import TrainableTrunk
+from gan_sr_wind_field_tpu_torch.ops import conv_int8 as int8_mod
 from gan_sr_wind_field_tpu_torch.ops import hr_head as head_mod
 from gan_sr_wind_field_tpu_torch.ops import rdb_trunk, stencil
 from gan_sr_wind_field_tpu_torch.ops.hr_head import (
@@ -538,3 +540,53 @@ def test_captured_steps_equal_eager_steps_on_card(cuda_device, monkeypatch,
     pairs += [(f"metrics/{k}", v, want[k]) for k, v in metrics.items()]
     differ = [(n, _rel(a, b)) for n, a, b in pairs if not torch.equal(a, b)]
     assert differ == []
+
+
+def _int8_call(geom, device, seed):
+    """Seeded int8 inputs and weights in [-127, 127], positive float32
+    scales and, where the geometry has one, a bias, on ``device``."""
+    N, X, Y, Z, ci, co, k, pad, bias = geom
+    gen = torch.Generator().manual_seed(seed)
+    xq = torch.randint(-127, 128, (N, X, Y, Z, ci), generator=gen,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (*k, ci, co), generator=gen,
+                       dtype=torch.int8)
+    s = torch.rand(co, generator=gen) * 1e-3 + 1e-5
+    b = torch.randn(co, generator=gen) if bias else None
+    return [None if v is None else v.to(device) for v in (xq, wq, s, b)], pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", INT8_GEOMS)
+def test_conv_int8_kernel_matches_plain_version_on_card(cuda_device, geom):
+    """Bit for bit: the int32 sums are exact on both sides, and the
+    epilogue rounds float(acc) * s, then + b, once each."""
+    (xq, wq, s, b), pad = _int8_call(geom, cuda_device, sum(geom[:6]))
+    before = int8_mod.launches
+    got = int8_mod.conv3d_int8(xq, wq, pad, s, b)
+    torch.cuda.synchronize()
+    assert int8_mod.launches == before + 1
+    want = int8_mod.conv3d_int8_reference(xq, wq, pad, s, b)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    # a packed weight given by the caller gives the same
+    again = int8_mod.conv3d_int8(xq, wq, pad, s, b,
+                                 packed=int8_mod.pack_conv_int8(wq))
+    assert torch.equal(again, want)
+
+
+@pytest.mark.cuda
+def test_conv_int8_plan_counts_the_kernels_shared_memory(cuda_device):
+    assert int8_mod.kernel_smem(True) == int8_mod.WIDE_TILE.smem_bytes
+    assert int8_mod.kernel_smem(False) == int8_mod.NARROW_TILE.smem_bytes
+
+
+@pytest.mark.cuda
+def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda_device):
+    (xq, wq, s, _), _ = _int8_call(INT8_GEOMS[1], cuda_device, 7)
+    with pytest.raises(ValueError, match="keeps the extent"):
+        int8_mod.conv3d_int8(xq, wq, 0, s)
+    with pytest.raises(ValueError, match="int8"):
+        int8_mod.conv3d_int8(xq.float(), wq, 1, s)
+    with pytest.raises(ValueError, match="packed"):
+        int8_mod.conv3d_int8(xq, wq, 1, s, packed=wq.contiguous())

@@ -456,10 +456,10 @@ def test_cli_profile_writes_a_trace(tmp_path, steps, chunk, end):
     assert f"profile of it 0 -> {end} written to" in status
 
 
-@pytest.mark.parametrize("flag", [["--serve_int8", "4"],
-                                  ["--serve_int8_trunk", "4"],
+@pytest.mark.parametrize("flag", [["--num_samples", "4"],
+                                  ["--asha_grace", "4"],
                                   ["--download"], ["--param_search"],
-                                  ["--export", "x"]])
+                                  ["--slurm_array_id", "2"]])
 def test_cli_flags_not_ported_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run.main(["--train", "--synthetic", "--device", "cpu"] + flag)

@@ -144,23 +144,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      its ms, HR voxels/s and one trunk (and head) launch per batch.
   10. deploy what the port trains, in phase 7's temporary directory on
      its data with a copy of configs/test_milestone6k.ini and the 6k pack:
-     (a) the int8 conv kernel (conv_int8.cu): its ptxas report and IMMA
-     count (0 fails), bit for bit against its plain version (float64
-     F.conv3d) at each full-width shape it serves (the head's main conv
-     5x5x5 128->128 and remainder 1x1x5 128->400 at batch 8, HR
-     64x64x10; the last growth conv 224->32 and an LFF 256->128 with bias
-     at LR 16x16x10), each timed beside its bound; whether F.conv3d takes
-     int8 on the card; the head's two launches at batch 8 and 32 beside
-     their bound at 1979 TOPS, their plain version, bf16 cuDNN of
+     (a) the int8 conv kernels (conv_int8.cu, int8 wgmma): their ptxas
+     report and IGMMA count (0 fails), each entry point bit for bit
+     against its plain version (float64 F.conv3d and the epilogue's float
+     ops) at the full-width shape it serves: the last growth conv 224->32
+     requantized into columns 224..255 of its RDB buffer and the LFF
+     256->128 with bias at LR 16x16x10 batch 8 (the LFF beside
+     torch._int_mm on its operands, which must give its int32 sums), the
+     head pair (5x5x5 128->128 in bf16 and 1x1x5 128->400 partials, one
+     launch) at HR 64x64x10 batch 8, each timed beside its bound at 1979
+     TOPS; whether F.conv3d takes int8 on the card; the head pair at
+     batch 8 and 32 beside its bound, its plain version, bf16 cuDNN of
      hr_conv0_x and kernel 5; (b) run.py --serve 0 --serve_int8 8
      --serve_int8_trunk 8 (its main, with eval.server.serve replaced to
      keep the backend) calibrates on the first 8 test fields; one batch
      of 8 other test fields through the exact bf16 path, the int8 head,
      the int8 trunk and both, within JAX's 2e-2 / 3e-2 / 4e-2 relative L2
      of the exact path, their PSNR against it, their launches as
-     predicted (trunk kernel / conv_int8: (1, 0), (1, 2), (0, 240), (0,
-     242)), and each path's serving ms at batch 8 and 32 beside kernel
-     5's; (c) run.py --use --export writes the artifact (bytes, export
+     predicted (trunk kernel / conv_int8: (1, 0), (1, 1), (0, 240), (0,
+     241)), every entry point launched, each int8 path's output equal bit
+     for bit to the same batch through the entry points' plain versions
+     on the card, and each path's serving ms at batch 8 and 32 beside kernel
+     5's; (c) run.py --export writes the artifact (bytes, export
      seconds); eval/server.py --artifact builds its ExportedSR on the
      card (seconds); at batch 1 and 8 it is within 1e-5 of WindFieldSR's
      plain path and 3e-2 of the kernel path, launching no kernel; its
@@ -179,6 +184,7 @@ run on one card.
 """
 
 import copy
+import functools
 import json
 import math
 import os
@@ -214,6 +220,7 @@ TC_MMA = {"rdb_trunk": "mma.sync", "rdb_trunk_bwd": "mma.sync",
           "hr_head": "wgmma"}
 TURN_ROUNDS = 3
 LONG_CALL_S = 0.2  # see cuda_ms
+VERY_LONG_CALL_S = 0.4
 # the card's names of kernels 3 and 4 (substrings of the profiler's keys)
 STENCIL_KERNELS = {"gradient": "grad_fwd", "adjoint": "grad_adj"}
 # the scratch read before a cold-L2 launch: 128 MiB, over twice the L2
@@ -234,6 +241,12 @@ HEAD_GRAD_TOL = 5e-3
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def phase_start(n):
+    """Marks the start of phase n with the seconds since the smoke began,
+    so a run shows where its time goes."""
+    log(f"phase {n} starts at {time.monotonic() - T0:.1f} s")
 
 
 def fail(msg):
@@ -268,14 +281,18 @@ def card_line():
 
 def cuda_ms(fn, reps=5):
     """Mean CUDA-event ms of ``reps`` calls after one warm-up; a call whose
-    warm-up took over LONG_CALL_S gets at most 2 repeats (the smoke's
-    time limit; the spread of such calls is about 1 %)."""
+    warm-up took over LONG_CALL_S gets at most 2 repeats, one over
+    VERY_LONG_CALL_S one (the smoke's time limit; the spread of such calls
+    is about 1 %)."""
     import torch
 
     t0 = time.monotonic()
     fn()  # warm-up
     torch.cuda.synchronize()
-    if time.monotonic() - t0 > LONG_CALL_S:
+    warm = time.monotonic() - t0
+    if warm > VERY_LONG_CALL_S:
+        reps = 1
+    elif warm > LONG_CALL_S:
         reps = min(reps, 2)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -312,10 +329,22 @@ def log_turns(label, turns, card):
         f"{max(k_ms, l_ms) / min(k_ms, l_ms):.2f}x ({card})")
 
 
-def kernel_split(label, fn, card):
+# the card's kernels kernel_split names; any other is "other"
+SPLIT_NAMES = (*TC_KERNELS["rdb_trunk"], *TC_KERNELS["rdb_trunk_bwd"],
+               "bwd_prep", "bwd_add", *STENCIL_KERNELS.values(), "Memcpy",
+               "Memset")
+# the int8 serving paths' kernels: conv_int8's three (the head pair's
+# signature holds DequantEpi too, so it comes first), kernel 1's, cuDNN's
+INT8_SPLIT_NAMES = ("head_pair_kernel", "RequantEpi", "DequantEpi",
+                    *TC_KERNELS["rdb_trunk"], "implicit_convolveNd",
+                    "xmma_fprop", "elementwise")
+
+
+def kernel_split(label, fn, card, names=SPLIT_NAMES):
     """One call of fn under torch.profiler: the card's time by kernel
-    against the call's CUDA-event time; what is left is the card waiting
-    on the host loop."""
+    (the first of ``names`` in a kernel's name, else "other") against the
+    call's CUDA-event time; what is left is the card waiting on the host
+    loop."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,11 +362,7 @@ def kernel_split(label, fn, card):
     for e in prof.key_averages():
         if e.self_device_time_total <= 0:
             continue
-        name = next((k for k in (*TC_KERNELS["rdb_trunk"],
-                                 *TC_KERNELS["rdb_trunk_bwd"], "bwd_prep",
-                                 "bwd_add", *STENCIL_KERNELS.values(),
-                                 "Memcpy", "Memset")
-                     if k in e.key), "other")
+        name = next((k for k in names if k in e.key), "other")
         ms, n = parts.get(name, (0.0, 0))
         parts[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     busy = sum(ms for ms, _ in parts.values())
@@ -347,7 +372,7 @@ def kernel_split(label, fn, card):
     log(f"{label}: {wall:.3f} ms, the card busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f} %) ({card})")
     for name, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
-        log(f"    {name:<14} {n:4d} launches {ms:9.3f} ms "
+        log(f"    {name:<19} {n:4d} launches {ms:9.3f} ms "
             f"({1e3 * ms / n:8.1f} us each, {100 * ms / busy:5.1f} %)")
 
 
@@ -388,9 +413,10 @@ def ptxas_reports(log_text):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def sass_mma_counts(lib_path):
-    """{kernel name: [HMMA, HGMMA, IMMA] instruction counts} in a built
-    library, from cuobjdump -sass of the toolkit that built it; None
+    """{kernel name: [HMMA, HGMMA, IMMA, IGMMA] instruction counts} in a
+    built library, from cuobjdump -sass of the toolkit that built it; None
     without cuobjdump."""
     from gan_sr_wind_field_tpu_torch.ops.kernels import build
 
@@ -404,11 +430,11 @@ def sass_mma_counts(lib_path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            out[fn] = [0, 0, 0]
+            out[fn] = [0, 0, 0, 0]
         elif fn:
-            hit = re.search(r"\b(H|HG|I)MMA\b", line)
+            hit = re.search(r"\b(HG|H|IG|I)MMA\b", line)
             if hit:
-                out[fn][("H", "HG", "I").index(hit.group(1))] += 1
+                out[fn][("H", "HG", "I", "IG").index(hit.group(1))] += 1
     return out
 
 
@@ -460,13 +486,18 @@ def reset_counters():
     rdb_trunk.launches = rdb_trunk.bwd_launches = 0
     stencil.launches = stencil.adjoint_launches = 0
     hr_head.launches = 0
-    conv_int8.launches = 0
+    conv_int8.launches = conv_int8.pair_launches = 0
+    conv_int8.requant_launches = 0
 
 
-def int8_launches():
+def int8_launches(each=False):
+    """conv_int8's launches: the head pair's, the requantizing growth
+    conv's and the conv's (each), or their sum."""
     from gan_sr_wind_field_tpu_torch.ops import conv_int8
 
-    return conv_int8.launches
+    n = (conv_int8.pair_launches, conv_int8.requant_launches,
+         conv_int8.launches)
+    return n if each else sum(n)
 
 
 def cudnn_trunk(weights, x, per=3, rdb_scale=0.2, rrdb_scale=0.2, slope=0.2,
@@ -2734,11 +2765,15 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
     big = {}
     for label, s_ in (("module head", sr), ("head kernel", sr_h)):
         reset_counters()
+        t = time.monotonic()
         out = s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
                                batch=TILE_BATCH)
         n = counters()
+        # three timed calls, one where the warm-up took over
+        # VERY_LONG_CALL_S (as cuda_ms)
+        reps = 1 if time.monotonic() - t > VERY_LONG_CALL_S else 3
         secs = []
-        for _ in range(3):
+        for _ in range(reps):
             t = time.monotonic()
             s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
                              batch=TILE_BATCH)
@@ -2747,8 +2782,8 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
         big[label] = (ms, n)
         log(f"  upscale_tiled HR {big_z.shape[0]}x{big_z.shape[1]}x"
             f"{big_z.shape[2]}, {label}: {len(coords)} tiles in {n_big} "
-            f"batches, {ms:.3f} ms (median of 3, host clock, upload and "
-            f"download included), {vox / (ms / 1e3):.4e} HR voxels/s; "
+            f"batches, {ms:.3f} ms (median of {reps}, host clock, upload "
+            f"and download included), {vox / (ms / 1e3):.4e} HR voxels/s; "
             f"launches {LAUNCH_LABELS} {n} ({card})")
         want_n = (n_big, 0, 0, 0, n_big if label == "head kernel" else 0)
         if (n != want_n or out.shape != (*big_z.shape[:3], 3)
@@ -2767,11 +2802,11 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
 
 # phase 10: deploy what the port trains, in phase 7's temporary directory
 # on its data, with a copy of configs/test_milestone6k.ini and the 6k pack:
-# (a) the int8 conv kernel against its plain version at every shape it
-# serves at full width, and the head's two launches timed; (b) int8
-# serving through run.py --serve_int8 / --serve_int8_trunk; (c) the
-# torch.export artifact through run.py --use --export and eval/server.py
-# --artifact; (d) eval.interp on the 9k and 6k packs
+# (a) the int8 conv kernels against their plain versions at every shape
+# they serve at full width, and the head pair timed; (b) int8 serving
+# through run.py --serve_int8 / --serve_int8_trunk; (c) the torch.export
+# artifact through run.py --export (phase 8 runs --use) and
+# eval/server.py --artifact; (d) eval.interp on the 9k and 6k packs
 PACK_9K = os.path.join(REPO, "docs", "evidence",
                        "milestone9k_continuation_9000.npz")
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
@@ -2785,78 +2820,56 @@ EXPORT_PLAIN_TOL = 1e-5   # the artifact against the same aten ops
 EXPORT_KERNEL_TOL = 3e-2  # against the kernel path: phase 4's bound
 
 
-def int8_calls(cfg, n):
-    """The int8 kernel's calls at the full width of ``cfg``, batch n: the
-    head's main conv and its remainder on the HR grid, the trunk's last
-    growth conv and an LFF on the LR grid; each (label, (n, X, Y, Z), ci,
-    co, k, padding, bias)."""
+def int8_geometry(cfg):
+    """The int8 kernels' widths at ``cfg``: the head's (nf, cm, stacked
+    remainder columns, C, k, HR extent) and the trunk's (nf, gc, K, the
+    RDB buffer's channels, LR extent), with the depth zl."""
     g, G = cfg.gan_config, cfg.generator
     hr, zl, k = g.slice_size, g.number_of_z_layers, G.hr_kern_size
-    lr = hr // cfg.scale
     nf, gc, K = G.num_features, G.RDB_growth_chan, G.num_RDB_convs - 1
     C = nf + G.terrain_number_of_features
-    cm, p = C // 128 * 128, (k - 1) // 2
-    rem = k * k * (C - cm)
-    return [
-        (f"head main {k}x{k}x{k} {nf}->{cm}", (n, hr, hr, zl), nf, cm,
-         (k, k, k), (p, p, p), False),
-        (f"head remainder 1x1x{k} {nf}->{rem}", (n, hr, hr, zl), nf, rem,
-         (1, 1, k), (0, 0, p), False),
-        (f"growth 3x3x3 {nf + gc * (K - 1)}->{gc}", (n, lr, lr, zl),
-         nf + gc * (K - 1), gc, (3, 3, 3), (1, 1, 1), False),
-        (f"LFF 1x1x1 {nf + gc * K}->{nf} + bias", (n, lr, lr, zl),
-         nf + gc * K, nf, (1, 1, 1), (0, 0, 0), True),
-    ]
+    cm = C // 128 * 128
+    return dict(nf=nf, cm=cm, rem=k * k * (C - cm), C=C, k=k, hr=hr,
+                lr=hr // cfg.scale, zl=zl, gc=gc, K=K, width=nf + gc * K)
 
 
-def int8_inputs(dev, call, seed):
-    """Seeded int8 input and weights in [-127, 127], scales of a served
-    model's size and, where the call has one, a bias, on the card."""
+def int8_tensors(dev, gen, shape, *sizes):
+    """Seeded int8 tensors in [-127, 127] of ``shape`` + each size."""
     import torch
 
-    _, shape, ci, co, k, _, bias = call
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    xq = torch.randint(-127, 128, (*shape, ci), dtype=torch.int8,
-                       device=dev, generator=gen)
-    wq = torch.randint(-127, 128, (*k, ci, co), dtype=torch.int8,
-                       device=dev, generator=gen)
-    s = torch.rand(co, device=dev, generator=gen) * 1e-4 + 1e-6
-    b = torch.randn(co, device=dev, generator=gen) if bias else None
-    return xq, wq, s, b
+    return [torch.randint(-127, 128, (*shape, *sz), dtype=torch.int8,
+                          device=dev, generator=gen) for sz in sizes]
 
 
-def int8_work(calls):
-    """(int8 operations, bytes) of calls on one input as one function:
-    the input read once, each call's weights, scales and bias read once,
-    each float32 output written once."""
-    _, shape, ci = calls[0][:3]
-    rows = math.prod(shape)
-    ops = sum(2 * rows * co * ci * math.prod(k)
-              for _, _, ci, co, k, _, _ in calls)
-    nbytes = rows * ci + sum(
-        math.prod(k) * ci * co + 4 * co * (2 if b else 1) + 4 * rows * co
-        for _, _, ci, co, k, _, b in calls)
+def int8_scales(dev, gen, *cols):
+    """Positive float32 scales of a served model's size, one per column."""
+    import torch
+
+    return [torch.rand(c, device=dev, generator=gen) * 1e-4 + 1e-6
+            for c in cols]
+
+
+def pair_work(rows, nf, cm, rem, k):
+    """(int8 operations, bytes) of the head pair: the input read once, both
+    weights read once, the main conv's bf16 columns and the remainder's
+    float32 partials written once."""
+    ops = 2 * rows * nf * (cm * k ** 3 + rem * k)
+    nbytes = (rows * nf + nf * (cm * k ** 3 + rem * k) + 4 * (cm + rem)
+              + rows * (2 * cm + 4 * rem))
     return ops, nbytes
 
 
-def psnr_db(got, ref):
-    """PSNR of got against ref over ref's range, as the JAX package's
-    probe computes it (scripts/probe_quant_serve.py:68-71)."""
-    import numpy as np
-
-    mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
-    return 10 * math.log10(float(ref.max() - ref.min()) ** 2
-                           / max(mse, 1e-30))
-
-
 def check_int8_kernel(cfg, dev, card, built):
-    """Phase 10 (a): the kernel's ptxas report and IMMA count; bit for bit
-    against its plain version at the four full-width shapes, each timed
-    beside its bound; the probe of F.conv3d on int8; the head's two
-    launches together at batch 8 and 32 beside their bound, their plain
-    version, bf16 cuDNN of hr_conv0_x (the conv they replace) and kernel
-    5. Returns (largest error, {batch: (ms, plain_ms, bound, library_ms,
-    kernel-5 ms)})."""
+    """Phase 10 (a): the conv_int8 library's ptxas report and IGMMA count
+    (int8 wgmma; 0 fails); each entry point bit for bit against its plain
+    version at the full-width shapes the serving paths give it (the head
+    pair, the trunk's last growth conv into its RDB buffer, the LFF), each
+    timed beside its bound; the LFF beside torch._int_mm on its operands
+    (cuBLASLt, the same int32 sums); whether F.conv3d takes int8; the head
+    pair at batch 8 and 32 beside its bound, its plain version, bf16 cuDNN
+    of hr_conv0_x (the conv it replaces) and kernel 5. Returns {entry
+    point: (max abs error, ms, plain ms, bound, library ms)} with the head
+    pair's batch-32 numbers and kernel 5's under "pair_b32"."""
     import torch
     import torch.nn.functional as F
 
@@ -2870,35 +2883,87 @@ def check_int8_kernel(cfg, dev, card, built):
     path, _, report = built["conv_int8"]
     for fn, lines in ptxas_reports(report).items():
         log(f"  conv_int8 {fn} ptxas: {'; '.join(lines)}")
+        if any("serialized" in line for line in lines):
+            log(f"  conv_int8 {fn}: ptxas serializes its wgmmas")
     sass = sass_mma_counts(path)
     if sass is None:
         log("  conv_int8: cuobjdump not found, no SASS count")
     else:
-        imma = sum(c[2] for c in sass.values())
-        log(f"  conv_int8: {imma} IMMA instructions in its SASS")
-        if imma == 0:
-            fail("conv_int8 has no int8 tensor-core instruction in its SASS")
-    max_err = 0.0
-    for i, call in enumerate(int8_calls(cfg, 8)):
-        label, shape, _, _, _, pad, _ = call
-        xq, wq, s, b = int8_inputs(dev, call, 2010 + i)
-        got = conv_int8.conv3d_int8(xq, wq, pad, s, b)
-        want = conv_int8.conv3d_int8_reference(xq, wq, pad, s, b)
-        err = (got - want).abs().max().item()
-        exact = torch.equal(got, want)
-        packed = conv_int8.pack_conv_int8(wq)
-        ms = cuda_ms(lambda: conv_int8.conv3d_int8(xq, wq, pad, s, b,
-                                                   packed=packed))
-        ops, nbytes = int8_work([call])
+        counts = [sum(c[i] for c in sass.values()) for i in range(4)]
+        log(f"  conv_int8: {counts[3]} IGMMA (int8 wgmma) and {counts[2]} "
+            f"IMMA instructions in its SASS")
+        if counts[3] == 0:
+            fail("conv_int8 has no int8 wgmma (IGMMA) in its SASS")
+    gm = int8_geometry(cfg)
+    nf, cm, rem, C, k, gc = (gm[v] for v in ("nf", "cm", "rem", "C", "k",
+                                             "gc"))
+    p = (k - 1) // 2
+    gen = torch.Generator(device=dev).manual_seed(2010)
+    out = {}
+
+    def report_call(name, label, shape, got, want, ms, plain_ms, ops, nbytes,
+                    lib_ms):
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
         bd = bound(ops, nbytes, H100_INT8_OPS)
-        log(f"  {label} at {shape}: bit for bit {exact} (max abs "
-            f"{err:.1e}); kernel {ms:.3f} ms, bound {bd[0]:.4f} ms by "
-            f"{bd[1]} ({100 * bd[0] / ms:.1f} %), {ops / ms / 1e9:.1f} "
-            f"TOP/s ({card})")
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        log(f"  {label} at {shape}: bit for bit {exact} (max abs {err:.1e});"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{lib}; bound "
+            f"{bd[0]:.4f} ms by {bd[1]} ({100 * bd[0] / ms:.1f} %), "
+            f"{ops / ms / 1e9:.1f} TOP/s ({card})")
         if not exact:
-            fail(f"conv_int8 disagrees with its plain version at {label}")
-        max_err = max(max_err, err)
-        del xq, wq, got, want, packed
+            fail(f"conv_int8 {name} disagrees with its plain version at "
+                 f"{label}")
+        out[name] = (err, ms, plain_ms, bd, lib_ms)
+
+    # the trunk's last growth conv and the LFF on one RDB buffer at LR
+    # batch 8, then the head pair at HR batch 8
+    lr_shape = (8, gm["lr"], gm["lr"], gm["zl"])
+    rows = math.prod(lr_shape)
+    (buf,) = int8_tensors(dev, gen, lr_shape, (gm["width"],))
+    ci = nf + gc * (gm["K"] - 1)
+    wg, wl = int8_tensors(dev, gen, (), (3, 3, 3, ci, gc), (1, 1, 1,
+                                                            gm["width"], nf))
+    sg, sl = int8_scales(dev, gen, gc, nf)
+    sc = torch.rand(gc, device=dev, generator=gen) * 2.0 + 0.5
+    bl = torch.randn(nf, device=dev, generator=gen)
+    pg, pl = conv_int8.pack_conv_int8(wg), conv_int8.pack_conv_int8(wl)
+    got, want = buf.clone(), buf.clone()  # each conv writes into its input
+    conv_int8.conv3d_int8_requant(got, ci, wg, 1, sg, sc, 0.2, got, ci,
+                                  packed=pg)
+    conv_int8.conv3d_int8_requant_reference(want, ci, wg, 1, sg, sc, 0.2, want,
+                                            ci)
+    report_call(
+        "requant", f"growth 3x3x3 {ci}->{gc} into columns {ci}.."
+        f"{ci + gc - 1} of {gm['width']}", lr_shape, [got], [want],
+        cuda_ms(lambda: conv_int8.conv3d_int8_requant(
+            buf, ci, wg, 1, sg, sc, 0.2, buf, ci, packed=pg), reps=50),
+        cuda_ms(lambda: conv_int8.conv3d_int8_requant_reference(
+            buf, ci, wg, 1, sg, sc, 0.2, buf.clone(), ci), reps=2),
+        2 * rows * 27 * ci * gc,
+        rows * ci + 27 * ci * gc + 8 * gc + rows * gc, None)
+    got = conv_int8.conv3d_int8(buf, wl, 0, sl, bl, packed=pl)
+    want = conv_int8.conv3d_int8_reference(buf, wl, 0, sl, bl)
+    a2 = buf.reshape(rows, gm["width"])
+    b2 = wl.reshape(gm["width"], nf).t().contiguous().t()
+    turns = alternate(
+        lambda: conv_int8.conv3d_int8(buf, wl, 0, sl, bl, packed=pl),
+        lambda: torch._int_mm(a2, b2))
+    log_turns("  LFF kernel vs torch._int_mm (cuBLASLt) on its operands",
+              turns, card)
+    report_call(
+        "lff", f"LFF 1x1x1 {gm['width']}->{nf} + bias", lr_shape, [got],
+        [want], turns[0],
+        cuda_ms(lambda: conv_int8.conv3d_int8_reference(buf, wl, 0, sl, bl),
+                reps=2),
+        2 * rows * gm["width"] * nf,
+        rows * gm["width"] + gm["width"] * nf + 8 * nf + 4 * rows * nf,
+        turns[1])
+    if not torch.equal(torch._int_mm(a2, b2).reshape(*lr_shape, nf),
+                       conv_int8.conv3d_int8_reference(buf, wl, 0)):
+        fail("torch._int_mm does not give the LFF's int32 sums")
+    del buf, wg, wl, got, want, a2, b2
     probe = torch.zeros((1, 32, 4, 4, 4), dtype=torch.int8, device=dev)
     try:
         F.conv3d(probe, torch.zeros((32, 32, 3, 3, 3), dtype=torch.int8,
@@ -2910,52 +2975,101 @@ def check_int8_kernel(cfg, dev, card, built):
     log(f"  F.conv3d on int8 CUDA tensors, torch {torch.__version__}: "
         f"{library_int8}")
 
-    G = cfg.generator
-    nf, tc, k = (G.num_features, G.terrain_number_of_features,
-                 G.hr_kern_size)
-    gen = torch.Generator(device=dev).manual_seed(2012)
-    head = {}
+    tc = cfg.generator.terrain_number_of_features
     for n in (8, 32):
-        calls = int8_calls(cfg, n)[:2]
-        ins = [int8_inputs(dev, c, 2020 + n + i) for i, c in enumerate(calls)]
-        xq = ins[0][0]  # the two launches read one input
-        packs = [conv_int8.pack_conv_int8(v[1]) for v in ins]
+        shape = (n, gm["hr"], gm["hr"], gm["zl"])
+        (xq,) = int8_tensors(dev, gen, shape, (nf,))
+        wm, wr = int8_tensors(dev, gen, (), (k, k, k, nf, cm), (1, 1, k, nf,
+                                                               rem))
+        sm, sr = int8_scales(dev, gen, cm, rem)
+        pm, pr = conv_int8.pack_conv_int8(wm), conv_int8.pack_conv_int8(wr)
 
         def pair():
-            for c, (_, wq, s, b), pk in zip(calls, ins, packs):
-                conv_int8.conv3d_int8(xq, wq, c[5], s, b, packed=pk)
+            return conv_int8.head_pair_int8(xq, wm, sm, p, wr, sr, width=C,
+                                            packed_main=pm, packed_rem=pr)
 
         def plain():
-            for c, (_, wq, s, b) in zip(calls, ins):
-                conv_int8.conv3d_int8_reference(xq, wq, c[5], s, b)
+            return conv_int8.head_pair_int8_reference(xq, wm, sm, p, wr, sr,
+                                                      width=C)
 
         ms = cuda_ms(pair)
         plain_ms = cuda_ms(plain, reps=1)
-        ops, nbytes = int8_work(calls)
-        bd = bound(ops, nbytes, H100_INT8_OPS)
-        shape = calls[0][1]
         xb = torch.randn((*shape, nf), device=dev, generator=gen).to(
             torch.bfloat16)
         tb = torch.randn((*shape, tc), device=dev, generator=gen).to(
             torch.bfloat16)
-        wx = (torch.randn((nf + tc, nf, k, k, k), device=dev, generator=gen)
+        wx = (torch.randn((C, nf, k, k, k), device=dev, generator=gen)
               * 0.01).to(torch.bfloat16)
-        wt = (torch.randn((nf + tc, tc, k, k, k), device=dev, generator=gen)
+        wt = (torch.randn((C, tc, k, k, k), device=dev, generator=gen)
               * 0.01).to(torch.bfloat16)
         with torch.inference_mode():
-            lib_ms = cuda_ms(lambda: conv3d_cl(xb, wx, (k - 1) // 2),
+            lib_ms = cuda_ms(lambda: conv3d_cl(xb, wx, p),
                              reps=5 if n == 8 else 3)
             packed5 = pack_head_weights(wx, wt, torch.bfloat16, dev)
             k5_ms = cuda_ms(lambda: hr_head_conv(packed5, xb, tb, k=k))
-        head[n] = (ms, plain_ms, bd, lib_ms, k5_ms)
-        log(f"int8 head's two launches at batch {n} ({ops:.4e} int8 ops): "
+        del xb, tb, wx, wt, packed5
+        ops, nbytes = pair_work(math.prod(shape), nf, cm, rem, k)
+        if n == 8:
+            (o, part), (wo, wpart) = pair(), plain()
+            report_call("pair", f"head pair {k}x{k}x{k} {nf}->{cm} (bf16 "
+                        f"into {C} columns) + 1x1x{k} {nf}->{rem} (float32)",
+                        shape, [o[..., :cm], part], [wo[..., :cm], wpart], ms,
+                        plain_ms, ops, nbytes, lib_ms)
+            out["k5"] = k5_ms
+            del o, part, wo, wpart
+        else:
+            out["pair_b32"] = (ms, plain_ms, bound(ops, nbytes,
+                                                   H100_INT8_OPS), lib_ms,
+                               k5_ms)
+        bd = bound(ops, nbytes, H100_INT8_OPS)
+        log(f"int8 head pair at batch {n} ({ops:.4e} int8 ops), one launch: "
             f"kernel {ms:.3f} ms, bound {bd[0]:.4f} ms by {bd[1]} "
-            f"({100 * bd[0] / ms:.1f} %), plain {plain_ms:.3f} ms; the "
-            f"conv they replace, hr_conv0_x in bf16 cuDNN, {lib_ms:.3f} "
-            f"ms; kernel 5 (the whole bf16 head) {k5_ms:.3f} ms ({card})")
-        del xq, ins, packs, xb, tb, wx, wt, packed5
+            f"({100 * bd[0] / ms:.1f} %), plain {plain_ms:.3f} ms; the conv "
+            f"it replaces, hr_conv0_x in bf16 cuDNN, {lib_ms:.3f} ms; kernel "
+            f"5 (the whole bf16 head) {k5_ms:.3f} ms ({card})")
+        del xq, wm, wr, pm, pr
         torch.cuda.empty_cache()
-    return max_err, head
+    return out
+
+
+def plain_int8_paths():
+    """A context in which the int8 serving functions run the plain versions
+    of the int8 kernels' entry points (the composition the kernels replace)
+    on the card's tensors."""
+    import contextlib
+
+    from gan_sr_wind_field_tpu_torch.ops import conv_int8, quant, quant_trunk
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (quant.head_pair_int8, quant_trunk.conv3d_int8,
+                 quant_trunk.conv3d_int8_requant)
+        quant.head_pair_int8 = (
+            lambda *a, packed_main=None, packed_rem=None, **kw:
+            conv_int8.head_pair_int8_reference(*a, **kw))
+        quant_trunk.conv3d_int8 = (
+            lambda xq, wq, pad, s, bias=None, packed=None:
+            conv_int8.conv3d_int8_reference(xq, wq, pad, s, bias))
+        quant_trunk.conv3d_int8_requant = (
+            lambda *a, packed=None: conv_int8.conv3d_int8_requant_reference(
+                *a))
+        try:
+            yield
+        finally:
+            (quant.head_pair_int8, quant_trunk.conv3d_int8,
+             quant_trunk.conv3d_int8_requant) = saved
+
+    return ctx()
+
+
+def psnr_db(got, ref):
+    """PSNR of got against ref over ref's range, as the JAX package's
+    probe computes it (scripts/probe_quant_serve.py:68-71)."""
+    import numpy as np
+
+    mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
+    return 10 * math.log10(float(ref.max() - ref.min()) ** 2
+                           / max(mse, 1e-30))
 
 
 def deploy_phase(dev, card, tmp, built):
@@ -2965,7 +3079,7 @@ def deploy_phase(dev, card, tmp, built):
     first 8 test fields, then one batch of 8 other test fields through
     the exact path, the int8 head, the int8 trunk and both, each held to
     JAX's bound with its launches as predicted, and each path's serving
-    ms at batch 8 and 32 beside kernel 5's; (c) run.py --use --export, the
+    ms at batch 8 and 32 beside kernel 5's; (c) run.py --export, the
     artifact's bytes and seconds, eval/server.py --artifact's backend
     against the plain path and the kernel path at batch 1 and 8 and
     timed, and a torch-only subprocess that runs the payload; (d)
@@ -2976,7 +3090,7 @@ def deploy_phase(dev, card, tmp, built):
     cfg = load_config(TEST_CFG)
     log(f"deploy: int8 conv kernel at {os.path.basename(TEST_CFG)}'s full "
         f"width ({card})")
-    max_err, head = check_int8_kernel(cfg, dev, card, built)
+    kernels = check_int8_kernel(cfg, dev, card, built)
 
     # (d) starts first: eval.interp's command line in another process, on
     # the card, while (b) and (c) run here
@@ -2991,7 +3105,7 @@ def deploy_phase(dev, card, tmp, built):
         stderr=subprocess.STDOUT, text=True)
     try:
         return _deploy(dev, card, tmp, cfg, ini, blend, interp_proc,
-                       t_interp, max_err, head)
+                       t_interp, kernels)
     finally:
         if interp_proc.poll() is None:
             interp_proc.kill()
@@ -2999,7 +3113,7 @@ def deploy_phase(dev, card, tmp, built):
 
 
 def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
-            max_err, head):
+            kernels):
     """Phase 10 (b) to (d), beside the running eval.interp process."""
     import numpy as np
     import torch
@@ -3058,9 +3172,10 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
              "int8 trunk": (None, qt), "both": (qh, qt)}
     J = 3 * cfg.generator.num_RRDB
     per_trunk = J * cfg.generator.num_RDB_convs
-    want_launches = {"bf16 module head": (1, 0), "int8 head": (1, 2),
+    # one launch of the head pair; per RDB step the growth convs and the LFF
+    want_launches = {"bf16 module head": (1, 0), "int8 head": (1, 1),
                      "int8 trunk": (0, per_trunk),
-                     "both": (0, per_trunk + 2)}
+                     "both": (0, per_trunk + 1)}
     outs = {}
     reset_counters()
     for name, (h, q) in paths.items():
@@ -3076,7 +3191,23 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
             fail(f"{name} launched {got}")
         if not np.isfinite(outs[name]).all():
             fail(f"{name} served a non-finite output")
-    serve_int8 = int8_launches()
+    serve_int8 = int8_launches(each=True)
+    log(f"  conv_int8 launches by entry point (head pair, requantizing "
+        f"growth conv, conv): {serve_int8}")
+    if not all(serve_int8):
+        fail(f"an entry point of conv_int8 was not launched: {serve_int8}")
+    # the same batch through the plain versions of the entry points on the
+    # card: the served int8 outputs do not change by a bit
+    with plain_int8_paths():
+        for name in INT8_TOL:
+            sr.qhead, sr.qtrunk = paths[name]
+            before = int8_launches()
+            same = np.array_equal(sr.upscale(lr, z), outs[name])
+            log(f"  {name}: the kernels' served output equals the plain "
+                f"composition's bit for bit: {same}")
+            if not same or int8_launches() != before:
+                fail(f"{name}: the served int8 output differs from the plain "
+                     f"composition's")
     exact = outs["bf16 module head"]
     for name, tol in INT8_TOL.items():
         err = rel_l2(torch.from_numpy(outs[name]), torch.from_numpy(exact))
@@ -3101,6 +3232,12 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
         log(f"  serving at batch {n}: " + ", ".join(
             f"{name} {serve_ms[(name, n)]:.3f} ms" for name in
             (*paths, "kernel 5")) + f" ({card})")
+    with torch.inference_mode():
+        for name in INT8_TOL:
+            sr.qhead, sr.qtrunk = paths[name]
+            kernel_split(f"  {name} serving at batch 8, by kernel",
+                         lambda: sr._generate(lr_d, z_d), card,
+                         INT8_SPLIT_NAMES)
     # the served backend, back on the exact path: the 6k pack's EMA
     # generator, as --use and --export take it
     sr.dequantize()
@@ -3108,7 +3245,8 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
     del sr, sr_h, lr32, z32, outs
     torch.cuda.empty_cache()
 
-    # (c) the artifact: run.py --use --export, eval/server.py --artifact
+    # (c) the artifact: run.py --export (phase 8 runs --use on the same
+    # weights), eval/server.py --artifact
     art = os.path.join(tmp, "gen.wsrx")
     real_export = run.export_generator
     timing = {}
@@ -3122,8 +3260,7 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
     run.export_generator = timed_export
     try:
         os.chdir(cwd)
-        run.main(["--cfg", ini, "--use", "--export", art, "--synthetic",
-                  *LEG_DATA])
+        run.main(["--cfg", ini, "--export", art, "--synthetic", *LEG_DATA])
     finally:
         os.chdir(old)
         run.export_generator = real_export
@@ -3163,7 +3300,7 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
             server.serve = real_serve
         load_s = time.monotonic() - t
         ex = kept.pop("backend")
-        log(f"  run.py --use --export: {os.path.getsize(art)} bytes, "
+        log(f"  run.py --export: {os.path.getsize(art)} bytes, "
             f"exported in {timing['export']:.3f} s; eval/server.py "
             f"--artifact built its {type(ex).__name__} backend in "
             f"{load_s:.3f} s (tile {kept['tile']}, overlap "
@@ -3239,10 +3376,29 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
             proc.wait()
     del ex, sr6
     torch.cuda.empty_cache()
-    return dict(max_err=max_err, head=head, launches=serve_int8,
+    return dict(kernels=kernels, launches=serve_int8,
                 serve_ms=serve_ms, artifact_ms=art_ms, kernel_path_ms=kern_ms,
                 export_s=timing["export"], load_s=load_s,
                 artifact_bytes=os.path.getsize(art))
+
+
+# conv_int8's entry points: (key in check_int8_kernel's results, index in
+# int8_launches(each=True))
+INT8_ENTRY = {"conv_int8_head_pair": ("pair", 0),
+              "conv_int8_requant": ("requant", 1), "conv_int8": ("lff", 2)}
+
+
+def int8_row(name, dp, replaces, **extra):
+    """The kernel line's row of one conv_int8 entry point: its launches in
+    phase 10 (b)'s served batches, its check and times at full width."""
+    key, i = INT8_ENTRY[name]
+    err, ms, plain_ms, bd, lib_ms = dp["kernels"][key]
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/conv_int8.cu",
+            "replaces": f"gan_sr_wind_field_tpu/ops/{replaces}",
+            "replaces_kind": "XLA int8 conv_general_dilated, no Pallas kernel",
+            "launches": dp["launches"][i], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bd[0], "bound_by": bd[1],
+            "library_ms": lib_ms, "mma": "wgmma s8", **extra}
 
 
 def main():
@@ -3279,6 +3435,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # ----------------------------------------------------------- 2. build
+    phase_start(2)
     t = time.monotonic()
     built = build.build()
     for name, (path, secs, report) in built.items():
@@ -3287,10 +3444,16 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
     log(f"build total {time.monotonic() - t:.1f} s")
+    # every library's SASS at once (cuobjdump takes seconds each)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(built)) as pool:
+        list(pool.map(sass_mma_counts, [v[0] for v in built.values()]))
     log("bf16 kernels on the tensor cores:")
     mma_counts = report_tc_kernels(built)
 
     # ------------------------------------------- 3. kernels vs plain versions
+    phase_start(3)
     cfg = load_config(CFG)
     g = cfg.generator
     nf, gc, nconv = g.num_features, g.RDB_growth_chan, g.num_RDB_convs
@@ -3319,6 +3482,7 @@ def main():
     del rrdbs, x, d_out
 
     # ------------------------------------------------------------ 4. serve
+    phase_start(4)
     G0 = generator_from_config(cfg, device=dev, seed=2001)
     params = G0.state_dict()
     sr = WindFieldSR(cfg, params, device=dev)
@@ -3412,12 +3576,14 @@ def main():
     check("served output, head kernel vs module head", err_head_srv, 3e-2)
 
     # ------------------------------------------------------------ 5. train
+    phase_start(5)
     gan, state, batch, train_launches = train_phase(
         copy.deepcopy(cfg), dev, rng, card)
     gan_h, state_h, head_train = head_train_phase(cfg, gan, state, batch,
                                                   dev, card)
 
     # ------------------------------------------------------------ 6. times
+    phase_start(6)
     xb = torch.randn(8, lr_xy, lr_xy, zl, nf, generator=gen).to(
         dev, torch.bfloat16)
     kw = dict(geom)
@@ -3467,6 +3633,7 @@ def main():
         fail("a timing is not finite")
 
     # ------------------------------------------------------------- 7. loop
+    phase_start(7)
     del gan, state, gan_h, state_h, batch
     torch.cuda.empty_cache()
     import shutil
@@ -3476,12 +3643,15 @@ def main():
     try:
         ll, state, ckpt_path, leg_ms = loop_phase(dev, card, tt, tmp)
         # ------------------------------------------------- 8. test, use, serve
+        phase_start(8)
         ev = eval_phase(dev, card, tmp, state, ckpt_path)
         del state
         torch.cuda.empty_cache()
         # --------------------------------- 9. chunks, host path, tiled SR
+        phase_start(9)
         ch = chunk_phase(dev, card, tmp, leg_ms, ev.pop("field"))
         # ------------------------ 10. int8 serving, export, interpolation
+        phase_start(10)
         dp = deploy_phase(dev, card, tmp, built)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3542,25 +3712,24 @@ def main():
             library_ms_b32_benchmark_on=th[32][5],
             backward_library_ms_b32=th["vjp"], mma=TC_MMA["hr_head"],
             sass_mma_count=mma_counts["hr_head"]),
-        # the port's own kernel: the JAX package's int8 convs are XLA
-        {"name": "conv_int8", "route": "cuda",
-         "source": f"{CSRC}/conv_int8.cu",
-         "replaces": "gan_sr_wind_field_tpu/ops/quant.py:87",
-         "replaces_kind": "XLA int8 conv_general_dilated, no Pallas kernel",
-         "launches": dp["launches"], "max_abs_err": dp["max_err"],
-         "ms": dp["head"][8][0], "plain_ms": dp["head"][8][1],
-         "bound_ms": dp["head"][8][2][0], "bound_by": dp["head"][8][2][1],
-         "library_ms": dp["head"][8][3],
-         "library": "bf16 cuDNN hr_conv0_x, the conv the head's two "
-                    "launches replace",
-         "ms_b32": dp["head"][32][0], "plain_ms_b32": dp["head"][32][1],
-         "bound_ms_b32": dp["head"][32][2][0],
-         "library_ms_b32": dp["head"][32][3],
-         "kernel5_ms": dp["head"][8][4], "kernel5_ms_b32": dp["head"][32][4],
-         "serving_ms": {f"{name} b{n}": ms
-                        for (name, n), ms in dp["serve_ms"].items()},
-         "artifact_ms": dp["artifact_ms"],
-         "kernel_path_ms": dp["kernel_path_ms"], "mma": "mma.sync s8"},
+        # the port's own kernels: the JAX package's int8 convs are XLA
+        *(int8_row(name, dp, replaces, **extra) for name, replaces, extra in (
+            ("conv_int8_head_pair", "quant.py:87", dict(
+                library="bf16 cuDNN hr_conv0_x, the conv the pair replaces",
+                ms_b32=dp["kernels"]["pair_b32"][0],
+                plain_ms_b32=dp["kernels"]["pair_b32"][1],
+                bound_ms_b32=dp["kernels"]["pair_b32"][2][0],
+                library_ms_b32=dp["kernels"]["pair_b32"][3],
+                kernel5_ms=dp["kernels"]["k5"],
+                kernel5_ms_b32=dp["kernels"]["pair_b32"][4],
+                serving_ms={f"{name} b{n}": ms for (name, n), ms
+                            in dp["serve_ms"].items()},
+                artifact_ms=dp["artifact_ms"],
+                kernel_path_ms=dp["kernel_path_ms"])),
+            ("conv_int8_requant", "quant_trunk.py:78", {}),
+            ("conv_int8", "quant_trunk.py:78", dict(
+                library="torch._int_mm (cuBLASLt int8 GEMM, int32 out) on "
+                        "the LFF's operands")))),
     ]}
     log(f"total {time.monotonic() - T0:.1f} s")
     log(json.dumps(table))

@@ -175,8 +175,8 @@ class WindFieldSR:
         (``ops/quant.py``): per-channel abs-max of hr_conv0's input over
         ``calib_lr`` (representative LR fields, (n, x, y, zl, C); the input
         depends on LR alone), in padded batches of ``batch``. Later
-        forwards run hr_conv0's x-part in int8 (two launches of the int8
-        conv kernel) and keep the trunk kernel; the HR-head kernel is off
+        forwards run hr_conv0's x-part in int8 (one launch of the int8
+        head-pair kernel) and keep the trunk kernel; the HR-head kernel is off
         while it is on. ``dequantize()`` returns to the exact path.
         Raises ValueError without the trunk-kernel path."""
         self._check_quantizable()

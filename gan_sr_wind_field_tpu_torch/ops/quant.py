@@ -16,8 +16,9 @@ the remainder as a 1×1×kz conv with kx·ky·cr stacked output channels,
 quantized per stacked channel, whose partial sums are dequantized and
 added up over the kx·ky shifts in float32. The split is a TPU shape, but
 its scales are the deployed numbers, so the port keeps it: the same int8
-weights and scales, the remainder through the same kernel at 1×1×kz and
-its shifted sum in float32 torch ops. Same int8 inputs then give the same
+weights and scales, the main conv and the remainder at 1×1×kz in one
+launch of the int8 head pair kernel, and the remainder's shifted sum in
+float32 torch ops. Same int8 inputs then give the same
 int32 sums as JAX; only float summation order can separate the two.
 
 Only the no-grad serving forward uses this (``WindFieldSR.quantize``);
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from gan_sr_wind_field_tpu_torch.ops.conv_int8 import (
-    conv3d_int8,
+    head_pair_int8,
     pack_conv_int8,
 )
 
@@ -112,18 +113,21 @@ def split_head_conv_int8(x: torch.Tensor, qh: QuantizedHead, padding: int,
                          ) -> torch.Tensor:
     """The int8 serving version of hr_conv0's x-part on x (N, X, Y, Z, ci):
     the same as the float conv with zero padding ``padding`` up to the
-    int8 rounding. Two launches of the int8 kernel where the head is
-    split (the main conv and the 1×1×kz remainder), one where not."""
+    int8 rounding. One launch of the int8 head pair kernel
+    (``head_pair_int8``): the main conv into the output's first cm
+    columns and, where the head is split, the 1×1×kz remainder's
+    partials, whose float32 shifted sum, cast to ``out_dtype``, fills the
+    last cr columns."""
     kx, ky, kz = qh.k
     xq = quantize_act(x, qh.s_in)
-    main = conv3d_int8(xq, qh.wq_main, padding, qh.s_main,
-                       packed=qh.packed_main).to(out_dtype)
+    out, partial = head_pair_int8(
+        xq, qh.wq_main, qh.s_main, padding, qh.wq_rem, qh.s_rem,
+        width=qh.cm + qh.cr, out_dtype=out_dtype,
+        packed_main=qh.packed_main, packed_rem=qh.packed_rem)
     if qh.wq_rem is None:
-        return main
+        return out
     X, Y = x.shape[1], x.shape[2]
     cr = qh.cr
-    partial = conv3d_int8(xq, qh.wq_rem, (0, 0, padding), qh.s_rem,
-                          packed=qh.packed_rem)
     ppad = F.pad(partial, (0, 0, 0, 0, padding, padding, padding, padding))
     rem = torch.zeros(x.shape[:1] + (X, Y, partial.shape[3], cr),
                       dtype=torch.float32, device=x.device)
@@ -131,7 +135,8 @@ def split_head_conv_int8(x: torch.Tensor, qh: QuantizedHead, padding: int,
         for iy in range(ky):
             t0 = (ix * ky + iy) * cr
             rem = rem + ppad[:, ix:ix + X, iy:iy + Y, :, t0:t0 + cr]
-    return torch.cat([main, rem.to(out_dtype)], dim=-1)
+    out[..., qh.cm:] = rem
+    return out
 
 
 def head_input_amax(x: torch.Tensor) -> torch.Tensor:

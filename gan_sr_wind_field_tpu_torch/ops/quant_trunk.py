@@ -9,10 +9,12 @@ scheme as the int8 head (``ops/quant.py``) carried to the trunk:
   input is the concat of parts already quantized;
 - per-output-channel int8 weights with the parts' scales folded into the
   kernel's c_in axis;
-- int8 × int8 → int32 convs dequantized in the epilogue (the growth convs
-  3×3×3 and the LFF 1×1×1 with its bias, through ``conv3d_int8``, the
-  port's CUDA kernel); LeakyReLU, the residual adds and the 0.2 scalings
-  stay float, cast to the compute dtype where JAX casts.
+- int8 × int8 → int32 convs (the port's CUDA kernels): the growth convs
+  3×3×3 dequantize, apply LeakyReLU and requantize in their epilogue
+  (``conv3d_int8_requant``, into the step's int8 concat buffer), the LFF
+  1×1×1 dequantizes with its bias (``conv3d_int8``); the residual adds
+  and the 0.2 scalings stay float, cast to the compute dtype where JAX
+  casts.
 
 The trunk math mirrored is the port's RDB/RRDB modules
 (``models/blocks.py``). Parameters are a port ``Generator3D`` state_dict
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 
 from gan_sr_wind_field_tpu_torch.ops.conv_int8 import (
     conv3d_int8,
+    conv3d_int8_requant,
     pack_conv_int8,
 )
 from gan_sr_wind_field_tpu_torch.ops.quant import (
@@ -163,26 +166,32 @@ def trunk_int8_apply(qt: QuantizedTrunk, x: torch.Tensor,
                      ) -> torch.Tensor:
     """int8 trunk forward: ``trunk_reference_amax``'s forward up to the
     int8 rounding of activations and weights; num_convs · J launches of
-    the int8 conv kernel (K growth convs and the LFF per RDB step)."""
+    the int8 conv kernels. Per RDB step one int8 buffer of nf + K·gc
+    channels holds the concat: the step's input quantized into its first
+    nf, each growth conv (``conv3d_int8_requant``) reading the channels
+    before its own and writing its gc requantized channels after them,
+    and the LFF (``conv3d_int8``) reading it whole."""
     K = qt.num_convs - 1
     lp = (qt.lff_kern - 1) // 2
     cdt = out_dtype
     # JAX's weak typing: a python scale times a cdt array is a cdt scale
     rrdb_scale = torch.tensor(qt.rrdb_scale, dtype=cdt, device=x.device)
     out = x.to(cdt)
+    nf = out.shape[-1]
+    gc = qt.s_c.shape[-1]
     j = 0
     for _ in range(qt.num_rrdb):
         rr_in = out
         for _ in range(3):
-            parts_q = [quantize_act(out, qt.s_x[j])]
+            buf = torch.empty((*out.shape[:-1], nf + K * gc),
+                              dtype=torch.int8, device=x.device)
+            buf[..., :nf] = quantize_act(out, qt.s_x[j])
             for k in range(K):
-                inq = parts_q[0] if k == 0 else torch.cat(parts_q, dim=-1)
-                c = conv3d_int8(inq, qt.wq[k][j], 1, qt.sw[k][j],
-                                packed=qt.packed[k][j])
-                c = F.leaky_relu(c, qt.negative_slope)
-                parts_q.append(quantize_act(c, qt.s_c[j, k]))
-            inq = torch.cat(parts_q, dim=-1)
-            res = conv3d_int8(inq, qt.wq_lff[j], lp, qt.sw_lff[j],
+                ci = nf + k * gc
+                conv3d_int8_requant(buf, ci, qt.wq[k][j], 1, qt.sw[k][j],
+                                    qt.s_c[j, k], qt.negative_slope, buf,
+                                    ci, packed=qt.packed[k][j])
+            res = conv3d_int8(buf, qt.wq_lff[j], lp, qt.sw_lff[j],
                               bias=qt.b_lff[j], packed=qt.packed_lff[j])
             out = (res * qt.rdb_scale).to(cdt) + out
             j += 1

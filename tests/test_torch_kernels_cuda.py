@@ -12,7 +12,13 @@ import torch
 import torch.nn.functional as F
 
 from _torch_head_geoms import HEAD_GEOMS
-from _torch_int8_geoms import INT8_GEOMS
+from _torch_int8_geoms import (
+    INT8_GEOMS,
+    PAIR_GEOMS,
+    REQUANT_GEOMS,
+    pair_inputs,
+    requant_inputs,
+)
 from _torch_stencil_geoms import STENCIL_GEOMS
 from _torch_trunk_geoms import TC_GEOMS
 from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
@@ -576,9 +582,74 @@ def test_conv_int8_kernel_matches_plain_version_on_card(cuda_device, geom):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("geom", PAIR_GEOMS)
+def test_head_pair_int8_kernel_matches_plain_version_on_card(cuda_device,
+                                                             geom,
+                                                             out_dtype):
+    """One launch for both convs, bit for bit: the main conv's columns
+    rounded once to the output's dtype, the remainder's float32 partials."""
+    xq, wm, sm, wr, sr = (None if v is None else v.to(cuda_device)
+                          for v in pair_inputs(geom, sum(geom)))
+    k, cm, cr = geom[7], geom[5], geom[6]
+    p = (k - 1) // 2
+    width = cm + 16
+    before = int8_mod.pair_launches
+    out, partial = int8_mod.head_pair_int8(xq, wm, sm, p, wr, sr,
+                                           width=width, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_mod.pair_launches == before + 1
+    want, want_partial = int8_mod.head_pair_int8_reference(
+        xq, wm, sm, p, wr, sr, width=width, out_dtype=out_dtype)
+    assert out.shape == want.shape and out.dtype == out_dtype
+    assert torch.equal(out[..., :cm], want[..., :cm])
+    if cr:
+        assert partial.dtype == torch.float32
+        assert torch.equal(partial, want_partial)
+    else:
+        assert partial is None and want_partial is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", REQUANT_GEOMS)
+def test_conv_int8_requant_kernel_matches_plain_version_on_card(cuda_device,
+                                                                geom):
+    """One launch, bit for bit: the conv of the first ci channels, its
+    LeakyReLU and quantize_act written at the column offset, every other
+    byte of the output as it was."""
+    N, X, Y, Z, ci, co, ldx, ldo, col, same, k = geom
+    buf, wq, s, sc, out = (v.to(cuda_device)
+                           for v in requant_inputs(geom, sum(geom[:9])))
+    if same:
+        out = buf
+    p = (k - 1) // 2
+    want = int8_mod.conv3d_int8_requant_reference(
+        buf.clone(), ci, wq, p, s, sc, 0.2,
+        buf.clone() if same else out.clone(), col)
+    before = int8_mod.requant_launches
+    got = int8_mod.conv3d_int8_requant(buf, ci, wq, p, s, sc, 0.2, out, col,
+                                       packed=int8_mod.pack_conv_int8(wq))
+    torch.cuda.synchronize()
+    assert int8_mod.requant_launches == before + 1 and got is out
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_conv_int8_plan_counts_the_kernels_shared_memory(cuda_device):
-    assert int8_mod.kernel_smem(True) == int8_mod.WIDE_TILE.smem_bytes
-    assert int8_mod.kernel_smem(False) == int8_mod.NARROW_TILE.smem_bytes
+    """The plans' shared memory is the library's own count, for every tile
+    at the card tests' and the served geometries."""
+    calls = [(g[3], g[6], g[7]) for g in INT8_GEOMS] + [
+        (10, (5, 5, 5), (2, 2, 2)), (10, (1, 1, 5), (0, 0, 2)),
+        (10, (3, 3, 3), (1, 1, 1)), (10, (1, 1, 1), (0, 0, 0))]
+    for tile in int8_mod.TILES:
+        for Z, k, pad in calls:
+            assert int8_mod.kernel_smem(tile, Z, k, pad) == tile.smem_bytes(
+                Z, k, pad), (tile, Z, k)
+    plan = int8_mod.plan_head_pair_int8((8, 64, 64, 10), 128, 128, 400,
+                                        (5, 5, 5), 2)
+    assert plan["smem"] == max(
+        int8_mod.kernel_smem(int8_mod.HEAD_TILE, 10, (5, 5, 5), 2),
+        int8_mod.kernel_smem(int8_mod.REM_TILE, 10, (1, 1, 5), (0, 0, 2)))
 
 
 @pytest.mark.cuda
@@ -590,3 +661,28 @@ def test_conv_int8_kernel_refuses_what_it_does_not_take(cuda_device):
         int8_mod.conv3d_int8(xq.float(), wq, 1, s)
     with pytest.raises(ValueError, match="packed"):
         int8_mod.conv3d_int8(xq, wq, 1, s, packed=wq.contiguous())
+
+
+@pytest.mark.cuda
+def test_conv_int8_requant_refuses_a_pitch_or_offset(cuda_device):
+    """The requantizing wrapper raises, before any launch, for an input
+    pitch or ci that is not a multiple of 16, output columns past the
+    output's pitch, and columns that overlap the input channels of the
+    same buffer."""
+    gen = torch.Generator().manual_seed(9)
+    wq = torch.randint(-127, 128, (3, 3, 3, 32, 8), generator=gen,
+                       dtype=torch.int8).to(cuda_device)
+    s = torch.full((8,), 1e-3, device=cuda_device)
+    buf = torch.zeros((1, 4, 4, 4, 64), dtype=torch.int8, device=cuda_device)
+    odd = torch.zeros((1, 4, 4, 4, 40), dtype=torch.int8, device=cuda_device)
+    before = int8_mod.requant_launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_mod.conv3d_int8_requant(odd, 32, wq, 1, s, s, 0.2, buf, 32)
+    with pytest.raises(ValueError, match="do not fit"):
+        int8_mod.conv3d_int8_requant(buf, 32, wq, 1, s, s, 0.2, buf, 60)
+    with pytest.raises(ValueError, match="overlap"):
+        int8_mod.conv3d_int8_requant(buf, 32, wq, 1, s, s, 0.2, buf, 24)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_mod.conv3d_int8_requant(buf[..., :48], 32, wq, 1, s, s, 0.2,
+                                     buf, 48)
+    assert int8_mod.requant_launches == before

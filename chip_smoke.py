@@ -2,7 +2,9 @@
 """Chip smoke for the PyTorch port: serve, train and evaluate the
 full-width 4x generator on one NVIDIA card through the hand-written CUDA
 kernels, train in chunks of CUDA graphs, SR a field of any extent, and
-deploy it: int8 serving, the torch.export artifact, interpolation.
+deploy it: int8 serving, the torch.export artifact, interpolation; then
+the reference's users: .pth checkpoints into the readers at 8x and 16x,
+the physics-weight search and bf16 Adam moments.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -54,7 +56,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      launch count rises by what one step predicts (no head launches);
      then the same on a copy with use_pallas_head, after its G step's
      gradients against the module head's (<= 2e-2);
-  6. CUDA-event times (1 warm-up, 5 repeats; 2 for a call over 0.2 s):
+  6. CUDA-event times (1 warm-up, 5 repeats; 2 for a call over 0.1 s,
+     1 over 0.2 s):
      the serving forward at batch
      8 with each layer alone, the trunk kernel, its plain version and a
      bf16 cuDNN chain; at batch 32 the G and D steps with their parts
@@ -66,7 +69,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cold (a 128 MiB scratch read before each launch), beside the event
      time of 5 calls through the wrapper. The trunk kernels and their
      library chains are timed in turns, kernel-library-library-kernel over
-     3 rounds, and the medians kept (serving at batch 8, residual mode and backward at 32),
+     2 rounds, and the medians kept (serving at batch 8, residual mode and
+     backward at 32),
      and one call of each under torch.profiler splits its time by kernel
      against the time the card waits on the host loop.
      Before they are timed, the residual mode and
@@ -85,25 +89,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      directory, with log_period 4, val_period 8, save_model_period 8,
      keep_checkpoints 2 and d_g_train_period 4 and all else as committed
      (bf16, batch 32, device-resident data, on-card augmentation, the warm
-     start from the 6k pack), to --max_steps 6016: the data feed's parts
-     timed alone first (synthetic cache, preprocess, npcache, resident
-     volumes, upload; one slice_batch + augment_batch at batch 32); then
-     the leg starts at it 6000, logs finite losses at 6004..6016,
-     validates at 6008 and 6016, keeps ckpt_6008 and ckpt_6016, and each
+     start from the 6k pack), to --max_steps 6012: the data feed's host
+     parts timed in a thread beside phases 3 to 5 (synthetic cache,
+     preprocess, npcache, resident volumes), then the upload and one
+     slice_batch + augment_batch at batch 32 timed alone; then
+     the leg starts at it 6000, logs finite losses at 6004..6012,
+     validates at 6008, keeps ckpt_6008 and the final ckpt_6012, and each
      kernel's launches equal what its G steps, D steps, validation batches
      and generate calls predict; the loop's steady-state G and D step
      (CUDA events from one step's start to the next, iterations without
      boundary work) beside phase 6's bare train_step, a validation sweep
-     and a checkpoint save with its bytes; restore_checkpoint(ckpt_6016)
+     and a checkpoint save with its bytes; restore_checkpoint(ckpt_6012)
      equals the live state bit for bit, the generator's state included;
-     a second leg resumed from a copy of ckpt_6008 to 6016, each tree's
+     a second leg resumed from a copy of ckpt_6008 to 6012, each tree's
      largest difference from the first leg printed (bit-exact, or within
      1e-3 relative L2 where the card's step is not deterministic);
   8. evaluate, use and serve what the port trains, in phase 7's temporary
-     directory on its data: pack_from_state of the live state at 6016 in
+     directory on its data: pack_from_state of the live state at 6012 in
      float32 and bf16 (in two threads, beside the rest of phase 8), read
      back bit for bit (bf16: the state rounded by
-     torch); WindFieldSR.from_checkpoint(ckpt_6016) serves a batch of 8
+     torch); WindFieldSR.from_checkpoint(ckpt_6012) serves a batch of 8
      (one trunk launch), equal bit for bit to gan.generate with the
      state's EMA, and eval/server.py's main with --checkpoint builds the
      same backend;
@@ -164,16 +169,55 @@ Phases, each fatal on failure (non-zero exit, no result line):
      predicted (trunk kernel / conv_int8: (1, 0), (1, 1), (0, 240), (0,
      241)), every entry point launched, each int8 path's output equal bit
      for bit to the same batch through the entry points' plain versions
-     on the card, and each path's serving ms at batch 8 and 32 beside kernel
-     5's; (c) run.py --export writes the artifact (bytes, export
+     on the card, and each path's serving ms at batch 8 and 32 beside
+     kernel 5's; (c) run.py --export --device cpu, in a process of its
+     own from phase 7's start, writes the artifact (bytes, export
      seconds); eval/server.py --artifact builds its ExportedSR on the
      card (seconds); at batch 1 and 8 it is within 1e-5 of WindFieldSR's
      plain path and 3e-2 of the kernel path, launching no kernel; its
      serving ms beside the kernel path's; a subprocess importing only
      torch, json and struct runs the payload (1e-5); (d) eval.interp
-     blends the 9k and 6k packs: alpha 1 and 0 reproduce each pack's
-     generator tensor by tensor, alpha 0.5 writes an artifact that
-     serves a finite batch within 1e-5 of the blend's plain path.
+     --device cpu, in a process of its own from phase 7's start, blends
+     the 9k and 6k packs: alpha 1 and 0 reproduce each pack's generator
+     tensor by tensor, alpha 0.5 writes an artifact that serves the 8 test
+     fields on the card within 1e-5 of the blend's plain path. Both
+     command lines run at a lower priority on the host's spare cycles.
+  11. the reference's users, in phase 7's temporary directory on its
+     data: (a) seeded full-width generators of configs/fullvol8x3k.ini
+     and fullvol16x2k.ini written as reference G.pth files
+     (save_reference_checkpoint) and read back bit for bit;
+     WindFieldSR.from_checkpoint(cfg, G.pth) serves full volumes (8x: 8
+     of LR 16x16x10 -> HR 128x128x10; 16x: 1 of LR 8x8x10), equal bit for
+     bit to WindFieldSR on the seeded weights, one trunk launch a batch,
+     each forward's ms; a seeded milestone9k D (statistics moved) through
+     D.pth forwards bit for bit as the seeded one; kernel 1 against its
+     plain version on the trunk input of each served batch and of one
+     volume at 8x (LR 16x16x10 batch 8 and 1) and 16x (8x8x10 batch 1),
+     its residual mode and kernel 2 at 8x batch 8, and kernels 3 and 4 at
+     HR 128x128x10 batch 8 and 1 and 64x64x10 batch 8 (the search's),
+     with the adjoint identity, at phase 3's limits; (b) run.py --test on a
+     copy of fullvol8x3k from G.pth: 23 finite rows, one trunk launch per
+     field, PSNR against trilinear (seeded weights: no quality bound);
+     (c) run.py --train on a copy of fullvol8x3k warm-started from G.pth,
+     4 G steps at batch 8 (no-adv, as committed) and one validation:
+     finite totals, G and its EMA at the first step the imported G,
+     launches 4 x (1, 1, 2, 1, 0) plus the validation batches' and one
+     generate's, the G step's ms; (d) run.py --param_search on a copy of
+     milestone9k at batch 8, niter 8, validation every 4 its,
+     --num_samples 4 --asha_grace 2 --asha_eta 2: 4 records with finite
+     PSNRs, stops only at ASHA's rungs, each trial's first G-step total
+     within 1e-5 of the sum of its own weights' losses (recomputed with
+     unit weights on a copy of its state, batch and draws, after the
+     search's launches are read), trial 0 against a bare
+     weighted train_step loop from its seed (bit-exact, or within 1e-3
+     relative L2), launches as its G steps and validation batches
+     predict, seconds per trial; (e) optimizer_state_dtype bfloat16_sr on
+     a copy of milestone9k at batch 32: steps 48-51 (G, G, D, D) through
+     train_step and through train_chunk (CUDA graphs, 2 replays) from
+     copies of one state on the batches batch_at cuts: bit for bit,
+     moments bf16 and their bytes against float32's, launches (4, 2, 4,
+     2, 0) each, the G step's ms (median of its 49 and the next two G
+     steps) beside phase 6's float32 one.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -218,9 +262,9 @@ TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
 # the tensor-core instruction each library's tiles issue
 TC_MMA = {"rdb_trunk": "mma.sync", "rdb_trunk_bwd": "mma.sync",
           "hr_head": "wgmma"}
-TURN_ROUNDS = 3
-LONG_CALL_S = 0.2  # see cuda_ms
-VERY_LONG_CALL_S = 0.4
+TURN_ROUNDS = 2
+LONG_CALL_S = 0.1  # see cuda_ms
+VERY_LONG_CALL_S = 0.2
 # the card's names of kernels 3 and 4 (substrings of the profiler's keys)
 STENCIL_KERNELS = {"gradient": "grad_fwd", "adjoint": "grad_adj"}
 # the scratch read before a cold-L2 launch: 128 MiB, over twice the L2
@@ -241,6 +285,11 @@ HEAD_GRAD_TOL = 5e-3
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def done(part):
+    """Marks the end of a part of a phase, as ``phase_start`` its start."""
+    log(f"  ({part} done at {time.monotonic() - T0:.1f} s)")
 
 
 def phase_start(n):
@@ -750,13 +799,14 @@ def stencil_inputs(dev, n=32, xy=64, zl=10):
             (uvw, coords, coords, z.astype(np.float32), g9)]
 
 
-def check_stencil_kernels(dev):
-    """Phase 3, stencil: kernels 3 and 4 against their plain versions and
-    the adjoint identity. Returns the max abs errors."""
+def check_stencil_kernels(dev, n=32, xy=64):
+    """Kernels 3 and 4 against their plain versions and the adjoint
+    identity at (n, xy, xy, 10): phase 3 at the training shape, phase 11
+    at its own. Returns the max abs errors."""
     from gan_sr_wind_field_tpu_torch.ops import stencil
     from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
 
-    uvw, x, y, Z, g9 = stencil_inputs(dev)
+    uvw, x, y, Z, g9 = stencil_inputs(dev, n, xy)
     log(f"gradient stencil and adjoint at {tuple(uvw.shape)}:")
     got = stencil.wind_gradient(uvw, x, y, Z)
     want = wind_field_gradient(uvw, x, y, Z)
@@ -1753,10 +1803,10 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
     return res
 
 
-# phase 7: the leg of milestone9k the loop trains (it 6000 -> 6016 from the
-# 6k pack), its schedule cut so that 16 steps cross two G and two D blocks,
-# two validations and two checkpoints
-LEG_FROM, LEG_TO = 6000, 6016
+# phase 7: the leg of milestone9k the loop trains (it 6000 -> 6012 from the
+# 6k pack), its schedule cut so that 12 steps cross two G and two D blocks,
+# one validation and two checkpoints (one periodic, the final one)
+LEG_FROM, LEG_TO = 6000, 6012
 LEG_SCHEDULE = dict(log_period=4, val_period=8, save_model_period=8,
                     keep_checkpoints=2, d_g_train_period=4)
 LEG_DATA = ("--synthetic_hours", "240", "--synthetic_size", "128")
@@ -1890,25 +1940,55 @@ def tree_diffs(a, b):
     return out
 
 
-def loop_phase(dev, card, bare, tmp):
+def prepare_leg_data(tmp):
+    """Phase 7's data feed on the host, each part timed: the synthetic
+    cache, preprocess, the train split's npcache and its resident volumes.
+    It runs in a thread beside phases 3 to 5 (host work only, no card);
+    the leg then finds the files built. → (seconds by part, the training
+    and validation splits, the host volumes)."""
+    from gan_sr_wind_field_tpu_torch.data import preprocess
+    from gan_sr_wind_field_tpu_torch.data.device_data import (
+        load_resident_volumes,
+    )
+    from gan_sr_wind_field_tpu_torch.data.synthetic import (
+        generate_synthetic_cache,
+    )
+
+    cfg, _ = leg_config(tmp, "leg")
+    g = cfg.gan_config
+    hours, size = int(LEG_DATA[1]), int(LEG_DATA[3])
+    secs = {}
+    t = time.monotonic()
+    generate_synthetic_cache(cfg.env.data_root, hours, size, size,
+                             g.number_of_z_layers)
+    secs["cache"] = time.monotonic() - t
+    t = time.monotonic()
+    ds_train, _, ds_val, _, _ = preprocess(
+        cfg, synthetic=True, synthetic_hours=hours, synthetic_size=size)
+    secs["pre"] = time.monotonic() - t
+    t = time.monotonic()
+    ds_train.use_npcache()  # builds the memmap of the train split
+    secs["npc"] = time.monotonic() - t
+    t = time.monotonic()
+    full, zraw = load_resident_volumes(ds_train)
+    secs["host"] = time.monotonic() - t
+    return secs, ds_train, ds_val, full, zraw
+
+
+def loop_phase(dev, card, bare, tmp, data, waited):
     """Phase 7: python -m gan_sr_wind_field_tpu_torch.run --train on a copy
-    of milestone9k in ``tmp``, from the 6k pack, 16 steps; then the
-    checkpoint round trip and a resumed leg. Returns the leg's launches,
-    its live state at the end and the path of its last checkpoint."""
+    of milestone9k in ``tmp``, from the 6k pack, 12 steps; then the
+    checkpoint round trip and a resumed leg. ``data`` is the done future
+    of ``prepare_leg_data``, which phase 7 waited ``waited`` seconds for.
+    Returns the leg's launches, its live state at the end and the path of
+    its last checkpoint."""
     import shutil
 
     import torch
 
     from gan_sr_wind_field_tpu_torch import run
-    from gan_sr_wind_field_tpu_torch.data import preprocess
     from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
-    from gan_sr_wind_field_tpu_torch.data.device_data import (
-        load_resident_volumes,
-        slice_batch,
-    )
-    from gan_sr_wind_field_tpu_torch.data.synthetic import (
-        generate_synthetic_cache,
-    )
+    from gan_sr_wind_field_tpu_torch.data.device_data import slice_batch
     from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 
     cfg, ini = leg_config(tmp, "leg")
@@ -1917,21 +1997,10 @@ def loop_phase(dev, card, bare, tmp):
     log(f"loop: {os.path.basename(CFG)} copy, it {LEG_FROM} -> {LEG_TO} "
         f"from the 6k pack, schedule {LEG_SCHEDULE}, data {hours} h at "
         f"{size}x{size}x{g.number_of_z_layers}")
-    # the data feed, each part alone; the leg then finds them built
-    t = time.monotonic()
-    generate_synthetic_cache(cfg.env.data_root, hours, size, size,
-                             g.number_of_z_layers)
-    s_cache = time.monotonic() - t
-    t = time.monotonic()
-    ds_train, _, ds_val, _, _ = preprocess(
-        cfg, synthetic=True, synthetic_hours=hours, synthetic_size=size)
-    s_pre = time.monotonic() - t
-    t = time.monotonic()
-    ds_train.use_npcache()  # builds the memmap of the train split
-    s_npc = time.monotonic() - t
-    t = time.monotonic()
-    full, zraw = load_resident_volumes(ds_train)
-    s_host = time.monotonic() - t
+    # the data feed's host parts, timed in their thread; the upload here
+    secs, ds_train, ds_val, full, zraw = data.result()
+    s_cache, s_pre, s_npc, s_host = (secs[k] for k in
+                                     ("cache", "pre", "npc", "host"))
     torch.cuda.synchronize()
     t = time.monotonic()
     full_d = torch.from_numpy(full).to(dev)
@@ -1943,7 +2012,8 @@ def loop_phase(dev, card, bare, tmp):
     del full, zraw
     log(f"  data feed: synthetic cache {s_cache:.3f} s, preprocess "
         f"{s_pre:.3f} s, npcache {s_npc:.3f} s, resident volumes on the "
-        f"host {s_host:.3f} s, upload {s_up:.3f} s ({mb:.1f} MB, "
+        f"host {s_host:.3f} s (in a thread beside phases 3 to 5; phase 7 "
+        f"waited {waited:.3f} s for it), upload {s_up:.3f} s ({mb:.1f} MB, "
         f"{len(ds_train)} train / {len(ds_val)} val volumes) ({card})")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2021,7 +2091,8 @@ def loop_phase(dev, card, bare, tmp):
             or not all(math.isfinite(float(v)) for r in logged
                        for v in r[1:3])):
         fail(f"logged lines {logged}")
-    if [int(v[0]) for v in vals] != [LEG_FROM + 8, LEG_TO] or not all(
+    val_its = [it for it in its if it % cfg.training.val_period == 0]
+    if [int(v[0]) for v in vals] != val_its or not all(
             math.isfinite(float(x)) for v in vals for x in v[1:]):
         fail(f"validation lines {vals}")
     if "continuation warm start" not in status or f"at it={LEG_FROM}" \
@@ -2071,6 +2142,7 @@ def loop_phase(dev, card, bare, tmp):
         fail("the checkpoint round trip is not bit-exact")
     del restored
 
+    done("the leg and its checks")
     # a resumed leg from ckpt_6008, in a copy of the run folder
     copy = os.path.join(tmp, "resume_from")
     shutil.copytree(run_folder, copy,
@@ -2225,47 +2297,89 @@ def cli_pass(label, cwd, *argv):
     return out, probe, launches, secs
 
 
+def check_trunk_at(G, packed, lr, train, seed):
+    """Kernel 1 on G's trunk input of the LR batch ``lr`` (the shape a
+    served, tested or trained batch gives it; phases 8 and 11) against its
+    plain version in the same dtype; with ``train`` also its residual mode
+    and kernel 2 on the plain residuals and a seeded cotangent. Phase 3's
+    tolerances; no count is read. Returns the max abs errors (forward,
+    backward or None)."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.models.fused_apply import trunk_geometry
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
+        pack_trunk_weights_bwd,
+        rrdb_trunk,
+        rrdb_trunk_bwd,
+        rrdb_trunk_bwd_reference,
+        rrdb_trunk_reference,
+    )
+
+    geom = trunk_geometry(G)
+    tol = 3e-2 if G.dtype == torch.bfloat16 else 1e-4
+    with torch.no_grad():
+        x = G.feature_conv(lr.to(G.dtype)).contiguous()
+        xf = x.float()
+        got = rrdb_trunk(packed, x, **geom).float()
+        want = rrdb_trunk_reference(packed, x, **geom).float()
+        shape = tuple(x.shape)
+        check(f"trunk kernel vs plain at {shape} {x.dtype} (increment)",
+              rel_l2(got - xf, want - xf), tol)
+        fwd = (got - want).abs().max().item()
+        log(f"  max abs {fwd:.3e} of max |out| "
+            f"{want.abs().max().item():.3e}")
+        del got, want
+        if not train:
+            return fwd, None
+        got = rrdb_trunk(packed, x, with_residuals=True, **geom)
+        want = rrdb_trunk_reference(packed, x, with_residuals=True, **geom)
+        check(f"residual mode at {shape}, out increment",
+              rel_l2(got[0].float() - xf, want[0].float() - xf), tol)
+        check(f"residual mode at {shape}, states",
+              rel_l2(got[1].float(), want[1].float()), tol)
+        check(f"residual mode at {shape}, growths",
+              rel_l2(got[2].float(), want[2].float()), tol)
+        growths = want[2]
+        del got, want
+        packed_t = pack_trunk_weights_bwd(packed, nf=x.shape[-1],
+                                          gc=geom["gc"],
+                                          num_convs=geom["num_convs"])
+        d_out = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            seed)).to(x.device, x.dtype)
+        got = rrdb_trunk_bwd(packed_t, growths, d_out, **geom)
+        want = rrdb_trunk_bwd_reference(packed_t, growths, d_out, **geom)
+        bwd = 0.0
+        for label, g, w in zip(("d_x", "dU", "dLFF"), got, want):
+            check(f"trunk backward at {shape}, {label}",
+                  rel_l2(g.float(), w.float()), tol)
+            bwd = max(bwd, (g.float() - w.float()).abs().max().item())
+    return fwd, bwd
+
+
 def check_trunk_on_field(ini, probe, dev):
-    """The trunk kernel on the trunk input of the first field a test pass
-    generated (batch 1 at LR 32x32x10, nf 128, its state's G) against its
-    plain version in the same dtype: the increment within 3e-2, as phase 3
-    holds it. No count is read: the pass's own run is over."""
+    """``check_trunk_at`` on the trunk input of the first field a test
+    pass generated (batch 1 at LR 32x32x10, nf 128, its state's G). No
+    count is read: the pass's own run is over."""
     import torch
 
     from gan_sr_wind_field_tpu_torch.config import load_config
-    from gan_sr_wind_field_tpu_torch.models.fused_apply import trunk_geometry
     from gan_sr_wind_field_tpu_torch.models.generator import (
         generator_from_config,
     )
-    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
-        pack_trunk_weights,
-        rrdb_trunk,
-        rrdb_trunk_reference,
-    )
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import pack_trunk_weights
 
     G = generator_from_config(load_config(ini), device=dev)
     G.load_state_dict(probe.last[1].params_G, strict=True)
     lr = torch.as_tensor(probe.first[0], device=dev)
-    with torch.no_grad():
-        x = G.feature_conv(lr.to(G.dtype)).contiguous()
-        packed = pack_trunk_weights(G.rrdbs, G.dtype, dev)
-        geom = trunk_geometry(G)
-        got = rrdb_trunk(packed, x, **geom).float()
-        want = rrdb_trunk_reference(packed, x, **geom).float()
-    xf = x.float()
-    log(f"  trunk kernel on the test field's trunk input {tuple(x.shape)} "
-        f"{x.dtype}, {len(G.rrdbs)} RRDB: max abs "
-        f"{(got - want).abs().max().item():.3e} of max |out| "
-        f"{want.abs().max().item():.3e}")
-    check("trunk kernel vs plain at the test volume (increment)",
-          rel_l2(got - xf, want - xf), 3e-2)
-    del G, packed, got, want
+    check_trunk_at(G, pack_trunk_weights(G.rrdbs, G.dtype, dev), lr, False,
+                   0)
+    del G
     torch.cuda.empty_cache()
 
 
 def eval_phase(dev, card, tmp, state, ckpt_path):
     """Phase 8: pack the live state of phase 7 and read it back, serve its
-    ckpt_6016 (from_checkpoint and the server's --checkpoint), then the
+    ckpt_6012 (from_checkpoint and the server's --checkpoint), then the
     held-out test chain, --test_ema, a pass through the HR-head kernel and
     --use, as a user runs them (run.main in process). Returns the trunk
     and head kernels' launches and times."""
@@ -2292,19 +2406,30 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
         params_from_jax,
     )
 
-    # 1. the pack of the live state, written in two threads (zlib, the
-    # bulk of a write, runs without the GIL) while steps 2 to 5 run; read
-    # back before step 6 times anything
+    # 1. the pack of the live state, written and read back in two threads
+    # (zlib, the bulk of a write and a read, runs without the GIL) while
+    # steps 2 to 5 run, against a host copy of the state made first
     from concurrent.futures import ThreadPoolExecutor
 
-    want = {"G": state.params_G, "Gema": state.params_G_ema,
-            "D": {**state.params_D, **state.batch_stats_D}}
+    want = {tree: {k: v.cpu() for k, v in ref.items()} for tree, ref in (
+        ("G", state.params_G), ("Gema", state.params_G_ema),
+        ("D", {**state.params_D, **state.batch_stats_D}))}
 
     def write(store):
         t0 = time.monotonic()
-        out = pack_from_state(os.path.join(tmp, f"pack_{store}.npz"), state,
-                              store_dtype=store)
-        return out, time.monotonic() - t0
+        path = pack_from_state(os.path.join(tmp, f"pack_{store}.npz"), state,
+                               store_dtype=store)
+        secs = time.monotonic() - t0
+        pack = load_continuation(path)
+        got = {"G": params_from_jax(pack["params_G"]),
+               "Gema": params_from_jax(pack["params_G_ema"]),
+               "D": d_params_from_jax(pack["params_D"],
+                                      pack["batch_stats_D"])}
+        exact = {tree: sorted(got[tree]) == sorted(ref) and all(
+            torch.equal(got[tree][k], v if store == "float32"
+                        else v.to(torch.bfloat16).float())
+            for k, v in ref.items()) for tree, ref in want.items()}
+        return path, secs, exact, pack["it"]
 
     t_packs = time.monotonic()
     pool = ThreadPoolExecutor(max_workers=2)
@@ -2314,27 +2439,16 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
 
     def check_packs():
         for store, future in writes.items():
-            path, secs = future.result()
-            pack = load_continuation(path)
-            got = {"G": params_from_jax(pack["params_G"]),
-                   "Gema": params_from_jax(pack["params_G_ema"]),
-                   "D": d_params_from_jax(pack["params_D"],
-                                          pack["batch_stats_D"])}
-            exact = {}
-            for tree, ref in want.items():
-                exact[tree] = sorted(got[tree]) == sorted(ref) and all(
-                    torch.equal(got[tree][k], v.cpu() if store == "float32"
-                                else v.cpu().to(torch.bfloat16).float())
-                    for k, v in ref.items())
+            path, secs, exact, it = future.result()
             log(f"  pack_from_state(it {state.it}) in {store}: "
                 f"{os.path.getsize(path)} bytes in {secs:.3f} s; read back "
-                f"bit for bit {exact}, it {pack['it']}")
-            if not all(exact.values()) or pack["it"] != state.it:
+                f"bit for bit {exact}, it {it}")
+            if not all(exact.values()) or it != state.it:
                 fail(f"the {store} pack does not read back as the state")
-        log(f"  the two packs written beside steps 2-5, done "
+        log(f"  the two packs written and read back beside steps 2-5, done "
             f"{time.monotonic() - t_packs:.3f} s after their start")
 
-    # 2. serve ckpt_6016: from_checkpoint, and the server's --checkpoint
+    # 2. serve ckpt_6012: from_checkpoint, and the server's --checkpoint
     run_cfg = os.path.join(os.path.dirname(ckpt_path), "config.ini")
     cfg = load_config(run_cfg)
     g = cfg.gan_config
@@ -2372,6 +2486,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     same = np.array_equal(captured["backend"].upscale(lr, z), got)
     log(f"  eval/server.py --checkpoint: backend built, its batch of 8 "
         f"equal to from_checkpoint's {same}")
+    done("serving the leg's last checkpoint")
     if not same:
         fail("the server's --checkpoint backend serves other weights")
     del captured
@@ -2427,6 +2542,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     # the trunk kernel at the test volume's geometry against its plain
     # version, on the trunk input of the pass's first field
     check_trunk_on_field(copy_ini, raw_probe, dev)
+    done("--test and --test --test_ema")
 
     # 4. the same pass through the HR-head kernel (use_pallas_head_nograd)
     head_ini = test_copy(tmp, "test_head", use_pallas_head_nograd=True)
@@ -2680,6 +2796,7 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
     if not all(named.values()):
         fail("the trace misses a kernel of the chunked leg")
 
+    done("(a)")
     # (b) the host data path, per step
     cfg, ini = leg_config(tmp, "hostpath")
     cfg.device_resident_data = False
@@ -2723,6 +2840,7 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
     del state
     torch.cuda.empty_cache()
 
+    done("(b)")
     # (c) upscale_tiled at the server's tile, on the 6k pack
     mcfg = load_config(CFG)
     sr = WindFieldSR.from_continuation(mcfg, PACK_6K, use_ema=False,
@@ -2768,11 +2886,16 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
         t = time.monotonic()
         out = s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
                                batch=TILE_BATCH)
+        secs = [time.monotonic() - t]
         n = counters()
-        # three timed calls, one where the warm-up took over
-        # VERY_LONG_CALL_S (as cuda_ms)
-        reps = 1 if time.monotonic() - t > VERY_LONG_CALL_S else 3
-        secs = []
+        # the module head's path is warm (the test field's tiles ran its
+        # shapes just before): its counted call is its one timed call; the
+        # head kernel's is a warm-up, then three timed calls, one where
+        # the warm-up took over VERY_LONG_CALL_S (as cuda_ms)
+        reps = 0
+        if label == "head kernel":
+            reps = 1 if secs[0] > VERY_LONG_CALL_S else 3
+            secs = []
         for _ in range(reps):
             t = time.monotonic()
             s_.upscale_tiled(big_lr, big_z, tile=TILE, overlap=OVERLAP,
@@ -2782,9 +2905,9 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
         big[label] = (ms, n)
         log(f"  upscale_tiled HR {big_z.shape[0]}x{big_z.shape[1]}x"
             f"{big_z.shape[2]}, {label}: {len(coords)} tiles in {n_big} "
-            f"batches, {ms:.3f} ms (median of {reps}, host clock, upload "
-            f"and download included), {vox / (ms / 1e3):.4e} HR voxels/s; "
-            f"launches {LAUNCH_LABELS} {n} ({card})")
+            f"batches, {ms:.3f} ms (median of {len(secs)}, host clock, "
+            f"upload and download included), {vox / (ms / 1e3):.4e} HR "
+            f"voxels/s; launches {LAUNCH_LABELS} {n} ({card})")
         want_n = (n_big, 0, 0, 0, n_big if label == "head kernel" else 0)
         if (n != want_n or out.shape != (*big_z.shape[:3], 3)
                 or not np.isfinite(out).all()):
@@ -3072,49 +3195,95 @@ def psnr_db(got, ref):
                            / max(mse, 1e-30))
 
 
-def deploy_phase(dev, card, tmp, built):
+# the processes the smoke starts, stopped at its end whatever happens
+CHILDREN = []
+
+
+def start_clis(tmp):
+    """Phase 10's two command lines, each in a process of its own from
+    phase 7's start (once its data is built: the export's header takes
+    its normalization factors): run.py --export of the 6k pack's EMA
+    generator and eval.interp, the blend of the 9k and 6k packs at 0.5.
+    Both are asked for the CPU (--device cpu, 2 threads) and run at a
+    lower scheduling priority, so that they take the host's spare cycles
+    beside phases 7 to 9 and no card time from what those measure; the
+    card loads their artifacts in phase 10. → {name: (process, wall-clock
+    start, artifact path)}."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, *filter(None, [env.get("PYTHONPATH")])])
+    art, blend = (os.path.join(tmp, f) for f in ("gen.wsrx", "blend.wsrx"))
+    procs = {}
+    for name, argv, out in (
+            ("export", ["gan_sr_wind_field_tpu_torch.run", "--cfg",
+                        test_copy(tmp, "export"), "--export", art,
+                        "--synthetic", *LEG_DATA], art),
+            ("interp", ["gan_sr_wind_field_tpu_torch.eval.interp", "--cfg",
+                        test_copy(tmp, "interp"), "--gan", PACK_9K, "--psnr",
+                        PACK_6K, "--alpha", "0.5", "--out", blend], blend)):
+        cwd = os.path.join(tmp, f"cwd_{name}")
+        os.makedirs(cwd, exist_ok=True)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv, "--device", "cpu"], cwd=cwd,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        CHILDREN.append(proc)
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+        procs[name] = (proc, time.time(), out)
+    return procs
+
+
+def finish(name, procs, timeout):
+    """Wait for one of ``start_clis``'s processes: → (its output, its
+    artifact's path, seconds from its start to the artifact's last
+    write). Fails unless it exited 0."""
+    proc, t0, path = procs[name]
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{name} failed:\n{out}")
+    return out, path, os.path.getmtime(path) - t0
+
+
+def log_seconds(out, first, last):
+    """Seconds between the status lines holding ``first`` and ``last`` in
+    a command line's output (their logging timestamps)."""
+    import datetime
+
+    def at(text):
+        m = re.search(r"^(\S+ \S+) INFO: .*" + re.escape(text), out, re.M)
+        if not m:
+            fail(f"no status line with {text!r} in:\n{out}")
+        return datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+
+    return (at(last) - at(first)).total_seconds()
+
+
+def deploy_phase(dev, card, tmp, built, procs):
     """Phase 10: (a) ``check_int8_kernel``; (b) run.py --serve 0
     --serve_int8 8 --serve_int8_trunk 8 (its main in process, with
     eval.server.serve replaced to keep the backend) calibrates on the
     first 8 test fields, then one batch of 8 other test fields through
     the exact path, the int8 head, the int8 trunk and both, each held to
     JAX's bound with its launches as predicted, and each path's serving
-    ms at batch 8 and 32 beside kernel 5's; (c) run.py --export, the
-    artifact's bytes and seconds, eval/server.py --artifact's backend
-    against the plain path and the kernel path at batch 1 and 8 and
-    timed, and a torch-only subprocess that runs the payload; (d)
-    eval.interp (its command line in another process, started before (b)):
-    the endpoints reproduce each pack, alpha 0.5 serves."""
+    ms at batch 8 and 32 beside kernel 5's; (c) run.py --export (its own
+    process, ``procs``), the artifact's bytes and seconds, eval/server.py
+    --artifact's backend against the plain path and the kernel path at
+    batch 1 and 8 and timed, and a torch-only subprocess that runs the
+    payload; (d) eval.interp (its own process, ``procs``): the endpoints
+    reproduce each pack, alpha 0.5 serves."""
     from gan_sr_wind_field_tpu_torch.config import load_config
 
     cfg = load_config(TEST_CFG)
     log(f"deploy: int8 conv kernel at {os.path.basename(TEST_CFG)}'s full "
         f"width ({card})")
     kernels = check_int8_kernel(cfg, dev, card, built)
-
-    # (d) starts first: eval.interp's command line in another process, on
-    # the card, while (b) and (c) run here
-    ini = test_copy(tmp, "deploy")
-    blend = os.path.join(tmp, "blend.wsrx")
-    t_interp = time.monotonic()
-    interp_proc = subprocess.Popen(
-        [sys.executable, "-m", "gan_sr_wind_field_tpu_torch.eval.interp",
-         "--cfg", ini, "--gan", PACK_9K, "--psnr", PACK_6K, "--alpha",
-         "0.5", "--out", blend, "--device", str(dev)], cwd=REPO,
-        stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    try:
-        return _deploy(dev, card, tmp, cfg, ini, blend, interp_proc,
-                       t_interp, kernels)
-    finally:
-        if interp_proc.poll() is None:
-            interp_proc.kill()
-            interp_proc.wait()
+    done("(a)")
+    return _deploy(dev, card, tmp, cfg, test_copy(tmp, "deploy"), procs,
+                   kernels)
 
 
-def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
-            kernels):
-    """Phase 10 (b) to (d), beside the running eval.interp process."""
+def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
+    """Phase 10 (b) to (d)."""
     import numpy as np
     import torch
 
@@ -3222,13 +3391,12 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
     lr32, z32 = (torch.cat([v] * 4) for v in (lr_d, z_d))
     serve_ms = {}
     for n, (lb, zb) in ((8, (lr_d, z_d)), (32, (lr32, z32))):
-        reps = 5 if n == 8 else 1
+        kw = dict(reps=5 if n == 8 else 1)
         for name, (h, q) in paths.items():
             sr.qhead, sr.qtrunk = h, q
-            serve_ms[(name, n)] = cuda_ms(lambda: sr._generate(lb, zb),
-                                          reps=reps)
+            serve_ms[(name, n)] = cuda_ms(lambda: sr._generate(lb, zb), **kw)
         serve_ms[("kernel 5", n)] = cuda_ms(lambda: sr_h._generate(lb, zb),
-                                            reps=reps)
+                                            **kw)
         log(f"  serving at batch {n}: " + ", ".join(
             f"{name} {serve_ms[(name, n)]:.3f} ms" for name in
             (*paths, "kernel 5")) + f" ({card})")
@@ -3245,25 +3413,15 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
     del sr, sr_h, lr32, z32, outs
     torch.cuda.empty_cache()
 
-    # (c) the artifact: run.py --export (phase 8 runs --use on the same
-    # weights), eval/server.py --artifact
-    art = os.path.join(tmp, "gen.wsrx")
-    real_export = run.export_generator
-    timing = {}
-
-    def timed_export(*a, **kw):
-        t0 = time.monotonic()
-        out = real_export(*a, **kw)
-        timing["export"] = time.monotonic() - t0
-        return out
-
-    run.export_generator = timed_export
-    try:
-        os.chdir(cwd)
-        run.main(["--cfg", ini, "--export", art, "--synthetic", *LEG_DATA])
-    finally:
-        os.chdir(old)
-        run.export_generator = real_export
+    done("(b)")
+    # (c) the artifact of run.py --export (phase 8 runs --use on the same
+    # weights), eval/server.py --artifact. The export's own seconds: from
+    # its EMA weights' status line to its artifact's
+    export_out, art, export_end = finish("export", procs, TIMEOUT_S * 5)
+    export_s = log_seconds(export_out, "using EMA generator weights",
+                           "exported generator")
+    for line in re.findall(r"^\S+ (\S+) INFO: (.{0,60})", export_out, re.M):
+        log(f"    run.py --export at {line[0]}: {line[1]}")
     header = read_header(art)
     if header["format_version"] != 2 or "norm_stats" not in header:
         fail(f"the artifact's header is {header}")
@@ -3290,95 +3448,86 @@ def _deploy(dev, card, tmp, cfg, ini, blend, interp_proc, t_interp,
                              str(dev)],
                             cwd=tmp, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    CHILDREN.append(proc)
+    t = time.monotonic()
+    server.serve = lambda backend, **kw: kept.update(backend=backend, **kw)
     try:
-        t = time.monotonic()
-        server.serve = lambda backend, **kw: kept.update(backend=backend,
-                                                         **kw)
-        try:
-            server.main(["--artifact", art, "--port", "0"])
-        finally:
-            server.serve = real_serve
-        load_s = time.monotonic() - t
-        ex = kept.pop("backend")
-        log(f"  run.py --export: {os.path.getsize(art)} bytes, "
-            f"exported in {timing['export']:.3f} s; eval/server.py "
-            f"--artifact built its {type(ex).__name__} backend in "
-            f"{load_s:.3f} s (tile {kept['tile']}, overlap "
-            f"{kept['tile_overlap']})")
-        if not isinstance(ex, ExportedSR) or ex.device.type != dev.type:
-            fail("eval/server.py --artifact built no ExportedSR on the card")
-        for n in (1, 8):
-            reset_counters()
-            got = torch.from_numpy(ex.upscale(lr[:n], z[:n]))
-            with torch.inference_mode():
-                plain = sr6.G(lr_d[:n], z_d[:n]).cpu()
-            if counters() != (0, 0, 0, 0, 0) or int8_launches():
-                fail(f"the artifact or the plain path launched "
-                     f"{counters()}")
-            check(f"artifact at batch {n} vs WindFieldSR's plain path",
-                  rel_l2(got, plain), EXPORT_PLAIN_TOL)
-            check(f"artifact at batch {n} vs the kernel path",
-                  rel_l2(got, torch.from_numpy(sr6.upscale(lr[:n], z[:n]))),
-                  EXPORT_KERNEL_TOL)
-        with torch.inference_mode():
-            art_ms = cuda_ms(lambda: ex._module(lr_d, z_d))
-            kern_ms = cuda_ms(lambda: sr6._generate(lr_d, z_d))
-        log(f"  serving at batch 8: artifact {art_ms:.3f} ms, kernel path "
-            f"{kern_ms:.3f} ms ({card})")
-
-        # (d) network interpolation of the two committed packs
-        sr9 = WindFieldSR.from_continuation(load_config(ini), PACK_9K,
-                                            device=dev)
-        p9, p6 = sr9.G.state_dict(), sr6.G.state_dict()
-        for alpha, want in ((1.0, p9), (0.0, p6)):
-            got = interp.blend_params(p9, p6, alpha)
-            same = all(torch.equal(got[k], v) for k, v in want.items())
-            log(f"  blend_params(9k, 6k, {alpha}) equals the "
-                f"{'9k' if alpha else '6k'} pack's generator tensor by "
-                f"tensor: {same}")
-            if not same:
-                fail(f"alpha {alpha} does not reproduce its pack")
-        interp_out, _ = interp_proc.communicate(timeout=TIMEOUT_S * 5)
-        interp_s = time.monotonic() - t_interp
-        if interp_proc.returncode != 0:
-            fail(f"eval.interp failed:\n{interp_out}")
-        log(f"  {interp_out.strip().splitlines()[-1]}")
-        exb = load_exported(blend, device=dev)
-        got = torch.from_numpy(exb.upscale(lr, z))
-        mid = WindFieldSR(load_config(ini),
-                          interp.blend_params(p9, p6, 0.5), device=dev)
-        with torch.inference_mode():
-            plain = mid.G(lr_d, z_d).cpu()
-        log(f"  eval.interp --alpha 0.5 (another process, beside (b) and "
-            f"(c)): {os.path.getsize(blend)} bytes, done {interp_s:.3f} s "
-            f"after its start; served 8 fields, finite "
-            f"{bool(torch.isfinite(got).all())}")
-        if not torch.isfinite(got).all():
-            fail("the blended artifact served a non-finite output")
-        check("blended artifact vs WindFieldSR's plain path on the blend",
-              rel_l2(got, plain), EXPORT_PLAIN_TOL)
-        del sr9, mid, exb, p9, p6
-        # the torch-only subprocess, against this process on its inputs
-        out, _ = proc.communicate(timeout=TIMEOUT_S)
-        if proc.returncode != 0:
-            fail(f"the torch-only subprocess failed:\n{out}")
-        gen = torch.Generator().manual_seed(2014)
-        lr2 = torch.randn(2, *header["lr_shape"][1:], generator=gen)
-        z2 = torch.rand(2, *header["z_shape"][1:], generator=gen)
-        with torch.inference_mode():
-            want = ex._module(lr2.to(dev), z2.to(dev)).cpu()
-        check("the payload run by torch alone in a subprocess vs "
-              "ExportedSR", rel_l2(torch.load(check_out), want),
-              EXPORT_PLAIN_TOL)
+        server.main(["--artifact", art, "--port", "0"])
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        server.serve = real_serve
+    load_s = time.monotonic() - t
+    ex = kept.pop("backend")
+    log(f"  run.py --export (its own process from phase 7's start, its "
+        f"artifact written {export_end:.3f} s after it): "
+        f"{os.path.getsize(art)} bytes, exported in {export_s:.3f} s; "
+        f"eval/server.py --artifact built its {type(ex).__name__} backend "
+        f"in {load_s:.3f} s (tile {kept['tile']}, overlap "
+        f"{kept['tile_overlap']})")
+    if not isinstance(ex, ExportedSR) or ex.device.type != dev.type:
+        fail("eval/server.py --artifact built no ExportedSR on the card")
+    for n in (1, 8):
+        reset_counters()
+        got = torch.from_numpy(ex.upscale(lr[:n], z[:n]))
+        with torch.inference_mode():
+            plain = sr6.G(lr_d[:n], z_d[:n]).cpu()
+        if counters() != (0, 0, 0, 0, 0) or int8_launches():
+            fail(f"the artifact or the plain path launched {counters()}")
+        check(f"artifact at batch {n} vs WindFieldSR's plain path",
+              rel_l2(got, plain), EXPORT_PLAIN_TOL)
+        check(f"artifact at batch {n} vs the kernel path",
+              rel_l2(got, torch.from_numpy(sr6.upscale(lr[:n], z[:n]))),
+              EXPORT_KERNEL_TOL)
+    with torch.inference_mode():
+        art_ms = cuda_ms(lambda: ex._module(lr_d, z_d))
+        kern_ms = cuda_ms(lambda: sr6._generate(lr_d, z_d))
+    log(f"  serving at batch 8: artifact {art_ms:.3f} ms, kernel path "
+        f"{kern_ms:.3f} ms ({card})")
+
+    # (d) network interpolation of the two committed packs
+    sr9 = WindFieldSR.from_continuation(load_config(ini), PACK_9K,
+                                        device=dev)
+    p9, p6 = sr9.G.state_dict(), sr6.G.state_dict()
+    for alpha, want in ((1.0, p9), (0.0, p6)):
+        got = interp.blend_params(p9, p6, alpha)
+        same = all(torch.equal(got[k], v) for k, v in want.items())
+        log(f"  blend_params(9k, 6k, {alpha}) equals the "
+            f"{'9k' if alpha else '6k'} pack's generator tensor by tensor: "
+            f"{same}")
+        if not same:
+            fail(f"alpha {alpha} does not reproduce its pack")
+    interp_out, blend, interp_end = finish("interp", procs, TIMEOUT_S * 5)
+    log(f"  {interp_out.strip().splitlines()[-1]}")
+    exb = load_exported(blend, device=dev)
+    got = torch.from_numpy(exb.upscale(lr, z))
+    mid = WindFieldSR(load_config(ini), interp.blend_params(p9, p6, 0.5),
+                      device=dev)
+    with torch.inference_mode():
+        plain = mid.G(lr_d, z_d).cpu()
+    log(f"  eval.interp --alpha 0.5 (its own process from phase 7's start, "
+        f"its artifact written {interp_end:.3f} s after it): "
+        f"{os.path.getsize(blend)} bytes; served 8 fields, finite "
+        f"{bool(torch.isfinite(got).all())}")
+    if not torch.isfinite(got).all():
+        fail("the blended artifact served a non-finite output")
+    check("blended artifact vs WindFieldSR's plain path on the blend",
+          rel_l2(got, plain), EXPORT_PLAIN_TOL)
+    del sr9, mid, exb, p9, p6
+    # the torch-only process, against this one on its inputs
+    out, _ = proc.communicate(timeout=TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"the torch-only subprocess failed:\n{out}")
+    gen = torch.Generator().manual_seed(2014)
+    lr2 = torch.randn(2, *header["lr_shape"][1:], generator=gen)
+    z2 = torch.rand(2, *header["z_shape"][1:], generator=gen)
+    with torch.inference_mode():
+        want = ex._module(lr2.to(dev), z2.to(dev)).cpu()
+    check("the payload run by torch alone in a subprocess vs ExportedSR",
+          rel_l2(torch.load(check_out), want), EXPORT_PLAIN_TOL)
     del ex, sr6
     torch.cuda.empty_cache()
     return dict(kernels=kernels, launches=serve_int8,
                 serve_ms=serve_ms, artifact_ms=art_ms, kernel_path_ms=kern_ms,
-                export_s=timing["export"], load_s=load_s,
+                export_s=export_s, load_s=load_s,
                 artifact_bytes=os.path.getsize(art))
 
 
@@ -3401,29 +3550,656 @@ def int8_row(name, dp, replaces, **extra):
             "library_ms": lib_ms, "mma": "wgmma s8", **extra}
 
 
+# phase 11: the reference's users on the card. Its .pth files into the
+# readers at 8x and 16x (configs/fullvol8x3k.ini, fullvol16x2k.ini), the
+# physics-weight search on milestone9k and the bf16 Adam moments, in phase
+# 7's temporary directory on its data
+CFG_8X = os.path.join(REPO, "configs", "fullvol8x3k.ini")
+CFG_16X = os.path.join(REPO, "configs", "fullvol16x2k.ini")
+FULL_VOLUME = 128                    # HR x and y of a full volume
+REF_LEG_STEPS = 4                    # (c): 4 G steps, one validation
+SEARCH_ARGS = ("--num_samples", "4", "--asha_grace", "2", "--asha_eta", "2")
+SEARCH_SCHEDULE = dict(niter=8, val_period=4)
+SEARCH_BATCH = 8
+SEARCH_TOL = 1e-5   # the first G step's total against sum(w_k loss_k)
+SR_BATCH = 32
+
+
+def seeded_discriminator(cfg, seed, dev):
+    """The configuration's discriminator at its training patch, weights
+    drawn from ``seed`` (as ``WindFieldGAN._build_D`` builds it)."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.models.discriminator import (
+        Discriminator3D,
+    )
+
+    d, g = cfg.discriminator, cfg.gan_config
+    return Discriminator3D(
+        in_channels=d.in_num_ch, base_features=d.num_features,
+        feat_kern_size=d.feat_kern_size, norm=d.norm_type,
+        number_of_z_layers=g.number_of_z_layers,
+        enable_slicing=g.enable_slicing,
+        dropout_probability=d.dropout_probability,
+        init_scale=d.weight_init_scale, dtype=torch.bfloat16,
+        spatial=(g.slice_size, g.slice_size),
+        generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def ref_config(tmp, root, path, ini_path, **training):
+    """A copy of ``path`` with its folders in ``tmp`` (runs under
+    ``root``), phase 7's data, no tensorboard and ``training``
+    overrides; → (config, its INI)."""
+    from gan_sr_wind_field_tpu_torch.config import load_config
+
+    cfg = load_config(path)
+    cfg.env.root_path = os.path.join(tmp, root)
+    cfg.env.this_runs_folder = os.path.join(tmp, root, "runs", "unset")
+    cfg.env.data_root = os.path.join(tmp, "data")
+    cfg.use_tensorboard_logger = False
+    for k, v in training.items():
+        setattr(cfg.training, k, v)
+    cfg.save(ini_path)
+    return cfg, ini_path
+
+
+def check_stencils_at(dev):
+    """Phase 11: kernels 3 and 4 at the shapes its G steps and validations
+    give them: HR 128x128x10 at batch 8 and 1 (8x), 64x64x10 at batch 8
+    (the search). Returns the max abs errors (gradient, adjoint)."""
+    errs = [check_stencil_kernels(dev, n, xy)
+            for n, xy in ((8, FULL_VOLUME), (1, FULL_VOLUME), (8, 64))]
+    return tuple(max(e[i] for e in errs) for i in range(2))
+
+
+def reference_files(dev, card, tmp):
+    """Phase 11 (a): seeded full-width generators of the 8x and 16x
+    configurations written as reference G.pth files and read back bit for
+    bit; WindFieldSR.from_checkpoint on each serves full volumes equal bit
+    for bit to WindFieldSR on the seeded weights, one trunk launch a batch;
+    a seeded milestone9k D through D.pth forwards as the seeded one.
+    Returns {scale: G.pth}, the launches and the forward ms."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.models.generator import (
+        generator_from_config,
+    )
+    from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+        export_discriminator_state_dict,
+        load_reference_checkpoint,
+        load_reference_discriminator,
+        save_reference_checkpoint,
+    )
+
+    paths, launches, fwd_ms, errs = {}, [0] * 5, {}, []
+    rng = np.random.default_rng(2011)
+    for ini, n in ((CFG_8X, 8), (CFG_16X, 1)):
+        cfg = load_config(ini)
+        s, zl = cfg.scale, cfg.gan_config.number_of_z_layers
+        G0 = generator_from_config(cfg, device=dev, seed=2001 + s)
+        params = G0.state_dict()
+        path = os.path.join(tmp, f"G_{s}x.pth")
+        t = time.monotonic()
+        save_reference_checkpoint(path, params, G0)
+        secs = time.monotonic() - t
+        back, _, _ = load_reference_checkpoint(G0, path)
+        same = (list(back) == list(params) and all(
+            torch.equal(back[k], params[k].cpu()) for k in params))
+        log(f"  {s}x: {os.path.basename(ini)} G.pth {os.path.getsize(path)} "
+            f"bytes written in {secs:.2f} s; {len(back)} tensors read back "
+            f"bit for bit {same} ({len(G0.upconvs)} upconvs)")
+        if not same or len(G0.upconvs) != int(math.log2(s)):
+            fail(f"the {s}x G.pth does not read back as written")
+        coords = np.arange(FULL_VOLUME, dtype=np.float32) * 150.0
+        sr = WindFieldSR.from_checkpoint(cfg, path, coords, coords,
+                                         device=dev)
+        direct = WindFieldSR(cfg, params, device=dev)
+        del G0
+        lr, z = sample(rng, n, FULL_VOLUME // s, FULL_VOLUME, zl,
+                       cfg.lr_num_channels)
+        reset_counters()
+        got = sr.upscale(lr, z)
+        served = counters()
+        want = direct.upscale(lr, z)
+        exact = bool(np.array_equal(got, want))
+        lr_d, z_d = (torch.from_numpy(a).to(dev) for a in (lr, z))
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: sr._generate(lr_d, z_d))
+        fwd_ms[s] = ms
+        log(f"  {s}x: from_checkpoint(G.pth) served {n} full volume(s) LR "
+            f"{FULL_VOLUME // s}x{FULL_VOLUME // s}x{zl} -> HR "
+            f"{FULL_VOLUME}x{FULL_VOLUME}x{zl}: launches {LAUNCH_LABELS} "
+            f"{served}; vs WindFieldSR on the seeded weights bit for bit "
+            f"{exact}; forward {ms:.3f} ms per batch of {n} ({card})")
+        if (got.shape != (n, FULL_VOLUME, FULL_VOLUME, zl, 3)
+                or not np.isfinite(got).all()):
+            fail(f"the {s}x output is {got.shape}, finite "
+                 f"{bool(np.isfinite(got).all())}")
+        if not exact or served != (1, 0, 0, 0, 0):
+            fail(f"the {s}x G.pth served with launches {served}, equal "
+                 f"{exact}")
+        launches = [a + b for a, b in zip(launches, served)]
+        # kernel 1 (at 8x also its residual mode and kernel 2, as the 8x
+        # leg trains at batch 8) at this scale's served batch, and at the
+        # test chain's batch of 1
+        errs.append(check_trunk_at(sr.G, sr.packed, lr_d, s == 8, 2011 + s))
+        if n > 1:
+            errs.append(check_trunk_at(sr.G, sr.packed, lr_d[:1], False, 0))
+        paths[s] = path
+        del sr, direct
+        torch.cuda.empty_cache()
+
+    # D: a seeded milestone9k D whose statistics have moved, through D.pth
+    cfg9 = load_config(CFG)
+    D = seeded_discriminator(cfg9, 2001, dev)
+    p = cfg9.gan_config.slice_size
+    x = torch.from_numpy(0.1 * rng.standard_normal(
+        (8, p, p, cfg9.gan_config.number_of_z_layers, 3)).astype(
+            np.float32)).to(dev)
+    with torch.no_grad():
+        D(x, train=True, update_stats=True)
+    buffers = dict(D.named_buffers())
+    params = {k: v for k, v in D.named_parameters()}
+    d_path = os.path.join(tmp, "D.pth")
+    torch.save(export_discriminator_state_dict(params, buffers, D), d_path)
+    D2 = seeded_discriminator(cfg9, 7, dev)
+    p2, s2 = load_reference_discriminator(D2, d_path)
+    D2.load_state_dict({**p2, **s2})
+    with torch.no_grad():
+        a, b = D(x, train=False), D2(x, train=False)
+    exact = torch.equal(a, b)
+    log(f"  D.pth (milestone9k's D, enable_slicing, {len(p2)} parameters, "
+        f"{len(s2)} statistics): logits of D from the file vs the seeded D "
+        f"bit for bit {exact}")
+    if not exact or not bool(torch.isfinite(a).all()):
+        fail("the D from D.pth does not forward as the seeded D")
+    err_fwd = max(e[0] for e in errs)
+    err_bwd = max(e[1] for e in errs if e[1] is not None)
+    return paths, tuple(launches), fwd_ms, (err_fwd, err_bwd)
+
+
+def reference_test(dev, card, tmp, g_path):
+    """Phase 11 (b): run.py --test on a copy of fullvol8x3k from G.pth:
+    23 finite rows, one trunk launch per field, PSNR against trilinear.
+    Returns the launches and wall seconds."""
+    ini = os.path.join(tmp, "ref8x_test.ini")
+    cfg, _ = ref_config(tmp, "ref8x_test", CFG_8X, ini)
+    cfg.env.generator_load_path = g_path
+    cfg.save(ini)
+    cwd = os.path.join(tmp, "cwd_ref8x")
+    avgs, _, launches, secs = cli_pass("--test 8x from G.pth", cwd,
+                                       "--cfg", ini, "--test")
+    _, rows = read_metrics(os.path.join(cwd, "test_output",
+                                        f"{cfg.name}____metrics.csv"))
+    ok = len(rows) == TEST_FIELDS and all(math.isfinite(v)
+                                          for v in rows.values())
+    log(f"  --test 8x: {len(rows)} rows, all finite {ok}; PSNR "
+        f"{avgs['PSNR']:.6f} dB, trilinear {avgs['PSNR_trilinear']:.6f} dB "
+        f"(seeded weights: no quality bound)")
+    if not ok:
+        fail(f"--test 8x wrote {len(rows)} rows")
+    return launches, secs
+
+
+def reference_leg(dev, card, tmp, g_path):
+    """Phase 11 (c): run.py --train on a copy of fullvol8x3k warm-started
+    from G.pth, 4 G steps at batch 8 on full volumes and one validation:
+    finite losses, the EMA at the first step the imported G, launches as
+    predicted, the G step's ms. Returns the launches and that ms."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+    from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+        load_reference_checkpoint,
+    )
+
+    ini = os.path.join(tmp, "ref8x_leg.ini")
+    cfg, _ = ref_config(tmp, "ref8x_leg", CFG_8X, ini,
+                        niter=REF_LEG_STEPS, val_period=REF_LEG_STEPS,
+                        log_period=REF_LEG_STEPS, save_model_period=10_000)
+    cfg.load_model_from_save = True
+    cfg.env.generator_load_path = g_path
+    cfg.save(ini)
+    first, totals = {}, []
+
+    def check_first(step):
+        def call(gan, state, *a, **kw):
+            if not first:
+                want, _, _ = load_reference_checkpoint(gan.G, g_path)
+                first["G"] = all(torch.equal(state.params_G[k].cpu(), v)
+                                 for k, v in want.items())
+                first["EMA"] = all(
+                    torch.equal(state.params_G_ema[k].cpu(), v)
+                    for k, v in want.items())
+            out = step(gan, state, *a, **kw)
+            totals.append(out[1]["total"])  # read after the leg: no sync
+            return out
+        return call
+
+    probe = LegProbe()
+    probe.patch(WindFieldGAN, "train_step", check_first)
+    reset_counters()
+    t = time.monotonic()
+    try:
+        state = run.main(["--cfg", ini, "--train", "--synthetic",
+                          *LEG_DATA])
+    finally:
+        probe.close()
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t
+    launches = counters()
+    totals = [float(v) for v in totals]
+    n_val = probe.calls["val_step"]
+    predicted = tuple(REF_LEG_STEPS * a + n_val * c + e for a, c, e in
+                      zip(G_STEP_LAUNCHES, VAL_LAUNCHES, GENERATE_LAUNCHES))
+    finite = (len(totals) == REF_LEG_STEPS
+              and all(math.isfinite(v) for v in totals))
+    # G steps only (no D step to take a median of): its 2 and 3, away
+    # from the first step and the boundary at 4
+    each = [a[2].elapsed_time(b[2]) for a, b in
+            zip(probe.steps, probe.steps[1:]) if 1 < a[0] < REF_LEG_STEPS]
+    ms, count = statistics.median(each), len(each)
+    lr_xy = FULL_VOLUME // cfg.scale
+    zl = cfg.gan_config.number_of_z_layers
+    log(f"  --train 8x from G.pth: {REF_LEG_STEPS} G steps at batch "
+        f"{cfg.dataset_train.batch_size} (LR {lr_xy}x{lr_xy}x{zl}, HR "
+        f"{FULL_VOLUME}x{FULL_VOLUME}x{zl}), "
+        f"{n_val} validation batches, in {secs:.1f} s; the first step's G "
+        f"and EMA the imported G: {first.get('G')}, {first.get('EMA')}; "
+        f"G totals {[round(v, 6) for v in totals]}; launches "
+        f"{LAUNCH_LABELS} {launches}, predicted {predicted}")
+    log(f"  8x G step {ms:.3f} ms (median of {count}, CUDA events from one "
+        f"step's start to the next; {card})")
+    if not (first.get("G") and first.get("EMA") and finite):
+        fail("the 8x warm start from G.pth is not the imported G, or a loss "
+             "is not finite")
+    if (state.it != REF_LEG_STEPS or launches != predicted
+            or probe.calls["generate"] != 1):
+        fail(f"the 8x leg ended at {state.it}, launched {launches}, "
+             f"predicted {predicted}")
+    return launches, ms
+
+
+class SearchProbe(Patches):
+    """What the search runs, from the outside: each trial's arguments,
+    host seconds and final state; each trial's first step, its state
+    (after the step's host part), inputs and weights kept for
+    ``first_totals``, which runs after the search's counts are read; the
+    steps and validation calls."""
+
+    def __init__(self):
+        import torch
+
+        from gan_sr_wind_field_tpu_torch.search import asha, driver
+        from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+        super().__init__()
+        self.trials, self.firsts, self.reports = [], [], []
+        self.steps = self.val_steps = 0
+        probe = self
+
+        def on_report(real):
+            def call(sched, it, metric):
+                keep = real(sched, it, metric)
+                probe.reports.append((len(probe.trials), it, metric, keep))
+                return keep
+            return call
+
+        def on_trial(real):
+            def call(gan, cfg, ds_train, ds_val, point, asha, trial_id,
+                     batch_size, status, resident=None):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                rec = real(gan, cfg, ds_train, ds_val, point, asha,
+                           trial_id, batch_size, status, resident)
+                torch.cuda.synchronize()
+                probe.trials.append(dict(
+                    rec=rec, secs=time.monotonic() - t, gan=gan, cfg=cfg,
+                    ds=(ds_train, ds_val), resident=resident,
+                    state=probe.last, point=point))
+                return rec
+            return call
+
+        def on_train_step(real):
+            def step(gan, state, *a, **kw):
+                probe.steps += 1
+                probe.last = state
+                out = real(gan, state, *a, **kw)
+                if state.it == 1:
+                    probe.firsts[-1]["total"] = out[1]["total"]
+                return out
+            return step
+
+        def on_step(real):
+            # the device part of a step: on a trial's first, a copy of its
+            # state (the random generator's included) and its inputs
+            def step(gan, state, lr, hr, z, augment, g_step, weights=None):
+                if not state.it:
+                    probe.firsts.append(dict(
+                        gan=gan, state=copy_state(state), weights=weights,
+                        batch=tuple(a.clone() for a in (lr, hr, z)),
+                        augment=augment, g_step=g_step))
+                return real(gan, state, lr, hr, z, augment, g_step, weights)
+            return step
+
+        def on_val(real):
+            def call(*a, **kw):
+                probe.val_steps += 1
+                return real(*a, **kw)
+            return call
+
+        self.last = None
+        self.patch(asha.ASHAScheduler, "report", on_report)
+        self.patch(driver, "run_trial", on_trial)
+        self.patch(WindFieldGAN, "train_step", on_train_step)
+        self.patch(WindFieldGAN, "_step", on_step)
+        self.patch(WindFieldGAN, "val_step", on_val)
+
+    def first_totals(self):
+        """Each trial's first G-step total against sum(w_k loss_k) of its
+        own weights, the losses recomputed with unit weights on the kept
+        state, batch and draws; call it after the counts are read."""
+        import torch
+
+        from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
+
+        keys = {"pix": "pix", "gxy": "xy_gradient", "gz": "z_gradient",
+                "div": "divergence", "xydiv": "xy_divergence"}
+        out = []
+        for f in self.firsts:
+            gan, st, w = f["gan"], f["state"], f["weights"]
+            if not (f["augment"] and f["g_step"]):
+                fail("a trial's first step is not an augmented G step")
+            batch = augment_batch(st.rng, *f["batch"])
+            params = {k: v.requires_grad_() for k, v in st.params_G.items()}
+            # it 1: the schedules' values the step's host part wrote
+            _, (raw, _) = gan._g_losses(params, st, *batch, 1, st.rng, True,
+                                        {k: 1.0 for k in w})
+            want = (raw["adversarial"] + raw["feature_D"]
+                    + sum(w[k] * raw[v] for k, v in keys.items())).detach()
+            out.append((float(f["total"]), float(want)))
+        self.firsts = []
+        torch.cuda.empty_cache()
+        return out
+
+
+def reference_search(dev, card, tmp):
+    """Phase 11 (d): run.py --param_search on a copy of milestone9k (batch
+    8, niter 8, validation every 4 its, 4 trials under ASHA grace 2, eta
+    2): 4 records with finite PSNRs, ASHA's stops, each trial's first G
+    step the sum of its own weights' losses, trial 0 a bare weighted
+    train_step loop from its seed, launches as the steps and validations
+    predict. Returns the launches, the seconds per trial and the search's
+    resident volumes (for (e))."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.search import driver
+    from gan_sr_wind_field_tpu_torch.train.loop import val_seed
+
+    ini = os.path.join(tmp, "search.ini")
+    cfg, _ = ref_config(tmp, "search", CFG, ini, **SEARCH_SCHEDULE)
+    cfg.dataset_train.batch_size = cfg.dataset_val.batch_size = SEARCH_BATCH
+    cfg.save(ini)
+    probe = SearchProbe()
+    reset_counters()
+    t = time.monotonic()
+    try:
+        recs = run.main(["--cfg", ini, "--param_search", "--synthetic",
+                         *LEG_DATA, *SEARCH_ARGS])
+    finally:
+        probe.close()
+    secs = time.monotonic() - t
+    launches = counters()
+    firsts = probe.first_totals()  # its launches after the counts' read
+    folder = cfg_run_folder(tmp, "search")
+    with open(os.path.join(folder, "param_search.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    with open(os.path.join(folder, "param_search_best.json")) as f:
+        best = json.load(f)
+    for r, tr in zip(recs, probe.trials):
+        log(f"  trial {r['trial']}: {r['point']}; it {r['it']}, PSNR "
+            f"{r['PSNR']:.4f}, best {r['best_PSNR']:.4f}, stopped early "
+            f"{r['stopped_early']}; {tr['secs']:.2f} s")
+    if (len(recs) != 4 or lines != json.loads(json.dumps(recs))
+            or best != max(lines, key=lambda r: r["best_PSNR"])
+            or not all(math.isfinite(r["PSNR"]) for r in recs)
+            or [r["point"] for r in recs] != driver.INITIAL_POINTS[:4]):
+        fail(f"the search's records: {recs}")
+    # ASHA's reports in order (trial, rung, PSNR, continue); a trial stops
+    # where its report said stop, at a rung
+    rungs = driver.ASHAScheduler(max_t=8, grace_period=2,
+                                 reduction_factor=2).rung_iterations()
+    log("  ASHA reports (trial, it, PSNR, continue): " + ", ".join(
+        f"({t}, {it}, {m:.4f}, {k})" for t, it, m, k in probe.reports))
+    stops = {t: it for t, it, _, k in probe.reports if not k}
+    if any(stops.get(r["trial"]) != (r["it"] if r["stopped_early"]
+                                     else None) for r in recs):
+        fail(f"the records' stops are not ASHA's: {stops}")
+    if any(r["stopped_early"] != (r["it"] < 8) or
+           (r["stopped_early"] and r["it"] not in rungs) for r in recs):
+        fail(f"ASHA's stops are not at its rungs {rungs}: {recs}")
+    gaps = [abs(a - b) / abs(a) for a, b in firsts]
+    log(f"  each trial's first G-step total vs sum(w_k loss_k) of its own "
+        f"weights: " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in firsts)
+        + f"; largest rel gap {max(gaps):.3e} (tol {SEARCH_TOL:.0e})")
+    if len(gaps) != 4 or max(gaps) > SEARCH_TOL:
+        fail("a trial's first G step did not take its own weights")
+    n_val_sweeps = sum(len([it for it in range(1, r["it"] + 1)
+                            if it % 4 == 0 or it in rungs]) for r in recs)
+    per_sweep = probe.val_steps // max(n_val_sweeps, 1)
+    predicted = tuple(probe.steps * a + probe.val_steps * c for a, c in
+                      zip(G_STEP_LAUNCHES, VAL_LAUNCHES))
+    log(f"  search: {probe.steps} G steps, {n_val_sweeps} validations of "
+        f"{per_sweep} batches in {secs:.1f} s, "
+        f"{np.mean([tr['secs'] for tr in probe.trials]):.2f} s per trial; "
+        f"launches {LAUNCH_LABELS} {launches}, predicted {predicted} "
+        f"({card})")
+    if (probe.steps != sum(r["it"] for r in recs) or launches != predicted
+            or probe.val_steps != n_val_sweeps * per_sweep):
+        fail(f"the search launched {launches}, predicted {predicted}")
+
+    # trial 0 against a bare weighted train_step loop from its seed
+    tr = probe.trials[0]
+    gan, tcfg, (ds_train, ds_val), resident = (
+        tr["gan"], tr["cfg"], tr["ds"], tr["resident"])
+    fixed = tcfg.env.fixed_seed
+    seed = fixed + recs[0]["trial"]
+    weights = driver.point_to_weights(tr["point"], dev)
+    rng_np = np.random.default_rng(seed)
+    lr0, hr0, _ = ds_train.get(0, rng_np)
+    state = gan.init_state(seed, (SEARCH_BATCH,) + lr0.shape,
+                           (SEARCH_BATCH,) + hr0.shape)
+    resident.seed, resident.count = seed, 0
+    for it in range(1, recs[0]["it"] + 1):
+        state, _ = gan.train_step(state, *next(resident), augment=True,
+                                  weights=weights)
+        if it % 4 == 0 or it in rungs:
+            for bi, vb in enumerate(ds_val.batches(
+                    SEARCH_BATCH, np.random.default_rng(fixed),
+                    shuffle=False, drop_remainder=False)):
+                gen = torch.Generator(device=dev).manual_seed(
+                    val_seed(seed, it, bi))
+                gan.val_step(state, *vb, generator=gen, weights=weights)
+    diffs = tree_diffs(tr["state"], state)
+    exact = all(v[2] for v in diffs.values())
+    worst = max(v[1] for v in diffs.values())
+    log(f"  trial 0 vs a bare weighted train_step loop from its seed: "
+        f"bit-exact {exact}, largest rel L2 {worst:.3e}")
+    if not exact and worst > RESUME_TOL:
+        fail("trial 0 is not the bare weighted train_step loop")
+    return launches, [tr["secs"] for tr in probe.trials], resident
+
+
+def reference_sr_adam(dev, card, tmp, resident, f32_g_ms):
+    """Phase 11 (e): optimizer_state_dtype bfloat16_sr on a copy of
+    milestone9k at batch 32: steps 48-51 (G, G, D, D) through train_step
+    and through train_chunk (CUDA graphs) from copies of one state, on the
+    batches batch_at cuts from the search's resident volumes: bit for bit,
+    bf16 moments, their bytes, the G step's ms beside phase 6's float32
+    one. Returns the launches of both legs and the G step's ms."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    cfg = load_config(CFG)
+    cfg.training.optimizer_state_dtype = "bfloat16_sr"
+    g = cfg.gan_config
+    p, zl = g.slice_size, g.number_of_z_layers
+    coords = np.arange(p, dtype=np.float32) * 150.0
+    gan = WindFieldGAN(cfg, coords, coords, device=dev)
+    a = gan.init_state(2001, (SR_BATCH, p // cfg.scale, p // cfg.scale, zl,
+                              cfg.lr_num_channels), (SR_BATCH, p, p, zl, 3))
+    a.it = 47
+    b = copy_state(a)
+    kw = dict(resident.slice_kwargs(), batch_size=SR_BATCH)
+    seed = 2011
+    gen = torch.Generator(device=dev)
+    reset_counters()
+    ev, metrics = [], []
+    for _ in range(4):
+        batch = batch_at(resident.full, resident.zraw, seed, a.it, gen, **kw)
+        ev.append((torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)))
+        ev[-1][0].record()
+        a, m = gan.train_step(a, *batch, augment=True)
+        ev[-1][1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    per_step = counters()
+    if not all(bool(torch.isfinite(v).all()) for m in metrics
+               for v in m.values()):
+        fail("a non-finite metric with bf16 moments")
+    # the G step's time: it 49 (after it 48's warm-up) and the next two G
+    # steps on a copy of the per-step leg's state, outside the counted legs
+    c = copy_state(a)
+    more = [it for it in range(c.it + 1, c.it + 64) if gan.is_g_step(it)][:2]
+    for it in more:
+        c.it = it - 1
+        batch = batch_at(resident.full, resident.zraw, seed, c.it, gen, **kw)
+        ev.append((torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)))
+        ev[-1][0].record()
+        c, _ = gan.train_step(c, *batch, augment=True)
+        ev[-1][1].record()
+    torch.cuda.synchronize()
+    del c
+    reset_counters()
+    b, _ = gan.train_chunk(b, resident.full, resident.zraw, seed, n_steps=4,
+                           augment=True, **kw)
+    torch.cuda.synchronize()
+    chunked = counters()
+    diffs = tree_diffs(b, a)
+    exact = all(v[2] for v in diffs.values()) and torch.equal(
+        a.rng.get_state(), b.rng.get_state())
+    dtypes = {m.dtype for o in (a.opt_state_G, a.opt_state_D)
+              for m in [*o.mu.values(), *o.nu.values()]}
+    nbytes = sum(m.numel() * m.element_size()
+                 for o in (a.opt_state_G, a.opt_state_D)
+                 for m in [*o.mu.values(), *o.nu.values()])
+    f32 = sum(m.numel() * 4 for o in (a.opt_state_G, a.opt_state_D)
+              for m in [*o.mu.values(), *o.nu.values()])
+    want = tuple(2 * x + 2 * y for x, y in zip(G_STEP_LAUNCHES,
+                                               D_STEP_LAUNCHES))
+    log(f"  bfloat16_sr: steps 48-51 (G, G, D, D) at batch {SR_BATCH}: "
+        f"launches per step {per_step}, chunked (CUDA graphs, "
+        f"{gan._graphs.replays} replays) {chunked}, predicted {want}; "
+        f"chunked vs per-step bit-exact {exact} "
+        + ", ".join(f"{k} {v[1]:.1e}" for k, v in diffs.items() if not v[2]))
+    log(f"  bfloat16_sr: moments {sorted(str(d) for d in dtypes)}, "
+        f"{nbytes} bytes against {f32} in float32 ({nbytes / f32:.3f})")
+    if dtypes != {torch.bfloat16} or per_step != want or chunked != want \
+            or gan._graphs.replays != 2:
+        fail(f"the bfloat16_sr legs: moments {dtypes}, launches "
+             f"{per_step} and {chunked}, predicted {want}, "
+             f"{gan._graphs.replays} replays")
+    if not exact:
+        fail("the chunked bfloat16_sr leg is not the per-step leg")
+    each = [ev[i][0].elapsed_time(ev[i][1]) for i in (1, 4, 5)]
+    g_ms = statistics.median(each)
+    log(f"  bfloat16_sr: G step {g_ms:.3f} ms, median of its 49, "
+        f"{more[0]} and {more[1]} "
+        f"({', '.join(f'{t:.3f}' for t in each)}; spread "
+        f"{100 * (max(each) - min(each)) / g_ms:.1f} %), phase 6's float32 "
+        f"G step {f32_g_ms:.3f} ms (one call after a warm-up) ({card})")
+    gan._graphs = None
+    return per_step, chunked, g_ms
+
+
+def copy_state(state):
+    """A deep copy of a training state, its generator's state included."""
+    import dataclasses
+
+    import torch
+
+    def tree(t):
+        return None if t is None else {k: v.clone() for k, v in t.items()}
+
+    def adam(o):
+        return type(o)(o.count.clone(), tree(o.mu), tree(o.nu))
+
+    rng = torch.Generator(device=state.rng.device)
+    rng.set_state(state.rng.get_state())
+    return dataclasses.replace(
+        state, params_G=tree(state.params_G), params_D=tree(state.params_D),
+        batch_stats_D=tree(state.batch_stats_D),
+        params_D_frozen=tree(state.params_D_frozen),
+        params_G_ema=tree(state.params_G_ema),
+        opt_state_G=adam(state.opt_state_G),
+        opt_state_D=adam(state.opt_state_D), rng=rng)
+
+
+def reference_phase(dev, card, tmp, f32_g_ms):
+    """Phase 11: (a) .pth files at 8x and 16x, (b) --test and (c) --train
+    on the 8x configuration from G.pth, (d) --param_search, (e) bf16 Adam
+    moments. Returns the launches by part and the numbers it printed."""
+    log(f"reference users: .pth import at {os.path.basename(CFG_8X)} and "
+        f"{os.path.basename(CFG_16X)}, the search and bfloat16_sr on "
+        f"{os.path.basename(CFG)} ({card})")
+    t = [time.monotonic()]
+
+    def took(part):
+        t.append(time.monotonic())
+        log(f"  ({part}) took {t[-1] - t[-2]:.1f} s")
+
+    paths, served, fwd_ms, trunk_err = reference_files(dev, card, tmp)
+    stencil_err = check_stencils_at(dev)
+    took("a")
+    test_launches, test_s = reference_test(dev, card, tmp, paths[8])
+    took("b")
+    leg_launches, g8_ms = reference_leg(dev, card, tmp, paths[8])
+    took("c")
+    search_launches, trial_s, resident = reference_search(dev, card, tmp)
+    took("d")
+    sr_step, sr_chunk, sr_g_ms = reference_sr_adam(dev, card, tmp, resident,
+                                                   f32_g_ms)
+    took("e")
+    parts = dict(served=served, test=test_launches, leg=leg_launches,
+                 search=search_launches, sr_steps=sr_step,
+                 sr_chunk=sr_chunk)
+    total = tuple(sum(v) for v in zip(*parts.values()))
+    return dict(parts=parts, total=total, fwd_ms=fwd_ms, test_s=test_s,
+                g8_ms=g8_ms, trial_s=trial_s, sr_g_ms=sr_g_ms,
+                max_abs_err=(*trunk_err, *stencil_err))
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, REPO)
-    import numpy as np
-
-    from gan_sr_wind_field_tpu_torch.config import load_config
-    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
-    from gan_sr_wind_field_tpu_torch.eval.server import serve
-    from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
-    from gan_sr_wind_field_tpu_torch.models.fused_apply import (
-        generator_forward,
-    )
-    from gan_sr_wind_field_tpu_torch.models.generator import (
-        generator_from_config,
-    )
     from gan_sr_wind_field_tpu_torch.ops.kernels import build
-    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
-        rrdb_trunk,
-        rrdb_trunk_reference,
-    )
 
     # ------------------------------------------------------------ 1. card
     card = card_line()
@@ -3451,6 +4227,45 @@ def main():
         list(pool.map(sass_mma_counts, [v[0] for v in built.values()]))
     log("bf16 kernels on the tensor cores:")
     mma_counts = report_tc_kernels(built)
+
+    # phase 7's data feed on the host, in a thread beside phases 3 to 5
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="windsr_leg_")
+    data_pool = ThreadPoolExecutor(max_workers=1)
+    leg_data = data_pool.submit(prepare_leg_data, tmp)
+    try:
+        return _main_after_build(dev, card, built, mma_counts, tmp, leg_data)
+    finally:
+        for proc in CHILDREN:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        data_pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
+    """Phases 3 to 11 and the result lines, with phase 7's temporary
+    directory ``tmp`` and the future of its data feed ``leg_data``."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.eval.server import serve
+    from gan_sr_wind_field_tpu_torch.models.blocks import RRDB
+    from gan_sr_wind_field_tpu_torch.models.fused_apply import (
+        generator_forward,
+    )
+    from gan_sr_wind_field_tpu_torch.models.generator import (
+        generator_from_config,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
+        rrdb_trunk,
+        rrdb_trunk_reference,
+    )
 
     # ------------------------------------------- 3. kernels vs plain versions
     phase_start(3)
@@ -3579,6 +4394,7 @@ def main():
     phase_start(5)
     gan, state, batch, train_launches = train_phase(
         copy.deepcopy(cfg), dev, rng, card)
+    done("the G-step comparison and four steps")
     gan_h, state_h, head_train = head_train_phase(cfg, gan, state, batch,
                                                   dev, card)
 
@@ -3625,7 +4441,9 @@ def main():
         f"{b1[2]:.4f} ms, bytes {b1[3]:.4f} ms); the kernel at "
         f"{100 * b1[0] / ms:.2f} % of it, "
         f"{H100_BF16_FLOPS * b1[2] / ms / 1e12:.1f} TFLOP/s")
+    done("serving times")
     tt = time_training(gan, state, batch, geom, nf, gc, nconv, dev, card)
+    done("training times")
     th = time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, head_dims,
                    dev, card)
     del sr, sr_h
@@ -3636,25 +4454,26 @@ def main():
     phase_start(7)
     del gan, state, gan_h, state_h, batch
     torch.cuda.empty_cache()
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="windsr_leg_")
-    try:
-        ll, state, ckpt_path, leg_ms = loop_phase(dev, card, tt, tmp)
-        # ------------------------------------------------- 8. test, use, serve
-        phase_start(8)
-        ev = eval_phase(dev, card, tmp, state, ckpt_path)
-        del state
-        torch.cuda.empty_cache()
-        # --------------------------------- 9. chunks, host path, tiled SR
-        phase_start(9)
-        ch = chunk_phase(dev, card, tmp, leg_ms, ev.pop("field"))
-        # ------------------------ 10. int8 serving, export, interpolation
-        phase_start(10)
-        dp = deploy_phase(dev, card, tmp, built)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t = time.monotonic()
+    leg_data.result()
+    waited = time.monotonic() - t
+    procs = start_clis(tmp)
+    ll, state, ckpt_path, leg_ms = loop_phase(dev, card, tt, tmp, leg_data,
+                                              waited)
+    # ----------------------------------------------------- 8. test, use, serve
+    phase_start(8)
+    ev = eval_phase(dev, card, tmp, state, ckpt_path)
+    del state
+    torch.cuda.empty_cache()
+    # ------------------------------------- 9. chunks, host path, tiled SR
+    phase_start(9)
+    ch = chunk_phase(dev, card, tmp, leg_ms, ev.pop("field"))
+    # ---------------------------- 10. int8 serving, export, interpolation
+    phase_start(10)
+    dp = deploy_phase(dev, card, tmp, built, procs)
+    # ----------------- 11. .pth files, 8x and 16x, the search, bf16 Adam
+    phase_start(11)
+    rf = reference_phase(dev, card, tmp, tt["g_ms"])
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -3668,10 +4487,19 @@ def main():
     # path leg and the tiled SR
     cl = tuple(a + b + c for a, b, c in zip(ch["chunk"], ch["host"],
                                             ch["tiled"]))
+    # phase 11's launches: the .pth files served at 8x and 16x, --test and
+    # --train at 8x, the search, the bf16-moment legs
+    rl = rf["total"]
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
-            serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0], max_abs16,
-            (ms, plain_ms, b1), lib_ms, launches_serve=serve_launches,
+            serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0],
+            max_abs16, (ms, plain_ms, b1), lib_ms,
+            launches_serve=serve_launches, launches_reference=rl[0],
+            max_abs_err_reference=rf["max_abs_err"][0],
+            serving_8x_b8_ms=rf["fwd_ms"][8],
+            serving_16x_b1_ms=rf["fwd_ms"][16],
+            g_step_8x_b8_ms=rf["g8_ms"], search_trial_s=rf["trial_s"],
+            g_step_bf16_moments_ms=rf["sr_g_ms"],
             launches_train=tl[0], launches_loop=ll[0],
             launches_test=ev["trunk"], launches_chunks=ch["chunk"][0],
             launches_host_path=ch["host"][0], launches_tiled=ch["tiled"][0],
@@ -3682,14 +4510,18 @@ def main():
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429",
-            tl[1] + ll[1] + cl[1], max_abs_bwd, tt["k2"][:3], tt["k2"][3],
-            launches_train=tl[1], launches_loop=ll[1],
+            tl[1] + ll[1] + cl[1] + rl[1], max_abs_bwd, tt["k2"][:3],
+            tt["k2"][3], launches_train=tl[1], launches_loop=ll[1],
+            launches_reference=rl[1],
+            max_abs_err_reference=rf["max_abs_err"][1],
             launches_chunks=ch["chunk"][1], launches_host_path=ch["host"][1],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
-        *(row(name, "stencil.cu", replaces, tl[i] + ll[i] + cl[i], err,
-              (k["ms"], k["plain_ms"], k["bound"]), None,
+        *(row(name, "stencil.cu", replaces, tl[i] + ll[i] + cl[i] + rl[i],
+              err, (k["ms"], k["plain_ms"], k["bound"]), None,
               launches_train=tl[i], launches_loop=ll[i],
+              launches_reference=rl[i],
+              max_abs_err_reference=rf["max_abs_err"][i],
               launches_chunks=ch["chunk"][i],
               launches_host_path=ch["host"][i],
               device_ms=k["device_ms"], device_ms_cold=k["device_ms_cold"])
@@ -3698,8 +4530,9 @@ def main():
               ("wind_gradient_adjoint", "stencil.py:166", 3, err_adj,
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
-            head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4],
-            err_head, th[8][:3], th[8][3], launches_serve=head_serve[4],
+            head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4]
+            + rl[4], err_head, th[8][:3], th[8][3],
+            launches_serve=head_serve[4], launches_reference=rl[4],
             launches_train=head_train[4], launches_loop=ll[4],
             launches_test=ev["head"], launches_tiled=ch["tiled"][4],
             generate_field_ms=ev["ms_head_kernel"],

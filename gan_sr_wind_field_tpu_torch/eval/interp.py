@@ -14,8 +14,8 @@ writes a serving artifact (``eval/export.py``):
         --out blended.wsrx [--stats_from ARTIFACT.wsrx] [--device cpu]
 
 Both weights must come from the same architecture: continuation packs
-(``.npz``) or port checkpoint folders (``ckpt_{it}``), anything
-``WindFieldSR.from_checkpoint`` takes (a reference ``.pth`` raises there).
+(``.npz``), port checkpoint folders (``ckpt_{it}``) or reference
+``G_{it}.pth`` files, anything ``WindFieldSR.from_checkpoint`` takes.
 """
 
 from __future__ import annotations
@@ -72,7 +72,8 @@ def main(argv=None) -> int:
                     "interpolation) into a serving artifact")
     p.add_argument("--cfg", required=True, help="architecture config INI")
     p.add_argument("--gan", required=True,
-                   help="GAN-trained weights (.npz pack or ckpt_{it})")
+                   help="GAN-trained weights (.npz pack, ckpt_{it} or "
+                        "G .pth)")
     p.add_argument("--psnr", required=True,
                    help="PSNR-oriented weights (pixel-dominant run)")
     p.add_argument("--alpha", type=float, required=True,

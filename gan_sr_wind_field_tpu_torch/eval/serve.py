@@ -126,15 +126,15 @@ class WindFieldSR:
     def from_checkpoint(cls, cfg, path: str, x, y, use_ema: bool = True,
                         device=None, norm_stats=None):
         """Serve a trained generator: a port checkpoint folder
-        (``ckpt_{it}``), or a continuation pack (a path ending ``.npz``,
-        see ``from_continuation``). The EMA slot is preferred when there
-        is one and ``use_ema``. ``x``/``y`` are the training grid's
-        coordinates, as ``WindFieldGAN`` takes them.
+        (``ckpt_{it}``), a continuation pack (a path ending ``.npz``, see
+        ``from_continuation``) or a reference ``G_{it}.pth``
+        (``utils/torch_import.py``). The EMA slot is preferred when there
+        is one and ``use_ema``; a ``.pth`` has none. ``x``/``y`` are the
+        training grid's coordinates, as ``WindFieldGAN`` takes them.
 
         The checkpoint's weights are restored into a state built at the
         training patch (D's classifier depends on it; G on no size), on
-        ``device``, whatever device saved it. A reference ``.pth`` raises:
-        ``utils/torch_import.py`` is not ported."""
+        ``device``, whatever device saved it."""
         if path.endswith(".npz"):
             return cls.from_continuation(cfg, path, use_ema=use_ema,
                                          device=device, norm_stats=norm_stats)

@@ -27,6 +27,8 @@ Serve a continuation pack, or a checkpoint of a port run, on the card:
         --port 8000 --warmup 1,8
     python -m gan_sr_wind_field_tpu_torch.eval.server \
         --cfg <the run's config.ini> --checkpoint <the run>/ckpt_6016
+    python -m gan_sr_wind_field_tpu_torch.eval.server \
+        --cfg configs/fullvol8x3k.ini --checkpoint G_3000.pth
 
 or an exported artifact (``eval/export.py``), with no config:
 
@@ -614,7 +616,8 @@ def main(argv=None) -> int:
                          help="continuation pack (.npz) holding the weights")
     weights.add_argument("--checkpoint",
                          help="a port checkpoint folder (ckpt_{it}) of a "
-                              "run of this configuration; its EMA slot is "
+                              "run of this configuration, or a reference "
+                              "G_{it}.pth; a checkpoint's EMA slot is "
                               "preferred, as in the pack")
     weights.add_argument("--artifact",
                          help="a .wsrx file from run.py --export or "

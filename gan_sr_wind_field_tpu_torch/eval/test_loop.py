@@ -94,8 +94,10 @@ def run_test(cfg, dataset_test, x, y, state=None,
     """Evaluate the generator over the test split; write the CSVs and the
     field dumps. → the dict of run-average metrics.
 
-    Without ``state`` the weights come from ``env.generator_load_path``,
-    else from the newest checkpoint of ``env.this_runs_folder``. With
+    Without ``state`` the weights come from ``env.generator_load_path``
+    (a pack, a port checkpoint or a reference ``G_{it}.pth``,
+    ``train/checkpoint.py:load_generator_state``), else from the newest
+    checkpoint of ``env.this_runs_folder``. With
     ``ema=True`` the EMA slot is evaluated instead of the raw generator,
     and every output carries an ``_ema`` name suffix, so raw and EMA rows
     coexist in ``averages.csv``."""

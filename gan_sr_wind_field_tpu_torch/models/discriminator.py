@@ -87,6 +87,8 @@ class Discriminator3D(nn.Module):
             cin = nf * 8
             Zl = _out(Zl, feat_kern_size, 2, 1)
         self.enable_slicing = enable_slicing
+        # the features' (x, y, z, c) extent that fc0 reads, flattened
+        self.feature_shape = (X, Y, Zl, cin)
         self.fc0 = nn.Linear(X * Y * Zl * cin, 100)
         self.fc1 = nn.Linear(100, 1)
         for fc in (self.fc0, self.fc1):

@@ -15,7 +15,10 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
   / ``--serve_int8_trunk`` the int8 serving head / trunk calibrated on N
   test fields first;
 - ``--export PATH [--no_ema]``: the ``torch.export`` serving artifact
-  (``eval/export.py``), alone or beside ``--use`` and ``--serve``.
+  (``eval/export.py``), alone or beside ``--use`` and ``--serve``;
+- ``--param_search [--num_samples N] [--asha_grace IT] [--asha_eta ETA]
+  [--slurm_array_id K]``: the physics-weight search (``search/``), shard
+  ``K % N_SHARDS`` of ``N_SHARDS`` (an environment variable, default 1).
 
 ::
 
@@ -26,12 +29,14 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
         --synthetic_hours 240 --synthetic_size 128 --cfg <config.ini>
 
 ``--test``, ``--use``, ``--serve`` and ``--export`` take their weights from
-``env.generator_load_path``: a continuation pack (``.npz``) or a port
-checkpoint folder (``ckpt_{it}``). Each mode runs on the card;
-``--device cpu`` runs the plain PyTorch path on the CPU instead, and
-without either a card or that flag it raises. The other mode flags of
-``run.py`` are accepted and raise ``NotImplementedError`` naming what is
-not ported yet (``ROADMAP.md``).
+``env.generator_load_path``: a continuation pack (``.npz``), a port
+checkpoint folder (``ckpt_{it}``) or a reference ``G_{it}.pth``; a
+training run warm-starts from the same (and from a reference
+``D_{it}.pth`` in ``env.discriminator_load_path``) under
+``load_model_from_save``. Each mode runs on the card; ``--device cpu``
+runs the plain PyTorch path on the CPU instead, and without either a card
+or that flag it raises. ``--download`` is accepted and raises
+``NotImplementedError``: there is no network (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -50,18 +55,15 @@ from gan_sr_wind_field_tpu_torch.data import preprocess
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.eval.export import export_generator
 from gan_sr_wind_field_tpu_torch.eval.test_loop import run_test, run_use
+from gan_sr_wind_field_tpu_torch.search.driver import param_search
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.loop import train
 from gan_sr_wind_field_tpu_torch.utils.logging import setup_loggers
 
-_SEARCH = "the hyperparameter search (search/, ASHA)"
 # run.py's other flags: their defaults and what they need
 _NOT_PORTED = {
     "download": (False, "data/downloader.py (no network: use --synthetic)"),
-    "param_search": (False, _SEARCH), "num_samples": (250, _SEARCH),
-    "asha_grace": (1200, _SEARCH), "asha_eta": (3, _SEARCH),
-    "slurm_array_id": (1, _SEARCH),
 }
 
 
@@ -110,6 +112,20 @@ def argv_to_cfg(argv=None):
     p.add_argument("--synthetic_size", type=int, default=64,
                    help="horizontal extent of the synthetic domain; larger "
                         "than slice_size gives true random-patch training")
+    p.add_argument("--param_search", action="store_true",
+                   help="search the physics-loss weights under ASHA "
+                        "(search/driver.py)")
+    p.add_argument("--num_samples", type=int, default=250,
+                   help="--param_search trial budget (reference "
+                        "param_search.py:386)")
+    p.add_argument("--asha_grace", type=int, default=1200,
+                   help="--param_search ASHA grace period in iterations "
+                        "(reference param_search.py:300)")
+    p.add_argument("--asha_eta", type=int, default=3,
+                   help="--param_search ASHA reduction factor")
+    p.add_argument("--slurm_array_id", type=int, default=1,
+                   help="--param_search shard: this driver runs the "
+                        "trials i with i %% N_SHARDS == id %% N_SHARDS")
     p.add_argument("--profile", action="store_true",
                    help="with --train: trace the first iterations with "
                         "torch.profiler into the TensorBoard log folder")
@@ -133,14 +149,16 @@ def argv_to_cfg(argv=None):
             raise NotImplementedError(
                 f"--{flag} is not ported: it needs {needs} (see ROADMAP.md)")
     if not (args.train or args.test or args.use or args.export
-            or args.serve is not None):
-        p.error("nothing to do: pass --train, --test, --use, --export or "
-                "--serve")
+            or args.serve is not None or args.param_search):
+        p.error("nothing to do: pass --train, --test, --use, --export, "
+                "--serve or --param_search")
 
     cfg = Config.from_ini(args.cfg)
-    cfg.is_train = args.train
+    cfg.is_train = args.train or args.param_search
     cfg.is_test = args.test
     cfg.is_use = args.use
+    cfg.is_param_search = args.param_search
+    cfg.slurm_array_id = args.slurm_array_id
     return cfg, args
 
 
@@ -186,10 +204,11 @@ def deployment_state(cfg, gan: WindFieldGAN, no_ema: bool, status):
 
 
 def main(argv=None):
-    """Run the mode the command line asks for; → the final training state
-    (``--train``), the test averages (``--test``), the state whose G was
-    run (``--use``), the artifact's header (``--export`` alone) or the
-    stopped server (``--serve``)."""
+    """Run the mode the command line asks for; → the trials' records
+    (``--param_search``), the final training state (``--train``), the test
+    averages (``--test``), the state whose G was run (``--use``), the
+    artifact's header (``--export`` alone) or the stopped server
+    (``--serve``)."""
     cfg, args = argv_to_cfg(argv)
     device = resolve_device(args.device)
     log_dir = setup_env_and_cfg(cfg)
@@ -209,6 +228,13 @@ def main(argv=None):
     )
     status.info(f"datasets: train {len(ds_train)} / test {len(ds_test)} / "
                 f"val {len(ds_val)}")
+    if cfg.is_param_search:
+        n_shards = max(int(os.environ.get("N_SHARDS", "1")), 1)
+        return param_search(
+            cfg, ds_train, ds_val, x, y, num_samples=args.num_samples,
+            shard_index=cfg.slurm_array_id % n_shards, num_shards=n_shards,
+            grace_period=args.asha_grace, reduction_factor=args.asha_eta,
+            device=device)
     if cfg.is_train:
         return train(cfg, ds_train, ds_val, x, y, max_steps=args.max_steps,
                      device=device,

@@ -35,6 +35,9 @@ from gan_sr_wind_field_tpu_torch.utils.jax_params import (
     d_params_from_jax,
     params_from_jax,
 )
+from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+    load_reference_checkpoint,
+)
 
 FORMAT_VERSION = 1
 STATE_FILE = "state.pt"
@@ -111,12 +114,14 @@ def training_example(cfg, gan: WindFieldGAN) -> GANTrainState:
 
 
 def _structure_diffs(name: str, saved, example) -> list:
-    """Where tree ``saved`` differs from ``example`` in keys or shapes:
-    one line per tensor, in the example's order, then the extra keys."""
+    """Where tree ``saved`` differs from ``example`` in keys, shapes or
+    dtypes: one line per tensor, in the example's order, then the extra
+    keys."""
     saved = saved or {}
 
     def shape(t):
-        return "missing" if t is None else tuple(t.shape)
+        return "missing" if t is None else (
+            f"{tuple(t.shape)} {str(t.dtype).replace('torch.', '')}")
 
     return [f"{name}[{k!r}]: saved {shape(saved.get(k))}, expected "
             f"{shape(example.get(k))}"
@@ -135,9 +140,11 @@ def restore_checkpoint(path: str, example_state: GANTrainState,
     ``ValueError``; without it the example's generator is kept, and a
     checkpoint saved on another device type restores all the same.
 
-    Every tree, and both Adam states, must match the example's keys and
-    shapes, else ``ValueError`` names the first tensors that differ (as
-    the JAX package's restore raises for trees that do not match). The
+    Every tree, and both Adam states, must match the example's keys,
+    shapes and dtypes, else ``ValueError`` names the first tensors that
+    differ (as the JAX package's restore raises for trees that do not
+    match): float32 moments do not restore into a ``bfloat16_sr`` state,
+    nor bf16 ones into a float32 state. The
     EMA slot is reconciled across configurations as the JAX package does:
     a checkpoint with an EMA keeps it under a configuration without one,
     and one without an EMA seeds it from the restored G when the
@@ -158,8 +165,10 @@ def restore_checkpoint(path: str, example_state: GANTrainState,
            for line in _structure_diffs(name, saved, want)]
     if bad:
         more = f"; and {len(bad) - 4} more" if len(bad) > 4 else ""
+        hint = ("; the Adam moments' dtype follows optimizer_state_dtype"
+                if any(".mu[" in b or ".nu[" in b for b in bad) else "")
         raise ValueError(f"checkpoint {path} does not match the "
-                         f"configuration: {'; '.join(bad[:4])}{more}")
+                         f"configuration: {'; '.join(bad[:4])}{more}{hint}")
 
     def like(tree, example):
         if tree is None:
@@ -206,7 +215,7 @@ def replace_tree(tree, loaded, what: str):
     ``tree``'s device; ``ValueError`` when the keys differ."""
     if set(loaded) != set(tree):
         odd = sorted(set(loaded) ^ set(tree))
-        raise ValueError(f"{what}: the pack's tensors do not match the "
+        raise ValueError(f"{what}: the loaded tensors do not match the "
                          f"configuration's ({odd})")
     dev = next(iter(tree.values())).device
     return {k: loaded[k].to(dev) for k in tree}
@@ -249,14 +258,16 @@ def load_pack(state: GANTrainState, path: str,
 def load_generator_state(cfg, gan: WindFieldGAN, path: str) -> GANTrainState:
     """A state of ``gan`` at the training geometry with the weights at
     ``path``: a continuation pack (``.npz``: its G, and its EMA slot or
-    none) or a port checkpoint folder of any device type (its weights;
-    the random generator stays the fresh one). Reference ``.pth``
-    checkpoints raise: ``utils/torch_import.py`` is not ported."""
-    if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: reference .pth checkpoints need utils/torch_import.py, "
-            "which is not ported (see ROADMAP.md)")
+    none), a reference ``G_{it}.pth`` (its G, no EMA slot: the imported
+    weights are the ones that serve, as JAX ``run.py:275-289`` drops the
+    slot) or a port checkpoint folder of any device type (its weights; the
+    random generator stays the fresh one)."""
     example = training_example(cfg, gan)
+    if path.endswith(".pth"):
+        params_G, _, _ = load_reference_checkpoint(gan.G, path)
+        example.params_G = replace_tree(example.params_G, params_G, "G")
+        example.params_G_ema = None
+        return example
     if path.endswith(".npz"):
         return load_pack(example, path, weights_only=True)
     return restore_checkpoint(path, example, restore_rng=False)

@@ -60,6 +60,7 @@ from gan_sr_wind_field_tpu_torch.models.generator import (
     _act_slope,
     build_generator,
 )
+from gan_sr_wind_field_tpu_torch.ops import sr_cast
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
 from gan_sr_wind_field_tpu_torch.ops.metrics import psnr
 from gan_sr_wind_field_tpu_torch.ops.physics import (
@@ -120,11 +121,15 @@ def _clone(params: Params) -> Params:
     return {k: v.detach().clone() for k, v in params.items()}
 
 
-def _adam_init(params: Params) -> AdamState:
+def _adam_init(params: Params, dtype: torch.dtype = torch.float32
+               ) -> AdamState:
+    """Adam's count at 0 and both moments at zero in ``dtype`` (float32,
+    or bfloat16 under ``optimizer_state_dtype = "bfloat16_sr"``)."""
     dev = next(iter(params.values())).device if params else None
-    return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
-                     {k: torch.zeros_like(v) for k, v in params.items()},
-                     {k: torch.zeros_like(v) for k, v in params.items()})
+    return AdamState(
+        torch.zeros((), dtype=torch.int32, device=dev),
+        {k: torch.zeros_like(v, dtype=dtype) for k, v in params.items()},
+        {k: torch.zeros_like(v, dtype=dtype) for k, v in params.items()})
 
 
 def _global_norm(grads) -> torch.Tensor:
@@ -152,9 +157,13 @@ class WindFieldGAN:
         if g.conv_mode != "3D":
             raise NotImplementedError(f"conv_mode={g.conv_mode!r} "
                                       f"{_NOT_PORTED}")
-        if getattr(t, "optimizer_state_dtype", "float32") == "bfloat16_sr":
-            raise NotImplementedError(
-                f"optimizer_state_dtype='bfloat16_sr' {_NOT_PORTED}")
+        moments = getattr(t, "optimizer_state_dtype", "float32")
+        if moments not in ("float32", "bfloat16_sr"):
+            raise ValueError(f"unknown optimizer_state_dtype {moments!r}")
+        # bfloat16_sr: both Adam states' moments held in bf16, cast back
+        # after each update by stochastic rounding (ops/sr_cast.py)
+        self.moment_dtype = (torch.bfloat16 if moments == "bfloat16_sr"
+                             else torch.float32)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -265,8 +274,8 @@ class WindFieldGAN:
             params_D=params_D,
             batch_stats_D=_clone(dict(D.named_buffers())),
             params_D_frozen=_clone(params_D) if self.use_feature_D else {},
-            opt_state_G=_adam_init(params_G),
-            opt_state_D=_adam_init(params_D),
+            opt_state_G=_adam_init(params_G, self.moment_dtype),
+            opt_state_D=_adam_init(params_D, self.moment_dtype),
             it=it,
             rng=torch.Generator(device=self.device).manual_seed(seed),
             params_G_ema=(params_G_ema if params_G_ema is not None
@@ -491,13 +500,18 @@ class WindFieldGAN:
 
     # -------------------------------------------------------- optimizer
     def _adam_step(self, params: Params, grads, opt: AdamState, lr_t,
-                   beta1: float, wd: float, finite=None):
+                   beta1: float, wd: float, finite=None,
+                   gen: Optional[torch.Generator] = None):
         """optax chain (clip_by_global_norm, add_decayed_weights,
         scale_by_adam(b2=0.999, eps=1e-8), scale(-1)), then p += u · lr_t
         (a float or a 0-d tensor), in place, Adam's count included. With
         ``finite`` (a 0-d bool tensor) the parameters, moments and count
-        keep their old values where it is false. Returns the pre-clip
-        global gradient norm. No host sync."""
+        keep their old values where it is false. Moments held in bf16
+        (``bfloat16_sr``) are updated in float32, as JAX
+        ``bf16_sr_optimizer_state`` upcasts them, and stored back by
+        stochastic rounding with draws from ``gen``, first moments then
+        second, each in the parameters' order. Returns the pre-clip global
+        gradient norm. No host sync."""
         norm = _global_norm(grads)
         if self.clip_norm is not None:
             grads = [torch.where(norm < self.clip_norm, g,
@@ -506,13 +520,16 @@ class WindFieldGAN:
         if wd:
             grads = torch._foreach_add(grads, torch._foreach_mul(ps, wd))
         mu, nu = list(opt.mu.values()), list(opt.nu.values())
+        sr = self.moment_dtype == torch.bfloat16
         with torch.no_grad():
             count = opt.count + 1
             bc1 = 1.0 - torch.pow(beta1, count.float())
             bc2 = 1.0 - torch.pow(0.999, count.float())
-            new_mu = torch._foreach_mul(mu, beta1)
+            mu32 = [m.float() for m in mu] if sr else mu
+            nu32 = [m.float() for m in nu] if sr else nu
+            new_mu = torch._foreach_mul(mu32, beta1)
             torch._foreach_add_(new_mu, torch._foreach_mul(grads, 1 - beta1))
-            new_nu = torch._foreach_mul(nu, 0.999)
+            new_nu = torch._foreach_mul(nu32, 0.999)
             torch._foreach_add_(new_nu, torch._foreach_mul(
                 torch._foreach_mul(grads, grads), 1 - 0.999))
             u = torch._foreach_div(new_mu, bc1)
@@ -522,6 +539,11 @@ class WindFieldGAN:
             torch._foreach_div_(u, den)
             torch._foreach_mul_(u, lr_t)
             new_p = torch._foreach_sub(ps, u)
+            if sr:
+                new_mu = [sr_cast.stochastic_round_bf16(m, gen)
+                          for m in new_mu]
+                new_nu = [sr_cast.stochastic_round_bf16(m, gen)
+                          for m in new_nu]
             olds = [*ps, *mu, *nu, opt.count]
             news = [*new_p, *new_mu, *new_nu, count]
             if finite is not None:
@@ -562,7 +584,7 @@ class WindFieldGAN:
         # included
         norm = self._adam_step(state.params_G, grads, state.opt_state_G,
                                self._sc["lr_G"], *self.opt_G,
-                               finite=torch.isfinite(loss))
+                               finite=torch.isfinite(loss), gen=state.rng)
         metrics["D_train_loss"] = torch.zeros((), device=self.device)
         if self.clip_norm is not None:
             metrics["G_grad_norm"] = norm
@@ -577,7 +599,7 @@ class WindFieldGAN:
                                     hr[..., :3], fake, None, state.rng, True)
         grads = self._grads(loss_D, params)
         self._adam_step(state.params_D, grads, state.opt_state_D,
-                        self._sc["lr_D"], *self.opt_D)
+                        self._sc["lr_D"], *self.opt_D, gen=state.rng)
         zero = torch.zeros((), device=self.device)
         metrics = {k: zero for k in _LOSS_KEYS}
         metrics["D_train_loss"] = loss_D.detach()
@@ -721,7 +743,10 @@ class WindFieldGAN:
                 metrics["trilinear_pix_loss"] = ((hr3 - trilinear) ** 2).mean()
             else:
                 metrics["trilinear_pix_loss"] = (hr3 - trilinear).abs().mean()
-            metrics["pix_loss_unscaled"] = (
-                losses["pix"] / max(w["pix"], 1e-30) if w["pix"] != 0.0
-                else losses["pix"])
+            # the weight may be a 0-d tensor (the search's): no host sync
+            w_pix = torch.as_tensor(w["pix"], dtype=torch.float32,
+                                    device=self.device)
+            metrics["pix_loss_unscaled"] = torch.where(
+                w_pix != 0.0, losses["pix"] / torch.clamp_min(w_pix, 1e-30),
+                losses["pix"])
         return metrics, state.batch_stats_D

@@ -24,7 +24,9 @@ Counterpart of ``gan_sr_wind_field_tpu/train/loop.py:train`` and
   (``profile_it{start}-{end}.pt.trace.json``) into ``profile_dir``;
 - warm start: a found resume checkpoint wins; else a ``.npz``
   continuation pack loads G, D, D's statistics, the EMA and ``it`` with
-  the Adam moments at zero, and a port checkpoint loads weights only.
+  the Adam moments at zero, a reference ``G_{it}.pth`` loads G (the EMA
+  seeded from it) and, beside it or alone, a reference ``D_{it}.pth``
+  loads D and its statistics, and a port checkpoint loads weights only.
 
 Where a save and a validation fall on one iteration, the port validates
 first: validation moves D's running statistics (as the reference does), so
@@ -53,6 +55,10 @@ from gan_sr_wind_field_tpu_torch.train.gan import GANTrainState, WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.watchdog import StallWatchdog
 from gan_sr_wind_field_tpu_torch.utils.progress import DisplayBar
 from gan_sr_wind_field_tpu_torch.utils.tb import MetricsWriter
+from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+    load_reference_checkpoint,
+    load_reference_discriminator,
+)
 
 TRAIN_LOSS_KEYS = (
     "total", "adversarial", "pix", "xy_gradient", "z_gradient",
@@ -60,7 +66,8 @@ TRAIN_LOSS_KEYS = (
 )
 
 
-def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
+def _load_weights(cfg, gan: WindFieldGAN, state: GANTrainState,
+                  run_folder: str, status):
     """The warm-start branches of ``loop.py:104-221`` of the JAX package."""
     resume_path = None
     if cfg.training.resume_training_from_save:
@@ -72,15 +79,21 @@ def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
         return state
     g_path = cfg.env.generator_load_path
     d_path = cfg.env.discriminator_load_path
-    for p in (g_path, d_path):
-        if p and p.endswith(".pth"):
-            raise NotImplementedError(
-                f"{p}: reference .pth checkpoints need "
-                "utils/torch_import.py, which is not ported (see ROADMAP.md)")
+    g_is_pth = bool(g_path) and g_path.endswith(".pth")
+    d_is_pth = bool(d_path) and d_path.endswith(".pth")
     if g_path and g_path.endswith(".npz"):
         state = ckpt.load_pack(state, g_path)
         status.info(f"continuation warm start from {g_path} at "
                     f"it={state.it} (optimizer moments reset)")
+    elif g_is_pth:
+        params_G, _, _ = load_reference_checkpoint(gan.G, g_path)
+        state.params_G = ckpt.replace_tree(state.params_G, params_G, "G")
+        if state.params_G_ema is not None:
+            # seeded from the imported weights: left at the random init the
+            # EMA would anneal from noise for ~1/(1 - decay) iterations
+            state.params_G_ema = {k: v.clone()
+                                  for k, v in state.params_G.items()}
+        status.info(f"imported reference weights G={g_path}")
     elif g_path:
         # weights only from a port checkpoint; the training state is fresh
         loaded = ckpt.restore_checkpoint(g_path, state, restore_rng=False)
@@ -91,6 +104,13 @@ def _load_weights(cfg, state: GANTrainState, run_folder: str, status):
         if state.params_G_ema is not None:
             state.params_G_ema = loaded.params_G_ema
         status.info(f"loaded weights (fresh training state) from {g_path}")
+    if d_is_pth:
+        # beside any G source, as the reference's load_model reads D
+        params_D, stats_D = load_reference_discriminator(gan.D, d_path)
+        state.params_D = ckpt.replace_tree(state.params_D, params_D, "D")
+        state.batch_stats_D = ckpt.replace_tree(state.batch_stats_D, stats_D,
+                                                "D's statistics")
+        status.info(f"imported reference weights D={d_path}")
     return state
 
 
@@ -141,7 +161,7 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         (batch_size,) + probe_hr.shape,
     )
     if cfg.load_model_from_save:
-        state = _load_weights(cfg, state, run_folder, status)
+        state = _load_weights(cfg, gan, state, run_folder, status)
 
     niter = min(cfg_t.niter, max_steps) if max_steps else cfg_t.niter
     start_it = state.it

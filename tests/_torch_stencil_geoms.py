@@ -18,4 +18,6 @@ STENCIL_GEOMS = [
     (1, 5, 31, 10),
     # the minimum of 2 points per axis
     (1, 2, 2, 2),
+    # the full HR volume of the 8x and 16x configurations at batch 8
+    (8, 128, 128, 10),
 ]

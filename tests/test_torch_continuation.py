@@ -46,6 +46,9 @@ from gan_sr_wind_field_tpu_torch.utils.jax_params import (
     d_params_to_jax,
     params_to_jax,
 )
+from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+    save_reference_checkpoint,
+)
 from test_torch_loop import _train, loop_cfg
 
 
@@ -185,9 +188,12 @@ def test_from_checkpoint_serves_the_trained_state(trained, tmp_path):
         assert torch.equal(torch.from_numpy(sr.upscale(lr, z)), want)
     assert not torch.equal(state.params_G["feature_conv.weight"],
                            state.params_G_ema["feature_conv.weight"])
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        WindFieldSR.from_checkpoint(cfg, str(tmp_path / "G_4.pth"), COORDS,
-                                    COORDS, device="cpu")
+    # a reference G_{it}.pth of the trained G serves that G (no EMA slot)
+    pth = save_reference_checkpoint(str(tmp_path / "G_4.pth"),
+                                    state.params_G, gan.G)
+    sr = WindFieldSR.from_checkpoint(cfg, pth, COORDS, COORDS, device="cpu")
+    want = gan.generate(state, lr, z)
+    assert torch.equal(torch.from_numpy(sr.upscale(lr, z)), want)
 
 
 def test_weights_readers_take_a_checkpoint_of_another_device_type(

@@ -33,6 +33,9 @@ from gan_sr_wind_field_tpu_torch.eval.interp import (
 )
 from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
+from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+    save_reference_checkpoint,
+)
 
 COORDS = np.arange(16, dtype=np.float32) * 150.0
 STATS = {"z_min": -2.7, "z_max": 550.4, "z_above_ground_max": 68.5,
@@ -88,7 +91,7 @@ def test_blend_params_validates(two):
     assert all(v.dtype == torch.bfloat16 for v in out.values())
 
 
-def test_alpha_endpoints_reproduce_each_model(two):
+def test_alpha_endpoints_reproduce_each_model(two, tmp_path):
     _, _, (path_a, path_b) = two
     cfg = tiny_cfg(True)
     for alpha, path in ((1.0, path_a), (0.0, path_b)):
@@ -98,9 +101,17 @@ def test_alpha_endpoints_reproduce_each_model(two):
                                            device="cpu").G.state_dict()
         for k in want:
             assert torch.equal(got[k], want[k]), (alpha, k)
-    with pytest.raises(NotImplementedError):
-        interpolated_sr(cfg, "G_100.pth", path_b, 0.5, COORDS, COORDS,
-                        device="cpu")
+    # a reference G_{it}.pth of model a blends as a's pack does
+    a = WindFieldSR.from_checkpoint(cfg, path_a, COORDS, COORDS,
+                                    device="cpu")
+    pth = save_reference_checkpoint(str(tmp_path / "G_100.pth"),
+                                    a.G.state_dict(), a.G)
+    got = interpolated_sr(cfg, pth, path_b, 0.5, COORDS, COORDS,
+                          device="cpu").G.state_dict()
+    want = interpolated_sr(cfg, path_a, path_b, 0.5, COORDS, COORDS,
+                           device="cpu").G.state_dict()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_cli_writes_a_blended_artifact(two, tmp_path):

@@ -59,6 +59,9 @@ def cuda_device():
     (8, 4, 3, (2, 4, 3, 5)),      # channels below one 32-wide slice
     (40, 12, 5, (1, 5, 3, 7)),    # slices straddling the state/growth split
     (128, 32, 5, (2, 16, 16, 10)),  # the served geometry
+    # the full volumes of the 8x and 16x configurations at batch 8
+    (128, 32, 5, (8, 16, 16, 10)),
+    (128, 32, 5, (8, 8, 8, 10)),
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, monkeypatch, dtype,
                                               tol, nf, gc, num_convs, shape):

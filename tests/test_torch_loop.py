@@ -49,6 +49,10 @@ from gan_sr_wind_field_tpu_torch.utils.jax_params import (
     params_from_jax,
 )
 from gan_sr_wind_field_tpu_torch.utils.logging import setup_loggers
+from gan_sr_wind_field_tpu_torch.utils.torch_import import (
+    export_discriminator_state_dict,
+    save_reference_checkpoint,
+)
 
 HOURS, SIZE = 6, 32
 TREES = ("params_G", "params_D", "batch_stats_D", "params_D_frozen",
@@ -323,7 +327,9 @@ def test_warm_start_from_a_jax_pack(tmp_path, with_ema):
 
 def test_warm_start_branches(tmp_path):
     """A found resume checkpoint wins over the pack; a port checkpoint as
-    generator_load_path loads weights only; .pth sources raise."""
+    generator_load_path loads weights only; reference .pth sources load
+    (tests/test_torch_reference_import.py holds them against the JAX
+    package): G alone with the EMA seeded from it, D alone."""
     cfg = loop_cfg(True, tmp_path, niter=2)
     state = _train(cfg)
     saved = ckpt.latest_checkpoint(cfg.env.this_runs_folder)
@@ -341,12 +347,28 @@ def test_warm_start_branches(tmp_path):
     cfg3.training.resume_training_from_save = True
     cfg3.env.generator_load_path = str(tmp_path / "missing.npz")
     assert_states_equal(_train(cfg3), state)
-    for key in ("generator_load_path", "discriminator_load_path"):
-        cfg4 = loop_cfg(True, tmp_path / "pth", niter=2)
+    gan = WindFieldGAN(cfg, COORDS, COORDS, device="cpu")
+    gan.init_state(0, LR_SHAPE, HR_SHAPE)  # builds gan.D at the patch
+    g_pth = save_reference_checkpoint(str(tmp_path / "G_100.pth"),
+                                      state.params_G, gan.G)
+    d_pth = str(tmp_path / "D_100.pth")
+    torch.save(export_discriminator_state_dict(
+        state.params_D, state.batch_stats_D, gan.D), d_pth)
+    for key, path in (("generator_load_path", g_pth),
+                      ("discriminator_load_path", d_pth)):
+        cfg4 = loop_cfg(True, tmp_path / "pth", niter=0, g_ema_decay=0.999)
         cfg4.load_model_from_save = True
-        setattr(cfg4.env, key, str(tmp_path / "G_100.pth"))
-        with pytest.raises(NotImplementedError, match="torch_import"):
-            _train(cfg4)
+        setattr(cfg4.env, key, path)
+        got = _train(cfg4)
+        want = ((("params_G", state.params_G), ("params_G_ema",
+                                                 state.params_G))
+                if key == "generator_load_path" else
+                (("params_D", state.params_D),
+                 ("batch_stats_D", state.batch_stats_D)))
+        for tree, ref in want:
+            for k, v in getattr(got, tree).items():
+                assert torch.equal(v, ref[k]), (key, tree, k)
+        assert got.it == 0 and got.opt_state_G.count == 0
 
 
 def test_sigterm_checkpoints_and_exits(tmp_path, monkeypatch):
@@ -460,6 +482,35 @@ def test_cli_profile_writes_a_trace(tmp_path, steps, chunk, end):
                                   ["--asha_grace", "4"],
                                   ["--download"], ["--param_search"],
                                   ["--slurm_array_id", "2"]])
-def test_cli_flags_not_ported_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run.main(["--train", "--synthetic", "--device", "cpu"] + flag)
+def test_cli_flags_not_ported_raise(flag, tmp_path, monkeypatch):
+    """--download raises (no network); the search's flags reach
+    param_search with their values (tests/test_torch_search.py runs it)."""
+    if flag == ["--download"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run.main(["--train", "--synthetic", "--device", "cpu"] + flag)
+        return
+    cfg = loop_cfg(True, tmp_path, niter=2)
+    cfg.also_log_to_terminal = False
+    ini = str(tmp_path / "tiny.ini")
+    cfg.save(ini)
+    seen = {}
+
+    def fake(cfg, *data, **kw):
+        seen.update(kw, is_train=cfg.is_train)
+        return "searched"
+
+    monkeypatch.setattr(run, "param_search", fake)
+    monkeypatch.setenv("N_SHARDS", "3")
+    argv = ["--cfg", ini, "--synthetic", "--synthetic_hours", str(HOURS),
+            "--synthetic_size", str(SIZE), "--device", "cpu",
+            "--param_search"]
+    assert run.main(argv + flag[1:] if flag == ["--param_search"]
+                    else argv + flag) == "searched"
+    want = dict(num_samples=250, grace_period=1200, reduction_factor=3,
+                shard_index=1, num_shards=3, is_train=True)
+    name = {"--num_samples": "num_samples", "--asha_grace": "grace_period",
+            "--slurm_array_id": "shard_index"}.get(flag[0])
+    if name:
+        want[name] = int(flag[1]) % 3 if name == "shard_index" \
+            else int(flag[1])
+    assert {k: seen[k] for k in want} == want

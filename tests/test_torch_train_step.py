@@ -303,9 +303,17 @@ def test_ema_g_step_count_matches_enumeration():
 
 @pytest.mark.parametrize("what", ["mesh", "bfloat16_sr", "horizontal_3D"])
 def test_options_not_ported_raise(what):
+    """Meshes and horizontal_3D raise; bfloat16_sr is ported (its moments
+    are bf16, tests/test_torch_sr_cast.py trains with it)."""
     cfg = tiny_cfg(True)
     if what == "bfloat16_sr":
         cfg.training.optimizer_state_dtype = "bfloat16_sr"
+        gan = WindFieldGAN(cfg, COORDS, COORDS, device="cpu")
+        state = gan.init_state(0, LR_SHAPE, HR_SHAPE)
+        for opt in (state.opt_state_G, state.opt_state_D):
+            assert {m.dtype for m in [*opt.mu.values(), *opt.nu.values()]} \
+                == {torch.bfloat16}
+        return
     if what == "horizontal_3D":
         cfg.gan_config.conv_mode = "horizontal_3D"
     kw = {"mesh": object()} if what == "mesh" else {}

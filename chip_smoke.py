@@ -4,7 +4,8 @@ full-width 4x generator on one NVIDIA card through the hand-written CUDA
 kernels, train in chunks of CUDA graphs, SR a field of any extent, and
 deploy it: int8 serving, the torch.export artifact, interpolation; then
 the reference's users: .pth checkpoints into the readers at 8x and 16x,
-the physics-weight search and bf16 Adam moments.
+the physics-weight search and bf16 Adam moments; then the model options
+conv_mode = horizontal_3D and D's instance norm.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -47,9 +48,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      config's init scales, bf16, batch 32): one G step's gradients through
      the kernels against the same step with the RRDB modules and the plain
      stencil (<= 5e-2 relative L2), and, to split that gap, against the
-     same step with autograd through the trunk's plain version, then
-     stage by stage on that step's trunk input and output cotangent
-     (residual mode, backward, dW stage, printed);
+     same step with autograd through the trunk's plain version (printed);
      then from it = 47 four train_steps (48, 49 G; 50, 51 D) and one
      val_step: finite losses and metrics, G and its EMA move on G steps
      only, D and its batch statistics on D steps only, and each kernel's
@@ -176,12 +175,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      card (seconds); at batch 1 and 8 it is within 1e-5 of WindFieldSR's
      plain path and 3e-2 of the kernel path, launching no kernel; its
      serving ms beside the kernel path's; a subprocess importing only
-     torch, json and struct runs the payload (1e-5); (d) eval.interp
+     torch, json and struct runs the payload (1e-5; it reads the artifact
+     on the host from phase 10's start and goes to the card when (c)
+     starts); (d) eval.interp
      --device cpu, in a process of its own from phase 7's start, blends
      the 9k and 6k packs: alpha 1 and 0 reproduce each pack's generator
      tensor by tensor, alpha 0.5 writes an artifact that serves the 8 test
-     fields on the card within 1e-5 of the blend's plain path. Both
-     command lines run at a lower priority on the host's spare cycles.
+     fields on the card within 1e-5 of the blend's plain path (read by
+     load_exported on the host in a process of its own from phase 10's
+     start, moved to the card by ExportedSR.to when (c) starts, and done
+     before (c) times anything). Both command lines run at a lower
+     priority on the host's spare cycles.
   11. the reference's users, in phase 7's temporary directory on its
      data: (a) seeded full-width generators of configs/fullvol8x3k.ini
      and fullvol16x2k.ini written as reference G.pth files
@@ -203,8 +207,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      finite totals, G and its EMA at the first step the imported G,
      launches 4 x (1, 1, 2, 1, 0) plus the validation batches' and one
      generate's, the G step's ms; (d) run.py --param_search on a copy of
-     milestone9k at batch 8, niter 8, validation every 4 its,
-     --num_samples 4 --asha_grace 2 --asha_eta 2: 4 records with finite
+     milestone9k at batch 8, niter 4, validation every 2 its,
+     --num_samples 3 --asha_grace 2 --asha_eta 2: 3 records with finite
      PSNRs, stops only at ASHA's rungs, each trial's first G-step total
      within 1e-5 of the sum of its own weights' losses (recomputed with
      unit weights on a copy of its state, batch and draws, after the
@@ -218,6 +222,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      moments bf16 and their bytes against float32's, launches (4, 2, 4,
      2, 0) each, the G step's ms (median of its 49 and the next two G
      steps) beside phase 6's float32 one.
+  12. conv_mode = horizontal_3D and D's instance norm at full width: a
+     copy of configs/milestone9k.ini with [GAN] conv_mode = horizontal_3D
+     and [DISCRIMINATOR] norm_type = instance written in phase 7's
+     temporary directory, all else as committed (bf16, batch 32, seeded
+     weights at the config's init scales, slicing, use_pallas_stencil),
+     on batches batch_at cuts from phase 11's resident volumes: (a) G's
+     and D's parameter counts and a growth conv's init std within 3 % of
+     JAX's fan-in sqrt(2 s^2/(W 27 Cin)); (b) the horizontal conv against
+     a per-window F.conv3d loop in float32 (<= 1e-4) on the state's own
+     kernels: a growth conv 224->32 at LR batch 8, hr_conv0 144->144 (k =
+     5) at HR batch 2, D's strided (4, 4, 3) conv with stride (2, 2, 1)
+     and its head_conv1 with stride (1, 1, 2); instance norm against
+     float64 (<= 1e-5); (c) one G step's bf16 gradients with kernels 3
+     and 4 against the same step with the plain stencil (<= 5e-2); (d)
+     steps 48-51 (G, G, D, D) and one val_step as in phase 5: launches
+     (0, 0, 2, 1, 0) per G step, none per D step, (0, 0, 6, 2, 0) in all;
+     (e) steps 49 and 50 through train_chunk's CUDA graphs from a copy of
+     the state against train_step (bit-exact, or within 1e-3 relative
+     L2); (f) WindFieldSR serves a batch of 8 with no kernel launch, bit
+     for bit gan.generate with the EMA, and its ms; (g) the G and D steps'
+     CUDA-event ms (the second of each in (d)) beside phase 6's and the G
+     step by kernel; (h) peak memory and the phase's seconds.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -389,15 +415,22 @@ INT8_SPLIT_NAMES = ("head_pair_kernel", "RequantEpi", "DequantEpi",
                     "xmma_fprop", "elementwise")
 
 
-def kernel_split(label, fn, card, names=SPLIT_NAMES):
+def kernel_split(label, fn, card, names=SPLIT_NAMES, warm_up=True):
     """One call of fn under torch.profiler: the card's time by kernel
     (the first of ``names`` in a kernel's name, else "other") against the
-    call's CUDA-event time; what is left is the card waiting on the host
-    loop."""
+    call's CUDA-event time, read from the trace's device events
+    (read_trace: the profiler's key_averages takes tens of seconds over
+    the ~30k launches of a step). The card is busy for the union of its
+    events; the rest of the call is the card waiting on the host loop.
+    ``warm_up`` calls fn once first (leave it to a caller whose fn has
+    just run)."""
+    import tempfile
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -407,46 +440,56 @@ def kernel_split(label, fn, card, names=SPLIT_NAMES):
         end.record()
         end.synchronize()
     wall = start.elapsed_time(end)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        _, busy, ops = read_trace(path)
+    finally:
+        os.remove(path)
     parts = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total <= 0:
-            continue
-        name = next((k for k in names if k in e.key), "other")
-        ms, n = parts.get(name, (0.0, 0))
-        parts[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
-    busy = sum(ms for ms, _ in parts.values())
+    for op, (ms, n) in ops.items():
+        name = next((k for k in names if k in op), "other")
+        total, count = parts.get(name, (0.0, 0))
+        parts[name] = (total + ms, count + n)
     if not busy:
         log(f"{label}: the profiler saw no device time")
         return
     log(f"{label}: {wall:.3f} ms, the card busy {busy:.3f} ms "
         f"({100 * busy / wall:.1f} %) ({card})")
+    summed = sum(ms for ms, _ in parts.values())
     for name, (ms, n) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
         log(f"    {name:<19} {n:4d} launches {ms:9.3f} ms "
-            f"({1e3 * ms / n:8.1f} us each, {100 * ms / busy:5.1f} %)")
+            f"({1e3 * ms / n:8.1f} us each, {100 * ms / summed:5.1f} %)")
 
 
 def device_ms(fn, kernel, flush=None, reps=5):
     """The card's own time per launch of the kernel whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls of fn (after one
     warm-up); ``flush`` runs before each call, outside the kernel's time.
-    The mean over the launches the trace holds (it may miss one)."""
+    The mean over the launches the trace holds (it may miss one). A window
+    whose trace holds none of them (seen now and then, with the launch
+    counters showing the launches) is profiled once more, and said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if kernel in e.key and e.self_device_time_total > 0]
-    n = sum(e.count for e in hits)
-    if not 0 < n <= reps:
-        fail(f"the profiler saw {n} launches of {kernel} in {reps} calls")
-    return sum(e.self_device_time_total for e in hits) / n / 1e3
+    for window in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if kernel in e.key and e.self_device_time_total > 0]
+        n = sum(e.count for e in hits)
+        if 0 < n <= reps:
+            return sum(e.self_device_time_total for e in hits) / n / 1e3
+        log(f"  the profiler saw {n} launches of {kernel} in {reps} calls "
+            f"(window {window + 1} of 2)")
+    fail(f"the profiler saw {n} launches of {kernel} in {reps} calls, twice")
 
 
 def ptxas_reports(log_text):
@@ -1022,12 +1065,15 @@ def check_head_bf16(dev, wx, wt, x, t, dm, k, label):
           rel_l2(got.float(), want.float()), 1e-2)
 
 
-def drive_steps(gan, state, batch, g_want, d_want, card, label):
+def drive_steps(gan, state, batch, g_want, d_want, card, label,
+                step_ms=None):
     """From it = 47 four train_steps (48, 49 G; 50, 51 D) and one
     val_step, with the counts set to 0 just before: finite losses and
     metrics, G and its EMA move on G steps only, D and its batch
     statistics on D steps only, and each kernel's launch count rises by
-    what one step predicts. Returns the counts after the val step."""
+    what one step predicts. Returns the counts after the val step; with
+    a dict ``step_ms`` each step's CUDA-event ms goes into it by
+    iteration."""
     import torch
 
     state.it = 47
@@ -1041,9 +1087,14 @@ def drive_steps(gan, state, batch, g_want, d_want, card, label):
                     ("D", state.params_D), ("BN", state.batch_stats_D))}
         before = counters()
         t = time.monotonic()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         state, metrics = gan.train_step(state, lr, hr, z)
+        ev[1].record()
         torch.cuda.synchronize()
         secs = time.monotonic() - t
+        if step_ms is not None:
+            step_ms[it] = ev[0].elapsed_time(ev[1])
         rose = tuple(a - b for a, b in zip(counters(), before))
         kind = "G" if g_step else "D"
         vals = {k: float(v) for k, v in metrics.items()}
@@ -1074,140 +1125,12 @@ def drive_steps(gan, state, batch, g_want, d_want, card, label):
     return total
 
 
-def plain_trunk_cotangents(packed, x, d_out, geom):
-    """Autograd through the trunk's plain version (the arithmetic of
-    rrdb_trunk_reference, with the same rounding points) on x with the
-    cotangent d_out. Returns d_x, the growth convs' pre-activation
-    cotangents dU and the LFF outputs' cotangents dLFF (J-major, as the
-    backward kernel writes them) and the packed weight gradients."""
-    import torch
-    import torch.nn.functional as F
-
-    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import _conv_kernels
-
-    gc, K = geom["gc"], geom["num_convs"] - 1
-    leaves = {k: v.detach().clone().requires_grad_()
-              for k, v in packed.items()}
-    J, nf = leaves["lff"].shape[0], x.shape[-1]
-    dt = x.dtype
-    s1 = torch.tensor(geom["rdb_scale"], dtype=dt, device=x.device)
-    s2 = torch.tensor(geom["rrdb_scale"], dtype=dt, device=x.device)
-    kernels = _conv_kernels(leaves["conv"], J, nf, gc, K)
-    xv = x.detach().clone().requires_grad_()
-    state = xv.permute(0, 4, 1, 2, 3)
-    rres = state
-    pres, lffs = [], []
-    for j in range(J):
-        if j % 3 == 0:
-            rres = state
-        feats = state.float()
-        for w in kernels[j]:
-            pre = F.conv3d(feats, w.float(), padding=1)
-            pre.retain_grad()
-            pres.append(pre)
-            y = F.leaky_relu(pre, geom["negative_slope"])
-            feats = torch.cat([feats, y.to(dt).float()], dim=1)
-        w_lff = leaves["lff"][j].t().float()[:, :, None, None, None]
-        lff = F.conv3d(feats, w_lff, bias=leaves["bias"][j].float()).to(dt)
-        lff.retain_grad()
-        lffs.append(lff)
-        new = state + lff * s1
-        if j % 3 == 2:
-            new = rres + new * s2
-        state = new
-    state.permute(0, 2, 3, 4, 1).backward(d_out)
-
-    def stream(ts):  # per-RDB NCDHW -> J-major (J, N, R, C)
-        t = torch.stack(ts).permute(0, 1, 3, 4, 5, 2)
-        return t.reshape(J, x.shape[0], -1, t.shape[-1])
-
-    dU = stream([torch.cat([p.grad for p in pres[j * K:(j + 1) * K]], dim=1)
-                 for j in range(J)])
-    dLFF = stream([v.grad for v in lffs])
-    return (xv.grad, dU, dLFF,
-            (leaves["conv"].grad, leaves["lff"].grad, leaves["bias"].grad))
-
-
-def split_g_gap(packed, x, d_out, geom, nf, gc, nconv):
-    """The G-gradient gap, kernels vs autograd of the trunk's plain
-    version, stage by stage on the trunk input x and output cotangent
-    d_out captured in the kernels' G step, bf16: (a) the residual mode
-    against the plain forward, (b) the backward kernel against autograd on
-    the plain residuals, (c) the dW stage against autograd's weight
-    gradients."""
-    import torch
-
-    from gan_sr_wind_field_tpu_torch.models.fused_train import (
-        _dw_stage,
-        trunk_vjp,
-    )
-    from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
-        pack_trunk_weights_bwd,
-        rrdb_trunk,
-        rrdb_trunk_bwd,
-        rrdb_trunk_bwd_reference,
-        rrdb_trunk_reference,
-    )
-
-    shape = tuple(x.shape[:4])
-    K = nconv - 1
-    log(f"G-gradient gap by stage, bf16, on the G step's trunk input "
-        f"{tuple(x.shape)} and output cotangent (|d_out| "
-        f"{torch.linalg.vector_norm(d_out.double()).item():.3e}):")
-    with torch.no_grad():
-        got = rrdb_trunk(packed, x, with_residuals=True, **geom)
-        want = rrdb_trunk_reference(packed, x, with_residuals=True, **geom)
-        for label, a, b in zip(("out", "states", "growths"), got, want):
-            log(f"  (a) residual mode vs plain forward, {label}: rel L2 "
-                f"{rel_l2(a.float(), b.float()):.3e}")
-        k_states, k_growths = got[1], got[2]
-        _, states, growths = want
-        del got, want
-    d_x_a, dU_a, dLFF_a, dW_a = plain_trunk_cotangents(packed, x, d_out,
-                                                       geom)
-    with torch.no_grad():
-        packed_t = pack_trunk_weights_bwd(packed, nf=nf, gc=gc,
-                                          num_convs=nconv)
-        k_bwd = rrdb_trunk_bwd(packed_t, growths, d_out, **geom)
-        p_bwd = rrdb_trunk_bwd_reference(packed_t, growths, d_out, **geom)
-        for label, kb, pb, a in zip(("d_x", "dU", "dLFF"), k_bwd, p_bwd,
-                                    (d_x_a, dU_a, dLFF_a)):
-            log(f"  (b) on the plain residuals, {label}: kernel vs autograd "
-                f"{rel_l2(kb.float(), a.float()):.3e}, plain version vs "
-                f"autograd {rel_l2(pb.float(), a.float()):.3e}, kernel vs "
-                f"plain version {rel_l2(kb.float(), pb.float()):.3e}")
-        # where the backward starts to part from autograd: RDB by RDB from
-        # the last (the first the backward runs) to the first
-        J = dLFF_a.shape[0]
-        for j in sorted({max(j, 0) for j in (J - 1, J - 2, J - 3, J - 4,
-                                             J // 2, 0)}, reverse=True):
-            log(f"  (b) RDB {j}, plain version vs autograd: dLFF "
-                f"{rel_l2(p_bwd[2][j].float(), dLFF_a[j].float()):.3e}, dU "
-                f"{rel_l2(p_bwd[1][j].float(), dU_a[j].float()):.3e}")
-        labels = ("conv weights", "LFF weights", "LFF bias")
-        dw_k = _dw_stage(states, growths, k_bwd[1], k_bwd[2], shape, nf, gc,
-                         K)
-        dw_a = _dw_stage(states, growths, dU_a.to(x.dtype), dLFF_a, shape,
-                         nf, gc, K)
-        for label, wk, wa, a in zip(labels, dw_k, dw_a, dW_a):
-            log(f"  (c) dW stage vs autograd, {label}: on the kernel's "
-                f"cotangents {rel_l2(wk.float(), a.float()):.3e}, on "
-                f"autograd's cotangents rounded to bf16 "
-                f"{rel_l2(wa.float(), a.float()):.3e}")
-        vjp = trunk_vjp(packed["conv"], packed["lff"], k_states, k_growths,
-                        d_out, geom)
-        for label, g, a in zip(labels + ("input",), vjp, dW_a + (d_x_a,)):
-            log(f"  the G step's trunk VJP (kernel residuals) vs autograd, "
-                f"{label}: {rel_l2(g.float(), a.float()):.3e}")
-
-
 def train_phase(cfg, dev, rng, card):
     """Phase 5: the milestone9k WindFieldGAN at batch 32 on the card.
     Returns what phase 6 times."""
     import numpy as np
     import torch
 
-    from gan_sr_wind_field_tpu_torch.models import fused_train
     from gan_sr_wind_field_tpu_torch.models.fused_apply import (
         generator_forward,
         trunk_geometry,
@@ -1249,24 +1172,9 @@ def train_phase(cfg, dev, rng, card):
     keep = torch.rand((n, 1, 1, 1, gan.G.hr_conv1.weight.shape[1]),
                       generator=gen, device=dev) < 0.9
     res = []
-    # the kernels' step keeps the trunk's input and output cotangent, on
-    # which the gap is split stage by stage below
-    captured = {}
-    real_vjp = fused_train.trunk_vjp
-
-    def capture_vjp(conv, lff, states, growths, d_out, geom):
-        captured.update(x=states[0].reshape(d_out.shape).clone(),
-                        d_out=d_out.detach().to(conv.dtype).clone())
-        return real_vjp(conv, lff, states, growths, d_out, geom)
-
     for g in (gan, plain):
         gen = torch.Generator(device=dev).manual_seed(12)
-        fused_train.trunk_vjp = capture_vjp if g is gan else real_vjp
-        try:
-            res.append(g.g_grads(state, lr, hr, z, 48, gen,
-                                 dropout_mask=keep))
-        finally:
-            fused_train.trunk_vjp = real_vjp
+        res.append(g.g_grads(state, lr, hr, z, 48, gen, dropout_mask=keep))
         torch.cuda.synchronize()
     # the plain path once more with autograd through the trunk's plain
     # version instead of the RRDB modules: it rounds where the kernels do,
@@ -1315,14 +1223,6 @@ def train_phase(cfg, dev, rng, card):
             f", {share:.3f} of the gradient's norm")
     check("G gradients, kernels vs plain path (bf16)", err, G_GRAD_TOL)
     del plain, res, grads_k, grads_p, grads_r, G_ref
-    G = gan.G
-    G.load_state_dict(state.params_G)
-    with torch.no_grad():
-        packed = pack_trunk_weights(G.rrdbs, G.dtype, dev)
-    g = cfg.generator
-    split_g_gap(packed, captured["x"], captured["d_out"], trunk_geometry(G),
-                g.num_features, g.RDB_growth_chan, g.num_RDB_convs)
-    del packed, captured
     torch.cuda.empty_cache()
 
     total = drive_steps(gan, state, batch, G_STEP_LAUNCHES, D_STEP_LAUNCHES,
@@ -3270,20 +3170,88 @@ def deploy_phase(dev, card, tmp, built, procs):
     --artifact's backend against the plain path and the kernel path at
     batch 1 and 8 and timed, and a torch-only subprocess that runs the
     payload; (d) eval.interp (its own process, ``procs``): the endpoints
-    reproduce each pack, alpha 0.5 serves."""
+    reproduce each pack, alpha 0.5 serves (BLEND_SERVE, started here)."""
     from gan_sr_wind_field_tpu_torch.config import load_config
 
     cfg = load_config(TEST_CFG)
+    # (c)'s torch-only run of the artifact and (d)'s blended artifact,
+    # each read on the host by a process of its own while (a) and (b) run;
+    # both touch the card only once (c) writes the fields' file
+    exported = finish("export", procs, TIMEOUT_S * 5)
+    interp = finish("interp", procs, TIMEOUT_S * 5)
+    fields = os.path.join(tmp, "blend_fields.npz")
+    children = {}
+    for name, argv in (
+            ("torch_only", [TORCH_ONLY, exported[1],
+                            os.path.join(tmp, "torch_only.pt"), str(dev),
+                            fields]),
+            ("blend", [BLEND_SERVE, REPO, interp[1], fields,
+                       os.path.join(tmp, "blend_sr.npy"), str(dev)])):
+        children[name] = subprocess.Popen(
+            [sys.executable, "-c", *argv], cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(children[name])
     log(f"deploy: int8 conv kernel at {os.path.basename(TEST_CFG)}'s full "
         f"width ({card})")
     kernels = check_int8_kernel(cfg, dev, card, built)
     done("(a)")
-    return _deploy(dev, card, tmp, cfg, test_copy(tmp, "deploy"), procs,
-                   kernels)
+    return _deploy(dev, card, tmp, cfg, test_copy(tmp, "deploy"), kernels,
+                   (exported, interp, children, fields))
 
 
-def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
-    """Phase 10 (b) to (d)."""
+# phase 10 (c): the artifact's payload run by torch alone in a process of
+# its own (argv: artifact, output .pt, device, the file to wait for): read
+# on the host as soon as it starts, on the card once the file appears;
+# it must import nothing of this repository
+TORCH_ONLY = (
+    "import json, os, struct, sys, time, torch\n"
+    "from torch.export.passes import move_to_device_pass\n"
+    "f = open(sys.argv[1], 'rb')\n"
+    "assert f.read(4) == b'WSRX'\n"
+    "(n,) = struct.unpack('<I', f.read(4))\n"
+    "h = json.loads(f.read(n))\n"
+    "program = torch.export.load(f)\n"
+    "while not os.path.exists(sys.argv[4]):\n"
+    "    time.sleep(0.05)\n"
+    "dev = sys.argv[3]\n"
+    "m = move_to_device_pass(program, dev).module()\n"
+    "g = torch.Generator().manual_seed(2014)\n"
+    "lr = torch.randn(2, *h['lr_shape'][1:], generator=g)\n"
+    "z = torch.rand(2, *h['z_shape'][1:], generator=g)\n"
+    "with torch.inference_mode():\n"
+    "    torch.save(m(lr.to(dev), z.to(dev)).cpu(), sys.argv[2])\n"
+    "bad = [k for k in sys.modules if k.startswith('gan_sr')]\n"
+    "assert not bad, bad\n"
+)
+# phase 10 (d): the blended artifact served on the card in a process of
+# its own (argv: repo, artifact, the fields' .npz, the output .npy,
+# device): load_exported on the CPU as soon as it starts (deserializing is
+# the load's cost), then, once the fields' file appears, the artifact
+# moved to the card (ExportedSR.to) serves them
+BLEND_SERVE = (
+    "import os, sys, time\n"
+    "t = time.monotonic()\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import numpy as np\n"
+    "from gan_sr_wind_field_tpu_torch.eval.export import load_exported\n"
+    "ex = load_exported(sys.argv[2], device='cpu')\n"
+    "loaded = time.monotonic() - t\n"
+    "while not os.path.exists(sys.argv[3]):\n"
+    "    time.sleep(0.05)\n"
+    "t = time.monotonic()\n"
+    "ex = ex.to(sys.argv[5])\n"
+    "f = np.load(sys.argv[3])\n"
+    "np.save(sys.argv[4], ex.upscale(f['lr'], f['z']))\n"
+    "print(f'the blended artifact: load_exported in {loaded:.3f} s (its own "
+    "process, from phase 10 (a)), on {ex.device} and served '\n"
+    "      f'{len(f[\"lr\"])} fields in {time.monotonic() - t:.3f} s')\n"
+)
+
+
+def _deploy(dev, card, tmp, cfg, ini, kernels, started):
+    """Phase 10 (b) to (d); ``started`` is (run.py --export's and
+    eval.interp's ``finish``, the TORCH_ONLY and BLEND_SERVE processes by
+    name, the path of the fields' file they wait for)."""
     import numpy as np
     import torch
 
@@ -3292,7 +3260,6 @@ def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
     from gan_sr_wind_field_tpu_torch.eval import interp, server
     from gan_sr_wind_field_tpu_torch.eval.export import (
         ExportedSR,
-        load_exported,
         read_header,
     )
     from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
@@ -3417,38 +3384,19 @@ def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
     # (c) the artifact of run.py --export (phase 8 runs --use on the same
     # weights), eval/server.py --artifact. The export's own seconds: from
     # its EMA weights' status line to its artifact's
-    export_out, art, export_end = finish("export", procs, TIMEOUT_S * 5)
+    (export_out, art, export_end), (interp_out, blend, interp_end), \
+        children, fields_npz = started
     export_s = log_seconds(export_out, "using EMA generator weights",
                            "exported generator")
+    # the two processes go on to the card once the fields' file is there
+    # (written whole, then renamed), beside this one's load
+    np.savez(fields_npz + ".part.npz", lr=lr, z=z)
+    os.replace(fields_npz + ".part.npz", fields_npz)
     for line in re.findall(r"^\S+ (\S+) INFO: (.{0,60})", export_out, re.M):
         log(f"    run.py --export at {line[0]}: {line[1]}")
     header = read_header(art)
     if header["format_version"] != 2 or "norm_stats" not in header:
         fail(f"the artifact's header is {header}")
-    # the payload with torch alone, in another process, while this goes on
-    check_out = os.path.join(tmp, "torch_only.pt")
-    code = (
-        "import json, struct, sys, torch\n"
-        "from torch.export.passes import move_to_device_pass\n"
-        "f = open(sys.argv[1], 'rb')\n"
-        "assert f.read(4) == b'WSRX'\n"
-        "(n,) = struct.unpack('<I', f.read(4))\n"
-        "h = json.loads(f.read(n))\n"
-        "dev = sys.argv[3]\n"
-        "m = move_to_device_pass(torch.export.load(f), dev).module()\n"
-        "g = torch.Generator().manual_seed(2014)\n"
-        "lr = torch.randn(2, *h['lr_shape'][1:], generator=g)\n"
-        "z = torch.rand(2, *h['z_shape'][1:], generator=g)\n"
-        "with torch.inference_mode():\n"
-        "    torch.save(m(lr.to(dev), z.to(dev)).cpu(), sys.argv[2])\n"
-        "bad = [k for k in sys.modules if k.startswith('gan_sr')]\n"
-        "assert not bad, bad\n"
-    )
-    proc = subprocess.Popen([sys.executable, "-c", code, art, check_out,
-                             str(dev)],
-                            cwd=tmp, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    CHILDREN.append(proc)
     t = time.monotonic()
     server.serve = lambda backend, **kw: kept.update(backend=backend, **kw)
     try:
@@ -3477,6 +3425,12 @@ def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
         check(f"artifact at batch {n} vs the kernel path",
               rel_l2(got, torch.from_numpy(sr6.upscale(lr[:n], z[:n]))),
               EXPORT_KERNEL_TOL)
+    # both processes are done with the card before anything here is timed
+    outs = {}
+    for name, proc in children.items():
+        outs[name], _ = proc.communicate(timeout=TIMEOUT_S * 2)
+        if proc.returncode != 0:
+            fail(f"the {name} process failed:\n{outs[name]}")
     with torch.inference_mode():
         art_ms = cuda_ms(lambda: ex._module(lr_d, z_d))
         kern_ms = cuda_ms(lambda: sr6._generate(lr_d, z_d))
@@ -3495,10 +3449,9 @@ def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
             f"{same}")
         if not same:
             fail(f"alpha {alpha} does not reproduce its pack")
-    interp_out, blend, interp_end = finish("interp", procs, TIMEOUT_S * 5)
     log(f"  {interp_out.strip().splitlines()[-1]}")
-    exb = load_exported(blend, device=dev)
-    got = torch.from_numpy(exb.upscale(lr, z))
+    log(f"  {outs['blend'].strip().splitlines()[-1]}")
+    got = torch.from_numpy(np.load(os.path.join(tmp, "blend_sr.npy")))
     mid = WindFieldSR(load_config(ini), interp.blend_params(p9, p6, 0.5),
                       device=dev)
     with torch.inference_mode():
@@ -3511,18 +3464,16 @@ def _deploy(dev, card, tmp, cfg, ini, procs, kernels):
         fail("the blended artifact served a non-finite output")
     check("blended artifact vs WindFieldSR's plain path on the blend",
           rel_l2(got, plain), EXPORT_PLAIN_TOL)
-    del sr9, mid, exb, p9, p6
+    del sr9, mid, p9, p6
     # the torch-only process, against this one on its inputs
-    out, _ = proc.communicate(timeout=TIMEOUT_S)
-    if proc.returncode != 0:
-        fail(f"the torch-only subprocess failed:\n{out}")
     gen = torch.Generator().manual_seed(2014)
     lr2 = torch.randn(2, *header["lr_shape"][1:], generator=gen)
     z2 = torch.rand(2, *header["z_shape"][1:], generator=gen)
     with torch.inference_mode():
         want = ex._module(lr2.to(dev), z2.to(dev)).cpu()
     check("the payload run by torch alone in a subprocess vs ExportedSR",
-          rel_l2(torch.load(check_out), want), EXPORT_PLAIN_TOL)
+          rel_l2(torch.load(os.path.join(tmp, "torch_only.pt")), want),
+          EXPORT_PLAIN_TOL)
     del ex, sr6
     torch.cuda.empty_cache()
     return dict(kernels=kernels, launches=serve_int8,
@@ -3558,8 +3509,10 @@ CFG_8X = os.path.join(REPO, "configs", "fullvol8x3k.ini")
 CFG_16X = os.path.join(REPO, "configs", "fullvol16x2k.ini")
 FULL_VOLUME = 128                    # HR x and y of a full volume
 REF_LEG_STEPS = 4                    # (c): 4 G steps, one validation
-SEARCH_ARGS = ("--num_samples", "4", "--asha_grace", "2", "--asha_eta", "2")
-SEARCH_SCHEDULE = dict(niter=8, val_period=4)
+SEARCH_TRIALS = 3
+SEARCH_ARGS = ("--num_samples", str(SEARCH_TRIALS), "--asha_grace", "2",
+               "--asha_eta", "2")
+SEARCH_SCHEDULE = dict(niter=4, val_period=2)
 SEARCH_BATCH = 8
 SEARCH_TOL = 1e-5   # the first G step's total against sum(w_k loss_k)
 SR_BATCH = 32
@@ -3929,8 +3882,8 @@ class SearchProbe(Patches):
 
 def reference_search(dev, card, tmp):
     """Phase 11 (d): run.py --param_search on a copy of milestone9k (batch
-    8, niter 8, validation every 4 its, 4 trials under ASHA grace 2, eta
-    2): 4 records with finite PSNRs, ASHA's stops, each trial's first G
+    8, niter 4, validation every 2 its, 3 trials under ASHA grace 2, eta
+    2): 3 records with finite PSNRs, ASHA's stops, each trial's first G
     step the sum of its own weights' losses, trial 0 a bare weighted
     train_step loop from its seed, launches as the steps and validations
     predict. Returns the launches, the seconds per trial and the search's
@@ -3968,14 +3921,17 @@ def reference_search(dev, card, tmp):
         log(f"  trial {r['trial']}: {r['point']}; it {r['it']}, PSNR "
             f"{r['PSNR']:.4f}, best {r['best_PSNR']:.4f}, stopped early "
             f"{r['stopped_early']}; {tr['secs']:.2f} s")
-    if (len(recs) != 4 or lines != json.loads(json.dumps(recs))
+    if (len(recs) != SEARCH_TRIALS
+            or lines != json.loads(json.dumps(recs))
             or best != max(lines, key=lambda r: r["best_PSNR"])
             or not all(math.isfinite(r["PSNR"]) for r in recs)
-            or [r["point"] for r in recs] != driver.INITIAL_POINTS[:4]):
+            or [r["point"] for r in recs]
+            != driver.INITIAL_POINTS[:SEARCH_TRIALS]):
         fail(f"the search's records: {recs}")
     # ASHA's reports in order (trial, rung, PSNR, continue); a trial stops
     # where its report said stop, at a rung
-    rungs = driver.ASHAScheduler(max_t=8, grace_period=2,
+    niter, period = SEARCH_SCHEDULE["niter"], SEARCH_SCHEDULE["val_period"]
+    rungs = driver.ASHAScheduler(max_t=niter, grace_period=2,
                                  reduction_factor=2).rung_iterations()
     log("  ASHA reports (trial, it, PSNR, continue): " + ", ".join(
         f"({t}, {it}, {m:.4f}, {k})" for t, it, m, k in probe.reports))
@@ -3983,17 +3939,18 @@ def reference_search(dev, card, tmp):
     if any(stops.get(r["trial"]) != (r["it"] if r["stopped_early"]
                                      else None) for r in recs):
         fail(f"the records' stops are not ASHA's: {stops}")
-    if any(r["stopped_early"] != (r["it"] < 8) or
+    if any(r["stopped_early"] != (r["it"] < niter) or
            (r["stopped_early"] and r["it"] not in rungs) for r in recs):
         fail(f"ASHA's stops are not at its rungs {rungs}: {recs}")
     gaps = [abs(a - b) / abs(a) for a, b in firsts]
     log(f"  each trial's first G-step total vs sum(w_k loss_k) of its own "
         f"weights: " + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in firsts)
         + f"; largest rel gap {max(gaps):.3e} (tol {SEARCH_TOL:.0e})")
-    if len(gaps) != 4 or max(gaps) > SEARCH_TOL:
+    if len(gaps) != SEARCH_TRIALS or max(gaps) > SEARCH_TOL:
         fail("a trial's first G step did not take its own weights")
     n_val_sweeps = sum(len([it for it in range(1, r["it"] + 1)
-                            if it % 4 == 0 or it in rungs]) for r in recs)
+                            if it % period == 0 or it in rungs])
+                       for r in recs)
     per_sweep = probe.val_steps // max(n_val_sweeps, 1)
     predicted = tuple(probe.steps * a + probe.val_steps * c for a, c in
                       zip(G_STEP_LAUNCHES, VAL_LAUNCHES))
@@ -4021,7 +3978,7 @@ def reference_search(dev, card, tmp):
     for it in range(1, recs[0]["it"] + 1):
         state, _ = gan.train_step(state, *next(resident), augment=True,
                                   weights=weights)
-        if it % 4 == 0 or it in rungs:
+        if it % period == 0 or it in rungs:
             for bi, vb in enumerate(ds_val.batches(
                     SEARCH_BATCH, np.random.default_rng(fixed),
                     shuffle=False, drop_remainder=False)):
@@ -4190,7 +4147,263 @@ def reference_phase(dev, card, tmp, f32_g_ms):
     total = tuple(sum(v) for v in zip(*parts.values()))
     return dict(parts=parts, total=total, fwd_ms=fwd_ms, test_s=test_s,
                 g8_ms=g8_ms, trial_s=trial_s, sr_g_ms=sr_g_ms,
-                max_abs_err=(*trunk_err, *stencil_err))
+                max_abs_err=(*trunk_err, *stencil_err), resident=resident)
+
+
+# phase 12: conv_mode = horizontal_3D and D's instance norm at full width
+H_INI = "milestone9k_horizontal.ini"
+H_CONV_TOL = 1e-4   # the horizontal conv against a per-window F.conv3d loop
+H_NORM_TOL = 1e-5   # instance norm, float32 against float64
+H_INIT_TOL = 0.03   # a growth conv's init std against JAX's fan-in
+# one horizontal step's launches: no trunk or head kernel (they need "3D",
+# as JAX's trunk_fusable does), the stencil pair in G steps
+H_G_STEP_LAUNCHES = (0, 0, 2, 1, 0)
+H_D_STEP_LAUNCHES = (0, 0, 0, 0, 0)
+H_LAUNCHES = (0, 0, 6, 2, 0)  # steps 48-51 and one val_step
+# the card's kernels of a horizontal G step, for kernel_split: cuDNN's
+# grouped 2D convs by pass, then the stencil pair
+H_SPLIT_NAMES = ("dgrad", "wgrad", "fprop", *STENCIL_KERNELS.values(),
+                 "implicit_convolve", "xmma", "cutlass", "elementwise",
+                 "reduce", "Memcpy", "Memset")
+
+
+def per_window_conv(x, w, padding, strides):
+    """The horizontal conv's plain version: one F.conv3d per z-window on
+    the zero-padded z axis, window i from z = i·sz, channels-last in and
+    out; w is (W, O, C, kx, ky, kz)."""
+    import torch
+    import torch.nn.functional as F
+
+    (px, py, pz), (sx, sy, sz) = padding, strides
+    kz = w.shape[-1]
+    xp = F.pad(x, (0, 0, pz, pz)).permute(0, 4, 1, 2, 3)
+    out = [F.conv3d(xp[..., i * sz:i * sz + kz], w[i], stride=(sx, sy, 1),
+                    padding=(px, py, 0)) for i in range(w.shape[0])]
+    return torch.cat(out, dim=-1).permute(0, 2, 3, 4, 1)
+
+
+def check_horizontal_blocks(state, dev):
+    """Phase 12 (b): the horizontal conv against per_window_conv in
+    float32 (TF32 off) on the state's own kernels at the shapes they run
+    at: a growth conv 224 -> 32 at LR batch 8, hr_conv0 144 -> 144 (k = 5)
+    at HR batch 2, D's block-0 strided (4, 4, 3) conv with stride (2, 2, 1)
+    and its head_conv1 with stride (1, 1, 2); instance norm against a
+    float64 version."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.models.blocks import (
+        horizontal_conv3d_cl,
+        instance_norm,
+    )
+
+    gen = torch.Generator().manual_seed(2012)
+    G, D = state.params_G, state.params_D
+    cases = (
+        ("growth conv 224->32, LR batch 8",
+         G["rrdbs.0.rdbs.0.convs.3.weight"], (8, 16, 16, 10), (1, 1, 1),
+         (1, 1, 1)),
+        ("hr_conv0 144->144 k=5, HR batch 2", G["hr_conv0.weight"],
+         (2, 64, 64, 10), (2, 2, 2), (1, 1, 1)),
+        ("D block 0's strided (4, 4, 3) conv, stride (2, 2, 1), batch 8",
+         D["blocks.0.strided_conv.weight"], (8, 64, 64, 10), (1, 1, 1),
+         (2, 2, 1)),
+        ("D head_conv1, stride (1, 1, 2), batch 8",
+         D["head_conv1.weight"], (8, 4, 4, 10), (1, 1, 1), (1, 1, 2)),
+    )
+    for label, w, shape, pad, stride in cases:
+        x = torch.randn(*shape, w.shape[2], generator=gen).to(dev)
+        with torch.no_grad():
+            got = horizontal_conv3d_cl(x, w, pad, stride)
+            want = per_window_conv(x, w, pad, stride)
+        if got.shape != want.shape:
+            fail(f"{label}: shape {tuple(got.shape)}, plain "
+                 f"{tuple(want.shape)}")
+        check(f"horizontal conv vs per-window F.conv3d, {label}, "
+              f"{tuple(w.shape)}", rel_l2(got, want), H_CONV_TOL)
+    x = (torch.randn(8, 32, 32, 10, 64, generator=gen) * 3 + 1).to(dev)
+    xd = x.double()
+    mean = xd.mean((1, 2, 3), keepdim=True)
+    var = ((xd - mean) ** 2).mean((1, 2, 3), keepdim=True)
+    check("instance norm (8, 32, 32, 10, 64) vs float64",
+          rel_l2(instance_norm(x, torch.float32),
+                 (xd - mean) / torch.sqrt(var + 1e-5)), H_NORM_TOL)
+
+
+def horizontal_phase(dev, card, tmp, resident, p6):
+    """Phase 12: a copy of milestone9k with [GAN] conv_mode =
+    horizontal_3D and [DISCRIMINATOR] norm_type = instance, written in
+    phase 7's temporary directory, all else as committed (bf16, batch 32,
+    seeded weights at the config's init scales, slicing, the stencil
+    kernels): (a) parameter counts and a growth conv's init std against
+    JAX's fan-in; (b) check_horizontal_blocks; (c) one G step's bf16
+    gradients with kernels 3 and 4 against the same step with the plain
+    stencil; (d) steps 48-51 and one val_step (drive_steps) with launches
+    H_LAUNCHES; (e) steps 49 and 50 (G, D) through train_chunk against
+    train_step from a copy of the state; (f) WindFieldSR serves a batch of
+    8 with no trunk or head launch; (g) the G and D steps' ms beside phase
+    6's and the G step by kernel; (h) peak memory and seconds. Returns the
+    launches of (d) and (e) and the steps' ms."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ini = os.path.join(tmp, H_INI)
+    cfg = load_config(CFG)
+    cfg.gan_config.conv_mode = "horizontal_3D"
+    cfg.discriminator.norm_type = "instance"
+    cfg.save(ini)
+    cfg = load_config(ini)
+    g = cfg.gan_config
+    n, p, zl = cfg.dataset_train.batch_size, g.slice_size, g.number_of_z_layers
+    coords = np.arange(p, dtype=np.float32) * 150.0
+    gan = WindFieldGAN(cfg, coords, coords, device=dev)
+    if gan.use_fused_trunk or gan._head_nograd != "modules" \
+            or gan._wind_gradient is wind_field_gradient:
+        fail("the horizontal GAN does not take the module path with the "
+             "stencil kernels")
+    state = gan.init_state(2001, (n, p // cfg.scale, p // cfg.scale, zl,
+                                  cfg.lr_num_channels), (n, p, p, zl, 3))
+    done("the models, seeded on the host")
+    # (a) sizes and JAX's fan-in: W · kx · ky · kz · Cin
+    n_g = sum(v.numel() for v in state.params_G.values())
+    n_d = sum(v.numel() for v in state.params_D.values())
+    w = state.params_G["rrdbs.0.rdbs.0.convs.3.weight"]
+    W, _, cin = w.shape[:3]
+    want = cfg.generator.weight_init_scale * math.sqrt(2.0 / (W * 27 * cin))
+    std = w.float().std().item()
+    log(f"horizontal: {H_INI} (conv_mode {g.conv_mode}, D norm "
+        f"{cfg.discriminator.norm_type}), batch {n}; G {n_g} parameters, "
+        f"D {n_d}, D's statistics {len(state.batch_stats_D)} tensors (the "
+        f"slicing head's batch norms); growth conv {tuple(w.shape)} init "
+        f"std {std:.6f}, JAX's fan-in sqrt(2 s^2/(W 27 Cin)) {want:.6f} "
+        f"({100 * (std / want - 1):+.2f} %)")
+    if abs(std / want - 1) > H_INIT_TOL or not state.batch_stats_D:
+        fail("the horizontal init does not follow JAX's fan-in, or D has "
+             "no slicing-head statistics")
+    # (b) the blocks in float32
+    check_horizontal_blocks(state, dev)
+    done("(a, b)")
+    kw = dict(resident.slice_kwargs(), batch_size=n)
+    gen = torch.Generator(device=dev)
+    seed = 2012
+
+    def batch():
+        out = batch_at(resident.full, resident.zraw, seed, batch.count, gen,
+                       **kw)
+        batch.count += 1
+        return out
+
+    batch.count = 0
+    # (c) one G step's bf16 gradients, kernels 3 and 4 against the plain
+    # stencil, on the same weights, batch, dropout mask and draws
+    lr, hr, z = batch()
+    keep = torch.rand((n, 1, 1, 1, gan.G.hr_conv1.weight.shape[2]),
+                      generator=torch.Generator(device=dev).manual_seed(11),
+                      device=dev) < 0.9
+    res = []
+    stencil = gan._wind_gradient
+    for fn in (stencil, wind_field_gradient):
+        gan._wind_gradient = fn
+        try:
+            res.append(gan.g_grads(
+                state, lr, hr, z, 48,
+                torch.Generator(device=dev).manual_seed(12),
+                dropout_mask=keep))
+        finally:
+            gan._wind_gradient = stencil
+    (loss_k, _, grads_k), (loss_p, _, grads_p) = res
+    flat_k, flat_p = (torch.cat([x.flatten() for x in gs])
+                      for gs in (grads_k, grads_p))
+    log(f"  G step total loss: stencil kernels {loss_k.item():.6e}, plain "
+        f"stencil {loss_p.item():.6e}")
+    check("horizontal G gradients, stencil kernels vs plain stencil (bf16)",
+          rel_l2(flat_k, flat_p), G_GRAD_TOL)
+    del res, grads_k, grads_p, flat_k, flat_p
+    done("(c)")
+    # (d) four steps and a validation, the counts from 0
+    step_ms = {}
+    steps = drive_steps(gan, state, batch, H_G_STEP_LAUNCHES,
+                        H_D_STEP_LAUNCHES, card, "horizontal path", step_ms)
+    if steps != H_LAUNCHES:
+        fail(f"the horizontal steps launched {steps}, expected {H_LAUNCHES}")
+    done("(d)")
+    # (e) steps 49 (G) and 50 (D) through train_chunk's CUDA graphs from a
+    # copy of the state, against train_step on the same batches
+    state.it = 48
+    other = copy_state(state)
+    for _ in range(2):
+        state, _ = gan.train_step(state, *batch_at(
+            resident.full, resident.zraw, seed, state.it, gen, **kw))
+    reset_counters()
+    other, _ = gan.train_chunk(other, resident.full, resident.zraw, seed,
+                               n_steps=2, **kw)
+    torch.cuda.synchronize()
+    chunk = counters()
+    diffs = tree_diffs(other, state)
+    exact = all(v[2] for v in diffs.values())
+    worst = max(v[1] for v in diffs.values())
+    log(f"  train_chunk (G, D as CUDA graphs, captured in "
+        f"{gan._graphs.capture_s:.2f} s) vs train_step: bit-exact {exact}, "
+        f"largest rel L2 {worst:.3e}; launches {LAUNCH_LABELS} {chunk}")
+    if (not exact and worst > RESUME_TOL) or chunk != tuple(
+            a + b for a, b in zip(H_G_STEP_LAUNCHES, H_D_STEP_LAUNCHES)):
+        fail("the chunked horizontal steps are not train_step's")
+    gan._graphs = None
+    del other
+    torch.cuda.empty_cache()
+    done("(e)")
+    # (f) serving on the module path
+    sr = WindFieldSR(cfg, state.params_G_ema, device=dev)
+    done("WindFieldSR built")
+    if sr.packed is not None or sr.head_packed is not None:
+        fail("WindFieldSR packed kernel weights for a horizontal G")
+    lr8, _, z8 = (t[:8] for t in batch())
+    reset_counters()
+    with torch.inference_mode():
+        out = sr._generate(lr8, z8)
+    served = counters()
+    ema_state = copy.copy(state)
+    ema_state.params_G = state.params_G_ema
+    same = torch.equal(out, gan.generate(ema_state, lr8, z8))
+    with torch.inference_mode():
+        serve_ms = cuda_ms(lambda: sr._generate(lr8, z8))
+    log(f"  WindFieldSR served 8 samples {tuple(out.shape)}, finite "
+        f"{bool(out.isfinite().all())}; launches {LAUNCH_LABELS} {served}; "
+        f"equal to gan.generate with the EMA bit for bit {same}; "
+        f"{serve_ms:.3f} ms per batch of 8 (phase 6's 3D module head "
+        f"{p6['fwd_ms']:.3f}) ({card})")
+    if served != (0, 0, 0, 0, 0) or not out.isfinite().all() or not same:
+        fail("the horizontal serving path")
+    del sr, out
+    done("(f)")
+    # (g) the steps' times, (d)'s second G step and second D step (CUDA
+    # events, each warm), beside phase 6's 3D steps; the G step by kernel
+    g_ms, d_ms = step_ms[49], step_ms[51]
+    log(f"  horizontal G step {g_ms:.3f} ms, D step {d_ms:.3f} ms at batch "
+        f"{n} (its 49 and 51; 48 and 50 took {step_ms[48]:.3f} and "
+        f"{step_ms[50]:.3f}); phase 6's 3D steps (trunk kernels) "
+        f"{p6['g_ms']:.3f} / {p6['d_ms']:.3f} ms ({card})")
+    lr, hr, z = batch()
+
+    def g_step():
+        state.it = 48
+        gan.train_step(state, lr, hr, z)
+
+    kernel_split("  horizontal G step, by kernel", g_step, card,
+                 H_SPLIT_NAMES, warm_up=False)
+    log(f"  horizontal: peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase 12 "
+        f"took {time.monotonic() - t0:.1f} s")
+    del gan, state
+    torch.cuda.empty_cache()
+    return dict(steps=steps, chunk=chunk, g_ms=g_ms, d_ms=d_ms)
 
 
 def main():
@@ -4247,7 +4460,7 @@ def main():
 
 
 def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
-    """Phases 3 to 11 and the result lines, with phase 7's temporary
+    """Phases 3 to 12 and the result lines, with phase 7's temporary
     directory ``tmp`` and the future of its data feed ``leg_data``."""
     import numpy as np
     import torch
@@ -4474,6 +4687,11 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # ----------------- 11. .pth files, 8x and 16x, the search, bf16 Adam
     phase_start(11)
     rf = reference_phase(dev, card, tmp, tt["g_ms"])
+    # ------------------ 12. conv_mode horizontal_3D, D's instance norm
+    phase_start(12)
+    hz = horizontal_phase(dev, card, tmp, rf.pop("resident"),
+                          dict(g_ms=tt["g_ms"], d_ms=tt["d_ms"],
+                               fwd_ms=fwd_ms))
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -4490,6 +4708,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # phase 11's launches: the .pth files served at 8x and 16x, --test and
     # --train at 8x, the search, the bf16-moment legs
     rl = rf["total"]
+    # phase 12's launches: the horizontal steps and validation, and its
+    # chunk of two steps
+    hl = tuple(a + b for a, b in zip(hz["steps"], hz["chunk"]))
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
             serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0],
@@ -4517,10 +4738,13 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             launches_chunks=ch["chunk"][1], launches_host_path=ch["host"][1],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
-        *(row(name, "stencil.cu", replaces, tl[i] + ll[i] + cl[i] + rl[i],
+        *(row(name, "stencil.cu", replaces,
+              tl[i] + ll[i] + cl[i] + rl[i] + hl[i],
               err, (k["ms"], k["plain_ms"], k["bound"]), None,
               launches_train=tl[i], launches_loop=ll[i],
-              launches_reference=rl[i],
+              launches_reference=rl[i], launches_horizontal=hl[i],
+              horizontal_g_step_ms=hz["g_ms"],
+              horizontal_d_step_ms=hz["d_ms"],
               max_abs_err_reference=rf["max_abs_err"][i],
               launches_chunks=ch["chunk"][i],
               launches_host_path=ch["host"][i],

@@ -10,6 +10,7 @@ batch; the LR/HR extent is static at the config's patch, as in JAX.
     from gan_sr_wind_field_tpu_torch.eval.export import load_exported
     sr = load_exported("generator.wsrx")        # on the card; device="cpu"
     hr = sr.upscale(lr, z_terrain)              # (b, X·s, Y·s, zl, 3)
+    sr = load_exported("generator.wsrx", device="cpu").to("cuda")  # the same
 
 The program is the generator on its plain path, aten convolutions only:
 the port's CUDA kernels are bound with ctypes and cannot be traced, and
@@ -45,7 +46,7 @@ from gan_sr_wind_field_tpu_torch.data.transform import (
     physical_to_model_inputs,
 )
 from gan_sr_wind_field_tpu_torch.device import resolve_device
-from gan_sr_wind_field_tpu_torch.models.generator import build_generator
+from gan_sr_wind_field_tpu_torch.models.generator import empty_generator
 
 _MAGIC = b"WSRX"
 _FORMAT_VERSION = 2
@@ -95,7 +96,7 @@ def export_generator(cfg, params, path: str,
         lr_size = (g.slice_size // s, g.slice_size // s)
     X, Y = (int(v) for v in lr_size)
 
-    G = build_generator(cfg).eval()
+    G = empty_generator(cfg, device="cpu").eval()
     G.load_state_dict({k: v.detach().to("cpu", torch.float32)
                        for k, v in params.items()}, strict=True)
     b = _TRACE_BATCH if batch_polymorphic else 1
@@ -124,7 +125,7 @@ def export_generator(cfg, params, path: str,
         "scale": s,
         "lr_shape": [lead, X, Y, zl, cin],
         "z_shape": [lead, X * s, Y * s, zl, 1],
-        "out_channels": G.hr_conv1.weight.shape[0],
+        "out_channels": G.out_channels,
         "batch_polymorphic": bool(batch_polymorphic),
         "platforms": ["cpu", "cuda"],
         "torch_version": torch.__version__,
@@ -158,6 +159,15 @@ class ExportedSR:
         self.scale = header["scale"]
         self.norm_stats = header.get("norm_stats")
         self.lr_channels = header.get("lr_channels")
+
+    def to(self, device) -> "ExportedSR":
+        """The same artifact on ``device``: its program moved there (the
+        weights and the device arguments of its nodes)."""
+        from torch.export.passes import move_to_device_pass
+
+        dev = torch.device(device)
+        return ExportedSR(move_to_device_pass(self.program, dev), self.header,
+                          dev)
 
     def upscale(self, lr, z_terrain) -> np.ndarray:
         lr = np.asarray(lr, np.float32)
@@ -228,8 +238,5 @@ def load_exported(path: str, device=None) -> ExportedSR:
                 f"with a jax.export payload; load it with the JAX "
                 f"package's gan_sr_wind_field_tpu.eval.export.load_exported")
         program = torch.export.load(f)
-    if dev.type != "cpu":
-        from torch.export.passes import move_to_device_pass
-
-        program = move_to_device_pass(program, dev)
-    return ExportedSR(program, header, dev)
+    sr = ExportedSR(program, header, torch.device("cpu"))
+    return sr if dev.type == "cpu" else sr.to(dev)

@@ -47,7 +47,7 @@ from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     head_kernel_flags,
     trunk_input_features,
 )
-from gan_sr_wind_field_tpu_torch.models.generator import generator_from_config
+from gan_sr_wind_field_tpu_torch.models.generator import empty_generator
 from gan_sr_wind_field_tpu_torch.ops.hr_head import pack_head_weights
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
 from gan_sr_wind_field_tpu_torch.ops.quant import (
@@ -91,7 +91,7 @@ class WindFieldSR:
             g.include_pressure, g.include_z_channel,
             g.include_above_ground_channel,
         )
-        self.G = generator_from_config(cfg, device=self.device)
+        self.G = empty_generator(cfg, device=self.device).eval()
         self.G.load_state_dict(params, strict=True)
         G = self.G
         self.packed = None

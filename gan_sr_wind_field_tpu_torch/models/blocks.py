@@ -1,12 +1,17 @@
 """Building blocks, channels-last in and out.
 
-Counterparts of ``ConvLReLU``, ``RDB``, ``RRDB`` and ``DiscriminatorBlock``
-in ``gan_sr_wind_field_tpu/models/blocks.py``, ``conv_mode="3D"`` only.
-Weights are held in PyTorch's ``(O, I, kx, ky, kz)`` layout and kept
-float32; each forward casts them to the block's compute ``dtype``, as the
-flax modules do. Growth convs carry no bias; the LFF 1³ conv keeps its
-bias. Padding is zeros. ``BatchNorm`` is flax's ``nn.BatchNorm``, not
-PyTorch's: it keeps the biased batch variance in its running statistics.
+Counterparts of ``HorizontalConv3D``, ``ConvLReLU``, ``RDB``, ``RRDB`` and
+``DiscriminatorBlock`` in ``gan_sr_wind_field_tpu/models/blocks.py``, in
+both conv modes. ``conv_mode="3D"`` weights are held in PyTorch's
+``(O, I, kx, ky, kz)`` layout; ``"horizontal_3D"`` ones, one unshared
+kernel per z-window, as ``(W, O, I, kx, ky, kz)``: a stack of per-window
+``Conv3d`` weights. Weights are kept float32; each forward casts them to
+the block's compute ``dtype``, as the flax modules do. Growth convs carry
+no bias, and no horizontal conv has one; the LFF 1³ conv keeps its bias
+and stays a shared 3D conv in either mode. Padding is zeros.
+``BatchNorm`` is flax's ``nn.BatchNorm``, not PyTorch's: it keeps the
+biased batch variance in its running statistics. ``instance_norm`` is
+flax's ``GroupNorm`` with one channel per group and no affine.
 """
 
 from __future__ import annotations
@@ -22,8 +27,15 @@ from torch import nn
 def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
                     generator: Optional[torch.Generator] = None):
     """Kaiming-normal fan-in init times ``scale``: std = scale·sqrt(2/fan_in)
-    (the JAX package's ``kaiming_scaled``)."""
-    fan_in = w.shape[1] * math.prod(w.shape[2:])
+    (the JAX package's ``kaiming_scaled``). fan_in is the product of every
+    axis but the first (the output's); a 6-D horizontal kernel
+    ``(W, O, I, kx, ky, kz)`` counts its windows too, W·I·kx·ky·kz, as
+    flax's ``variance_scaling`` reads the whole (W, kx, ky, kz, I, O)
+    kernel."""
+    if w.dim() == 6:
+        fan_in = w.shape[0] * math.prod(w.shape[2:])
+    else:
+        fan_in = math.prod(w.shape[1:])
     with torch.no_grad():
         return w.normal_(0.0, scale * math.sqrt(2.0 / fan_in),
                          generator=generator)
@@ -36,6 +48,50 @@ def conv3d_cl(x: torch.Tensor, w: torch.Tensor, pad: int,
     permutes are views, so cuDNN runs it in NDHWC without copies."""
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=pad, stride=stride)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def horizontal_windows(z_in: int, kz: int, pz: int, sz: int) -> int:
+    """The z-window count of a horizontal conv, (Zin − kz + 2·pz)//sz + 1:
+    one unshared kernel, and one output layer, per window."""
+    return (z_in - kz + 2 * pz) // sz + 1
+
+
+def horizontal_conv3d_cl(x: torch.Tensor, w: torch.Tensor, padding,
+                         strides) -> torch.Tensor:
+    """JAX ``HorizontalConv3D`` of a channels-last ``(N, X, Y, Z, C)``
+    tensor with a ``(W, O, C, kx, ky, kz)`` weight; → (N, X', Y', W, O).
+
+    z is zero-padded by pz and window w starts at z0 = w·sz; its kz layers
+    are folded into the channels kz-major, C-minor, and each window is a
+    2D conv with xy stride (sx, sy) and padding (px, py). All windows run
+    as one ``F.conv2d`` with ``groups=W``: the input is laid out as
+    (N, X, Y, W·kz·C), viewed channels-last, and the weight as
+    (W·O, kz·C, kx, ky)."""
+    W, O, C, kx, ky, kz = w.shape
+    px, py, pz = _triple(padding)
+    sx, sy, sz = _triple(strides)
+    N, X, Y = x.shape[:3]
+    xp = F.pad(x, (0, 0, pz, pz))
+    win = xp.unfold(3, kz, sz)  # (N, X, Y, W, C, kz), a view
+    win = win.transpose(4, 5).reshape(N, X, Y, W * kz * C)
+    w2 = w.permute(0, 1, 5, 2, 3, 4).reshape(W * O, kz * C, kx, ky)
+    y = F.conv2d(win.permute(0, 3, 1, 2), w2, stride=(sx, sy),
+                 padding=(px, py), groups=W)
+    return y.permute(0, 2, 3, 1).reshape(N, y.shape[2], y.shape[3], W, O)
+
+
+def instance_norm(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``GroupNorm(group_size=1, use_bias=False, use_scale=False,
+    epsilon=1e-5)`` of a channels-last tensor: per sample and channel over
+    every other axis, statistics in float32 (variance E[x²] − E[x]²,
+    clipped at 0), rounded to ``dtype`` once. No parameters, no running
+    statistics."""
+    xf = x.float()
+    axes = tuple(range(1, x.dim() - 1))
+    mean = xf.mean(axes, keepdim=True)
+    var = torch.clamp_min((xf * xf).mean(axes, keepdim=True) - mean * mean,
+                          0.0)
+    return ((xf - mean) * torch.rsqrt(var + 1e-5)).to(dtype)
 
 
 def channel_dropout(x: torch.Tensor, p: float,
@@ -112,43 +168,55 @@ class BatchNorm(nn.Module):
 
 
 class ConvLReLU(nn.Module):
-    """Bias-free (unless ``use_bias``) conv, optional batch norm, optional
-    LeakyReLU (the CNA order)."""
+    """Bias-free (unless ``use_bias``) conv, optional batch or instance
+    norm, optional LeakyReLU (the CNA order). ``conv_mode="horizontal_3D"``
+    swaps in the per-z-window conv (``horizontal_conv3d_cl``), which has no
+    bias whatever ``use_bias`` says, as JAX's ``HorizontalConv3D`` creates
+    none; its window count comes from ``z_in``, the input's z extent."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=3,
-                 padding: int = 1, lrelu: bool = True,
+                 padding=1, lrelu: bool = True,
                  negative_slope: float = 0.2, use_bias: bool = False,
                  init_scale: float = 1.0, dtype: torch.dtype = torch.float32,
                  conv_mode: str = "3D", strides=1, norm: str = "",
+                 z_in: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if conv_mode != "3D":
-            raise NotImplementedError(
-                f"conv_mode={conv_mode!r} is not ported (ROADMAP.md); "
-                "only '3D'"
-            )
-        if norm not in ("", "batch"):
-            raise NotImplementedError(f"norm={norm!r} is not ported "
-                                      "(ROADMAP.md); only '' and 'batch'")
-        self.weight = nn.Parameter(torch.empty(features, in_channels,
-                                               *_triple(kernel_size)))
+        if conv_mode not in ("3D", "horizontal_3D"):
+            raise ValueError(f"unknown conv_mode {conv_mode!r}")
+        if norm not in ("", "batch", "instance"):
+            raise NotImplementedError(f"Unknown norm type {norm!r}")
+        k, p, s = _triple(kernel_size), _triple(padding), _triple(strides)
+        shape = (features, in_channels, *k)
+        self.horizontal = conv_mode == "horizontal_3D"
+        if self.horizontal:
+            if z_in is None:
+                raise ValueError("a horizontal_3D conv needs its input's z "
+                                 "extent (z_in)")
+            shape = (horizontal_windows(z_in, k[2], p[2], s[2]),) + shape
+            use_bias = False
+        self.weight = nn.Parameter(torch.empty(shape))
         kaiming_scaled_(self.weight, init_scale, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-        self.bn = BatchNorm(features, dtype=dtype) if norm else None
-        self.padding = padding
-        self.strides = _triple(strides)
+        self.bn = BatchNorm(features, dtype=dtype) if norm == "batch" else None
+        self.instance = norm == "instance"
+        self.padding = p
+        self.strides = s
         self.lrelu = lrelu
         self.negative_slope = negative_slope
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False) -> torch.Tensor:
-        y = conv3d_cl(x.to(self.dtype), self.weight.to(self.dtype),
-                      self.padding, self.strides)
+        conv = horizontal_conv3d_cl if self.horizontal else conv3d_cl
+        y = conv(x.to(self.dtype), self.weight.to(self.dtype), self.padding,
+                 self.strides)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.bn is not None:
             y = self.bn(y, train, update_stats)
+        elif self.instance:
+            y = instance_norm(y, self.dtype)
         if self.lrelu:
             y = F.leaky_relu(y, self.negative_slope)
         return y
@@ -157,20 +225,21 @@ class ConvLReLU(nn.Module):
 class RDB(nn.Module):
     """Residual dense block: ``num_convs - 1`` growth convs + LReLU over
     the growing concat, then the 1×1×1 LFF conv with bias, residual scaled
-    by ``residual_scaling``."""
+    by ``residual_scaling``. The LFF is a shared 3D conv in either conv
+    mode, as JAX's bare ``nn.Conv`` is."""
 
     def __init__(self, in_features: int, growth_channels: int,
                  num_convs: int = 5, lff_kern_size: int = 1,
                  residual_scaling: float = 0.2, negative_slope: float = 0.2,
                  init_scale: float = 1.0, dtype: torch.dtype = torch.float32,
-                 conv_mode: str = "3D",
+                 conv_mode: str = "3D", z_in: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        kw = dict(init_scale=init_scale, dtype=dtype, conv_mode=conv_mode,
-                  generator=generator)
+        kw = dict(init_scale=init_scale, dtype=dtype, generator=generator)
         self.convs = nn.ModuleList(
             ConvLReLU(in_features + growth_channels * i, growth_channels,
-                      negative_slope=negative_slope, **kw)
+                      negative_slope=negative_slope, conv_mode=conv_mode,
+                      z_in=z_in, **kw)
             for i in range(num_convs - 1)
         )
         self.lff = ConvLReLU(
@@ -196,6 +265,7 @@ class RRDB(nn.Module):
                  rrdb_residual_scaling: float = 0.2, num_rdbs: int = 3,
                  negative_slope: float = 0.2, init_scale: float = 1.0,
                  dtype: torch.dtype = torch.float32, conv_mode: str = "3D",
+                 z_in: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.rdbs = nn.ModuleList(
@@ -203,7 +273,8 @@ class RRDB(nn.Module):
                 lff_kern_size=lff_kern_size,
                 residual_scaling=rdb_residual_scaling,
                 negative_slope=negative_slope, init_scale=init_scale,
-                dtype=dtype, conv_mode=conv_mode, generator=generator)
+                dtype=dtype, conv_mode=conv_mode, z_in=z_in,
+                generator=generator)
             for _ in range(num_rdbs)
         )
         self.rrdb_residual_scaling = rrdb_residual_scaling
@@ -219,25 +290,30 @@ class DiscriminatorBlock(nn.Module):
     """conv (+norm) + LeakyReLU, then a strided (4, 4, feat_kern_size) conv
     (+norm) + LeakyReLU with padding 1 and stride (2, 2, 2) when
     ``halve_z``, else (2, 2, 1). ``drop_first_norm`` skips the first
-    conv's norm (block 0)."""
+    conv's norm (block 0). Both convs take ``conv_mode`` and ``norm``;
+    ``z_in`` is the input's z extent (horizontal mode)."""
 
     def __init__(self, in_channels: int, features: int,
                  feat_kern_size: int = 3, norm: str = "batch",
                  drop_first_norm: bool = False, halve_z: bool = False,
                  negative_slope: float = 0.2, init_scale: float = 1.0,
                  dtype: torch.dtype = torch.float32, conv_mode: str = "3D",
+                 z_in: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         kw = dict(negative_slope=negative_slope, init_scale=init_scale,
                   dtype=dtype, conv_mode=conv_mode, generator=generator)
+        pad = (feat_kern_size - 1) // 2
         self.conv = ConvLReLU(in_channels, features,
-                              kernel_size=feat_kern_size,
-                              padding=(feat_kern_size - 1) // 2,
-                              norm="" if drop_first_norm else norm, **kw)
+                              kernel_size=feat_kern_size, padding=pad,
+                              norm="" if drop_first_norm else norm,
+                              z_in=z_in, **kw)
+        z_mid = (None if z_in is None else
+                 horizontal_windows(z_in, feat_kern_size, pad, 1))
         self.strided_conv = ConvLReLU(
             features, features, kernel_size=(4, 4, feat_kern_size),
             strides=(2, 2, 2) if halve_z else (2, 2, 1), padding=1,
-            norm=norm, **kw)
+            norm=norm, z_in=z_mid, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False) -> torch.Tensor:

@@ -6,7 +6,11 @@ Counterpart of ``gan_sr_wind_field_tpu/models/discriminator.py``:
   and y; z is halved only where ``remainder_z_layers`` says so;
 - ``enable_slicing`` swaps the last block for a shallower head (two
   stride-1 / stride-(1, 1, 2) convs) sized for 64×64 patches;
-- batch norm everywhere but the first conv;
+- batch or instance norm (``norm``) everywhere but the first conv; the
+  slicing head's two convs keep batch norm whatever ``norm`` says, as in
+  the JAX package (``discriminator.py:90-113``);
+- ``conv_mode`` reaches every block and head conv (the window counts of
+  a horizontal conv follow the z extent block by block);
 - channel dropout → flatten → Linear(→100) → LeakyReLU → Linear(→1) logit.
 
 The flatten is channels-last, (x, y, z, c), as in the JAX package, so
@@ -73,7 +77,7 @@ class Discriminator3D(nn.Module):
         for feats, drop_norm, halve_z in specs:
             blocks.append(DiscriminatorBlock(
                 cin, feats, feat_kern_size=feat_kern_size, norm=norm,
-                drop_first_norm=drop_norm, halve_z=halve_z, **kw))
+                drop_first_norm=drop_norm, halve_z=halve_z, z_in=Zl, **kw))
             cin = feats
             X, Y = _out(X, 4, 2, 1), _out(Y, 4, 2, 1)
             Zl = _out(Zl, feat_kern_size, 2 if halve_z else 1, 1)
@@ -81,9 +85,11 @@ class Discriminator3D(nn.Module):
         if enable_slicing:
             head = dict(kernel_size=feat_kern_size, padding=1, norm="batch",
                         **kw)
-            self.head_conv0 = ConvLReLU(cin, nf * 8, strides=1, **head)
-            self.head_conv1 = ConvLReLU(nf * 8, nf * 8, strides=(1, 1, 2),
+            self.head_conv0 = ConvLReLU(cin, nf * 8, strides=1, z_in=Zl,
                                         **head)
+            Zl = _out(Zl, feat_kern_size, 1, 1)
+            self.head_conv1 = ConvLReLU(nf * 8, nf * 8, strides=(1, 1, 2),
+                                        z_in=Zl, **head)
             cin = nf * 8
             Zl = _out(Zl, feat_kern_size, 2, 1)
         self.enable_slicing = enable_slicing

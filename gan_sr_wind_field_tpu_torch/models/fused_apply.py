@@ -17,7 +17,8 @@ Serving may swap in calibrated int8: ``qhead`` runs hr_conv0's x-part as
 ``ops/quant.py:split_head_conv_int8`` (the terrain part stays exact), and
 ``qtrunk`` the trunk as ``ops/quant_trunk.py:trunk_int8_apply``.
 ``trunk_input_features`` and ``head_features_fused`` are their calibration
-probes.
+probes. A ``conv_mode="horizontal_3D"`` generator runs its one unsplit
+hr_conv0 on the concat of x and t, with neither head function nor int8.
 """
 
 from __future__ import annotations
@@ -81,7 +82,13 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                          "(the terrain part stays exact)")
     x, t = _head_features(G, lr, z_terrain, trunk_fn)
     p = G.dropout_probability if train else 0.0
-    if qhead is not None:
+    if G.conv_mode != "3D":
+        # one unsplit hr_conv0 on the concat (JAX generator.py:191-204)
+        x = F.leaky_relu(G.hr_conv0(torch.cat([x, t], dim=-1)),
+                         G.negative_slope)
+        if p > 0.0:
+            x = channel_dropout(x, p, dropout_mask, generator)
+    elif qhead is not None:
         cx = split_head_conv_int8(x, qhead, (G.hr_kern_size - 1) // 2,
                                   out_dtype=G.dtype)
         x = F.leaky_relu(cx + G.hr_conv0_t(t), G.negative_slope)
@@ -159,7 +166,11 @@ def generate_fused(G, lr: torch.Tensor, z_terrain: torch.Tensor,
     ``head_packed`` ``pack_head_weights`` of G's hr_conv0 weights, both on
     lr's device; pass them to skip repacking on every call. ``qtrunk``
     swaps the trunk kernel for the int8 trunk, ``qhead`` hr_conv0's x-part
-    (and the HR-head kernel, as in the JAX package) for the int8 head."""
+    (and the HR-head kernel, as in the JAX package) for the int8 head.
+    A horizontal_3D generator raises ValueError: the kernels need "3D"."""
+    if G.conv_mode != "3D":
+        raise ValueError(f"conv_mode={G.conv_mode!r}: the trunk kernel "
+                         "needs '3D' (JAX trunk_fusable)")
     trunk_fn = (int8_trunk_fn(G, qtrunk) if qtrunk is not None
                 else kernel_trunk_fn(G, packed))
     use_head = head and qhead is None

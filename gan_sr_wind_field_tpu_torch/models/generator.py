@@ -1,18 +1,25 @@
 """Generator3D — RRDB ESRGAN-3D super-resolution generator.
 
-Counterpart of ``gan_sr_wind_field_tpu/models/generator.py:Generator3D``
-with ``conv_mode="3D"``, the split ``hr_conv0_x``/``hr_conv0_t`` and a
-biased ``hr_conv1``:
+Counterpart of ``gan_sr_wind_field_tpu/models/generator.py:Generator3D``:
 
     LR (N, x, y, zl, C_in)
       → feature_conv → skip(num_rrdb × RRDB → lr_conv)
       → ⌊log2(scale)⌋ × [nearest ×(2,2,1) upsample → conv3 → lrelu]
     Z (N, X, Y, zl, 1) → conv3 + lrelu → conv3
-    lrelu(hr_conv0_x(x) + hr_conv0_t(t)) → hr_conv1 (+ bias) → 3 channels
+    conv_mode "3D":            lrelu(hr_conv0_x(x) + hr_conv0_t(t))
+                               → hr_conv1 (+ bias) → 3 channels
+    conv_mode "horizontal_3D": lrelu(hr_conv0(cat(x, t)))
+                               → hr_conv1 (no bias) → 3 channels
 
-Channel dropout (``dropout_probability``) after lrelu(hr_conv0) acts only
-with ``train=True``. Parameters are float32; ``dtype`` is the compute
-dtype. The output is float32.
+In 3D mode hr_conv0 is split by input channel, as the JAX package's
+``split_hr_concat`` computes it (the same function). In horizontal mode
+every conv but the RDBs' LFF is a per-z-window conv
+(``models/blocks.py:horizontal_conv3d_cl``), hr_conv0 is one unsplit conv
+and hr_conv1 has no bias, as in JAX (``generator.py:191-220``); the
+window counts need the z extent ``z_layers``, and the trunk and head
+kernels do not apply. Channel dropout (``dropout_probability``) after
+lrelu(hr_conv0) acts only with ``train=True``. Parameters are float32;
+``dtype`` is the compute dtype. The output is float32.
 """
 
 from __future__ import annotations
@@ -43,9 +50,11 @@ class Generator3D(nn.Module):
                  negative_slope: float = 0.2, terrain_features: int = 16,
                  dropout_probability: float = 0.0, init_scale: float = 0.1,
                  dtype: torch.dtype = torch.float32, conv_mode: str = "3D",
+                 z_layers: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         nf = num_features
+        self.out_channels = out_channels
         self.num_features = nf
         self.num_rrdb = num_rrdb
         self.upscale = upscale
@@ -60,8 +69,9 @@ class Generator3D(nn.Module):
         self.conv_mode = conv_mode
         self.dtype = dtype
 
+        # every conv here keeps the z extent, so one z_in serves them all
         kw = dict(init_scale=init_scale, dtype=dtype, conv_mode=conv_mode,
-                  generator=generator)
+                  z_in=z_layers, generator=generator)
         lrelu_kw = dict(negative_slope=negative_slope, **kw)
         self.feature_conv = ConvLReLU(in_channels, nf, lrelu=False, **kw)
         self.rrdbs = nn.ModuleList(
@@ -82,8 +92,12 @@ class Generator3D(nn.Module):
         hr_feats = nf + terrain_features
         hp = (hr_kern_size - 1) // 2
         hr_kw = dict(kernel_size=hr_kern_size, padding=hp, lrelu=False, **kw)
-        self.hr_conv0_x = ConvLReLU(nf, hr_feats, **hr_kw)
-        self.hr_conv0_t = ConvLReLU(terrain_features, hr_feats, **hr_kw)
+        if conv_mode == "3D":
+            self.hr_conv0_x = ConvLReLU(nf, hr_feats, **hr_kw)
+            self.hr_conv0_t = ConvLReLU(terrain_features, hr_feats, **hr_kw)
+        else:
+            self.hr_conv0 = ConvLReLU(hr_feats, hr_feats, **hr_kw)
+        # use_bias is dropped by a horizontal conv, as in JAX
         self.hr_conv1 = ConvLReLU(hr_feats, out_channels, use_bias=True,
                                   **hr_kw)
 
@@ -110,11 +124,19 @@ class Generator3D(nn.Module):
         channel dropout, with ``dropout_mask`` or drawn from
         ``generator``. Serving's calibrated int8 replaces the trunk
         (``qtrunk``, whatever ``trunk`` says) and hr_conv0's x-part
-        (``qhead``, which turns the head kernel off)."""
+        (``qhead``, which turns the head kernel off). In horizontal mode
+        the kernels and int8 raise ValueError, as JAX's ``trunk_fusable``
+        needs "3D"."""
         if trunk not in ("modules", "kernel"):
             raise ValueError(f"unknown trunk {trunk!r}")
         if head not in ("modules", "kernel"):
             raise ValueError(f"unknown head {head!r}")
+        if self.conv_mode != "3D" and (
+                trunk == "kernel" or head == "kernel"
+                or qhead is not None or qtrunk is not None):
+            raise ValueError(f"conv_mode={self.conv_mode!r} runs the "
+                             "modules only: the trunk and head kernels and "
+                             "int8 need '3D'")
         if qtrunk is not None:
             trunk_fn = int8_trunk_fn(self, qtrunk)
         elif trunk == "modules":
@@ -153,6 +175,22 @@ def generator_from_config(cfg, device=None, seed: int = 0) -> Generator3D:
     return build_generator(cfg, seed).to(dev).eval()
 
 
+def empty_generator(cfg, device=None) -> Generator3D:
+    """The config's generator on ``device`` (default ``cuda``) with its
+    weights allocated but not drawn, for a caller that loads them or
+    passes its own (``load_state_dict``, ``functional_call``): drawing
+    weights that are overwritten takes seconds on the host at the
+    horizontal_3D width (3.3e8 parameters). They hold NaN until then, so
+    a forward on them shows."""
+    with torch.device("meta"):
+        G = build_generator(cfg)
+    G = G.to_empty(device=resolve_device(device))
+    with torch.no_grad():
+        for p in G.parameters():
+            p.fill_(float("nan"))
+    return G
+
+
 def build_generator(cfg, seed: int = 0) -> Generator3D:
     """The config's generator on the CPU, weights drawn from ``seed``."""
     g = cfg.generator
@@ -174,6 +212,7 @@ def build_generator(cfg, seed: int = 0) -> Generator3D:
         dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                else torch.float32),
         conv_mode=cfg.gan_config.conv_mode,
+        z_layers=cfg.gan_config.number_of_z_layers,
         negative_slope=_act_slope(g.act_type),
         generator=torch.Generator().manual_seed(seed),
     )

@@ -5,6 +5,12 @@ from __future__ import annotations
 import torch
 
 
+def decimate_xy(hr: torch.Tensor, factor: int) -> torch.Tensor:
+    """Strided decimation ``hr[:, ::f, ::f]``, the reference's LR
+    operator."""
+    return hr[:, ::factor, ::factor]
+
+
 def upsample_nearest_xy(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """Nearest-neighbour upsample over x and y of ``(N, X, Y, Z, C)``;
     z is never upscaled (torch ``nn.Upsample(scale_factor=(s, s, 1))``)."""

@@ -1,0 +1,3 @@
+from gan_sr_wind_field_tpu_torch.train.gan import GANTrainState, WindFieldGAN
+
+__all__ = ["GANTrainState", "WindFieldGAN"]

@@ -129,6 +129,13 @@ def _structure_diffs(name: str, saved, example) -> list:
             if shape(saved.get(k)) != shape(example.get(k))]
 
 
+def _conv_mode(params_G) -> str:
+    """The conv mode of a generator's tensors: a horizontal_3D generator
+    holds 6-D kernels."""
+    horizontal = any(t.dim() == 6 for t in params_G.values())
+    return "horizontal_3D" if horizontal else "3D"
+
+
 def restore_checkpoint(path: str, example_state: GANTrainState,
                        restore_rng: bool = True) -> GANTrainState:
     """Restore onto the devices of ``example_state`` (a fresh state of the
@@ -167,6 +174,10 @@ def restore_checkpoint(path: str, example_state: GANTrainState,
         more = f"; and {len(bad) - 4} more" if len(bad) > 4 else ""
         hint = ("; the Adam moments' dtype follows optimizer_state_dtype"
                 if any(".mu[" in b or ".nu[" in b for b in bad) else "")
+        modes = [_conv_mode(t) for t in (blob["params_G"], ex.params_G)]
+        if modes[0] != modes[1]:
+            hint += (f"; a {modes[0]} checkpoint into a {modes[1]} "
+                     "configuration ([GAN] conv_mode)")
         raise ValueError(f"checkpoint {path} does not match the "
                          f"configuration: {'; '.join(bad[:4])}{more}{hint}")
 
@@ -212,13 +223,13 @@ def restore_checkpoint(path: str, example_state: GANTrainState,
 
 def replace_tree(tree, loaded, what: str):
     """``tree``'s keys, in its order, with the tensors of ``loaded`` on
-    ``tree``'s device; ``ValueError`` when the keys differ."""
+    ``tree``'s device; ``ValueError`` when the keys differ. Both may be
+    empty (the statistics of a D with instance norm and no slicing)."""
     if set(loaded) != set(tree):
         odd = sorted(set(loaded) ^ set(tree))
         raise ValueError(f"{what}: the loaded tensors do not match the "
                          f"configuration's ({odd})")
-    dev = next(iter(tree.values())).device
-    return {k: loaded[k].to(dev) for k in tree}
+    return {k: loaded[k].to(v.device) for k, v in tree.items()}
 
 
 def load_pack(state: GANTrainState, path: str,

@@ -40,6 +40,13 @@ validation, ``generate``). The port has no rematerialisation:
 ``use_pallas_stencil`` the physics gradients run as the stencil kernel
 and its adjoint (``ops/stencil.py``). On a CUDA device the constructor
 builds the kernels the configuration needs.
+
+``conv_mode = "horizontal_3D"`` (both models, from ``[GAN]``, as in the
+JAX package) runs G on its modules: the trunk and head kernels need "3D"
+(``trunk_fusable``), so ``use_fused_trunk`` and the head flags fall off,
+and the stencil kernels stay under ``use_pallas_stencil``. A D with
+instance norm has no running statistics but its slicing head's, and none
+at all without slicing: ``batch_stats_D`` is then empty.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
 from gan_sr_wind_field_tpu_torch.models.generator import (
     _act_slope,
     build_generator,
+    empty_generator,
 )
 from gan_sr_wind_field_tpu_torch.ops import sr_cast
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
@@ -154,9 +162,6 @@ class WindFieldGAN:
             raise NotImplementedError(f"training on a mesh {_NOT_PORTED}")
         t = cfg.training
         g = cfg.gan_config
-        if g.conv_mode != "3D":
-            raise NotImplementedError(f"conv_mode={g.conv_mode!r} "
-                                      f"{_NOT_PORTED}")
         moments = getattr(t, "optimizer_state_dtype", "float32")
         if moments not in ("float32", "bfloat16_sr"):
             raise ValueError(f"unknown optimizer_state_dtype {moments!r}")
@@ -168,7 +173,9 @@ class WindFieldGAN:
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                       else torch.float32)
-        self.G = build_generator(cfg).to(self.device)
+        # the module whose forward every G step runs on a state's weights
+        # (functional_call): its own are never drawn
+        self.G = empty_generator(cfg, self.device)
         # D is built by init_state / state_from_jax, which know the HR shape
         self.D = None
         self.x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)

@@ -366,9 +366,11 @@ def val_seed(fixed_seed: int, it: int, batch_index: int) -> int:
 def run_validation(cfg, gan: WindFieldGAN, state: GANTrainState,
                    dataset_validation, tb, run_folder: str, it: int):
     """Full validation sweep: averaged losses and metrics to the writer and
-    the status log, and one sample's fields to
-    ``images/val_imgs__it_{it}.pkl``. The comparison figures of the JAX
-    package need ``viz/plots.py``, which is not ported."""
+    the status log, one sample's fields to
+    ``images/val_imgs__it_{it}.pkl``, and, with ``use_tensorboard_logger``
+    and a writer that has a figure sink, that sample's comparison and
+    error figures of the u component (``viz/plots.py``), as JAX
+    ``train/loop.py:555-569`` adds them."""
     status = logging.getLogger("status")
     # deterministic track: the same patch offsets every sweep
     deterministic = bool(cfg.dataset_val and cfg.dataset_val.deterministic)
@@ -433,4 +435,22 @@ def run_validation(cfg, gan: WindFieldGAN, state: GANTrainState,
     with open(os.path.join(run_folder, "images", f"val_imgs__it_{it}.pkl"),
               "wb") as f:
         pickle.dump(imgs, f)
+
+    if cfg.use_tensorboard_logger and tb.has_figure_sink:
+        from gan_sr_wind_field_tpu_torch.viz.plots import (
+            create_comparison_figure,
+            create_error_figure,
+        )
+
+        z_idx = min(3, hr_b.shape[3] - 1)
+        hr_c, sr_c, tl_c, lr_c = (imgs[k][0] for k in ("HR", "SR", "BC",
+                                                       "LR"))
+        sr_err = float(np.mean(np.abs(hr_c[:, :, z_idx] - sr_c[:, :, z_idx])))
+        tl_err = float(np.mean(np.abs(hr_c[:, :, z_idx] - tl_c[:, :, z_idx])))
+        tb.add_figure(
+            f"im/{it}/wind_fields/u_field_z_index{z_idx}",
+            create_comparison_figure(z_idx, lr_c, hr_c, sr_c, tl_c), it)
+        tb.add_figure(
+            f"im/{it}/Error/u_field_z_index{z_idx}",
+            create_error_figure(z_idx, hr_c, sr_c, tl_c, sr_err, tl_err), it)
     return state

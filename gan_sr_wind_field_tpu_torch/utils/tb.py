@@ -3,7 +3,7 @@
 
 Every scalar goes to ``events.jsonl``, always. tensorboardX is imported
 only when a writer is made with ``use_tensorboard``, and used only when it
-imports.
+imports; figures go to TensorBoard only (``has_figure_sink``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,13 @@ class MetricsWriter:
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalars(tag, rec["values"], step)
+
+    @property
+    def has_figure_sink(self) -> bool:
+        """Whether ``add_figure`` writes anywhere (a TensorBoard writer):
+        callers make figures only then, so a run without tensorboardX
+        never imports matplotlib."""
+        return self._tb is not None
 
     def add_figure(self, tag: str, figure, step: int):
         if self._tb is not None:

@@ -27,7 +27,13 @@ layout, so the keys map straight onto the port's ``Generator3D`` and
     classifier.0.{weight,bias}                → fc0.{weight,bias}
     classifier.2.{weight,bias}                → fc1.{weight,bias}
 
-Block 0's first conv has no norm. The reference flattens D's features
+Block 0's first conv has no norm, and a D with instance norm has no norm
+entries outside its slicing head (the reference's ``InstanceNorm3d`` has
+no affine and no running statistics, as JAX ``utils/torch_import.py:170,
+178`` reads it). The horizontal_3D models are refused: the reference's
+horizontal generator fails at its own init
+(``Generator_3D_Resnet_ESRGAN.py:172-222``), so no such ``G.pth`` exists,
+and its per-window modules have no key here. The reference flattens D's features
 channel-first (c, x, y, z) and the port channel-last (x, y, z, c), so
 ``fc0``'s input axis is permuted. ``num_batches_tracked`` is not read.
 Files are read with ``torch.load(weights_only=True)`` only; a missing key
@@ -43,6 +49,17 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 Tensors = "OrderedDict[str, torch.Tensor]"
+
+
+def _check_3d(model, what: str) -> None:
+    """ValueError for a horizontal_3D model: the reference layout is 3D
+    only."""
+    if any(t.dim() == 6 for t in model.state_dict().values()):
+        raise ValueError(
+            f"a reference {what} .pth holds 3D convs only: the reference "
+            "cannot build a conv_mode='horizontal_3D' generator (its init "
+            "fails), so there is no such checkpoint to read or write; use "
+            "a continuation pack (.npz) or a checkpoint of the port")
 
 
 def _take(sd: Mapping[str, torch.Tensor], key: str, shape) -> torch.Tensor:
@@ -86,7 +103,9 @@ def import_generator_state_dict(state_dict: Mapping[str, torch.Tensor],
     """Reference ``G_{it}.pth`` state_dict → the port ``Generator3D``
     state_dict (float32, on the CPU, in the module's key order).
     ``generator`` is the target module: its configuration decides the
-    layer counts and the shapes every tensor must have."""
+    layer counts and the shapes every tensor must have. A horizontal_3D
+    generator raises ValueError."""
+    _check_3d(generator, "G")
     want = {k: v.shape for k, v in generator.state_dict().items()}
     nf = generator.num_features
     out = {port: _take(state_dict, ref, want[port])
@@ -104,6 +123,7 @@ def export_generator_state_dict(params: Mapping[str, torch.Tensor],
     """Port ``Generator3D`` state_dict → the reference's layout (float32 CPU
     tensors): the inverse of ``import_generator_state_dict``, key for key,
     hr_conv0's two parts concatenated along the input channels."""
+    _check_3d(generator, "G")
     sd = OrderedDict()
 
     def cpu(t):
@@ -161,8 +181,10 @@ def import_discriminator_state_dict(state_dict: Mapping[str, torch.Tensor],
                                     ) -> Tuple[Tensors, Tensors]:
     """Reference ``D_{it}.pth`` state_dict → (the port ``Discriminator3D``
     parameters, its batch-norm statistics), float32 on the CPU, each in the
-    module's key order."""
+    module's key order. A horizontal_3D discriminator raises
+    ValueError."""
     d = discriminator
+    _check_3d(d, "D")
     want = dict(d.state_dict())
     out = {port: _take(state_dict, ref, want[port].shape)
            for ref, port in _discriminator_keys(d)}
@@ -184,6 +206,7 @@ def export_discriminator_state_dict(params: Mapping[str, torch.Tensor],
     batch norm's ``num_batches_tracked`` written as 0 so that the
     reference's modules load it strictly."""
     d = discriminator
+    _check_3d(d, "D")
     src = {**params, **batch_stats}
 
     def cpu(t):

@@ -92,5 +92,19 @@ def test_upsample_nearest_xy_matches_jax():
 
 
 def test_horizontal_conv_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    """horizontal_3D is ported now (tests/test_torch_horizontal.py holds
+    it against JAX): it needs the z extent for its window counts, builds
+    6-D kernels with one unsplit hr_conv0 and a bias-free hr_conv1, keeps
+    the LFF a shared 3D conv, and refuses the trunk kernel's path."""
+    with pytest.raises(ValueError, match="z extent"):
         Generator3D(conv_mode="horizontal_3D", **TINY)
+    G = Generator3D(conv_mode="horizontal_3D", z_layers=3, **TINY)
+    assert G.feature_conv.weight.shape == (3, 8, 4, 3, 3, 3)
+    assert G.hr_conv0.weight.shape == (3, 12, 12, 3, 3, 3)
+    assert G.hr_conv1.bias is None
+    assert G.rrdbs[0].rdbs[0].lff.weight.dim() == 5
+    lr, z = _inputs(0)
+    out = G(torch.from_numpy(lr), torch.from_numpy(z))
+    assert out.shape == (2, 16, 16, 3, 3)
+    with pytest.raises(ValueError, match="horizontal_3D"):
+        generate_fused(G, torch.from_numpy(lr), torch.from_numpy(z))

@@ -303,8 +303,11 @@ def test_ema_g_step_count_matches_enumeration():
 
 @pytest.mark.parametrize("what", ["mesh", "bfloat16_sr", "horizontal_3D"])
 def test_options_not_ported_raise(what):
-    """Meshes and horizontal_3D raise; bfloat16_sr is ported (its moments
-    are bf16, tests/test_torch_sr_cast.py trains with it)."""
+    """Meshes raise; bfloat16_sr is ported (its moments are bf16,
+    tests/test_torch_sr_cast.py trains with it), and so is horizontal_3D
+    (tests/test_torch_horizontal.py): it builds 6-D kernels and leaves the
+    trunk kernels, whatever use_fused_trunk says, as JAX's
+    trunk_fusable does."""
     cfg = tiny_cfg(True)
     if what == "bfloat16_sr":
         cfg.training.optimizer_state_dtype = "bfloat16_sr"
@@ -316,6 +319,14 @@ def test_options_not_ported_raise(what):
         return
     if what == "horizontal_3D":
         cfg.gan_config.conv_mode = "horizontal_3D"
+        gan = WindFieldGAN(cfg, COORDS, COORDS, device="cpu")
+        assert cfg.use_fused_trunk and not gan.use_fused_trunk
+        assert gan._trunk == gan._head_train == gan._head_nograd == "modules"
+        state = gan.init_state(0, LR_SHAPE, HR_SHAPE)
+        assert state.params_G["feature_conv.weight"].dim() == 6
+        assert state.opt_state_G.mu["feature_conv.weight"].dim() == 6
+        assert state.params_D["blocks.0.conv.weight"].dim() == 6
+        return
     kw = {"mesh": object()} if what == "mesh" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         WindFieldGAN(cfg, COORDS, COORDS, device="cpu", **kw)

@@ -5,7 +5,9 @@ kernels, train in chunks of CUDA graphs, SR a field of any extent, and
 deploy it: int8 serving, the torch.export artifact, interpolation; then
 the reference's users: .pth checkpoints into the readers at 8x and 16x,
 the physics-weight search and bf16 Adam moments; then the model options
-conv_mode = horizontal_3D and D's instance norm.
+conv_mode = horizontal_3D and D's instance norm; then the data mesh
+(parallel/): training under torchrun, phase 5's steps on a mesh of one,
+two processes sharing the card over gloo, and serving on them.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -244,6 +246,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      for bit gan.generate with the EMA, and its ms; (g) the G and D steps'
      CUDA-event ms (the second of each in (d)) beside phase 6's and the G
      step by kernel; (h) peak memory and the phase's seconds.
+  13. the data mesh (parallel/), milestone9k as committed (bf16, batch 32);
+     its processes start at phase 12's start, at a lower priority, so that
+     their start-up takes the host's spare cycles beside phase 12: the
+     card's compute mode (an exclusive one fails: (c) needs two processes
+     on it); (a) python -m torch.distributed.run --standalone
+     --nproc_per_node=1 -m gan_sr_wind_field_tpu_torch.run --train on
+     phase 7's copy of milestone9k and data, resuming phase 7's
+     one-process ckpt_6008 to 6012: exit 0, the status log's NCCL data
+     axis of 1 and resume at 6008, a finite logged loss at 6012, its
+     ckpt_6012 equal to phase 7's uninterrupted leg's (bit-exact, or
+     within 1e-3 relative L2 as phase 7); (b) phase 5's steps 48-51 and val_step again on an
+     NCCL mesh of one in this process, from phase 5's state on its batches:
+     each step's launches as phase 5's, G, EMA, D and D's statistics within
+     1e-6 relative L2 of phase 5's, and whether equal bit for bit; (c) two
+     processes sharing the card over gloo, batch 16 each of one batch of
+     32, from phase 5's seeded state: their G gradients (bf16) summed over
+     the two against this process's at batch 32 (rel L2 <= 1e-2), their D
+     gradients in float32 (<= 1e-4; bf16's printed beside one process's
+     bf16-against-float32 gap), their losses (<= 1e-3 relative); then,
+     once (a) has ended, steps 49 (G) and 50 (D), each step's launches as
+     phase 5's, its ms (host clock) and all_reduce ms, the peak memory
+     (two ranks time-sharing one card: no multi-card figure), the two
+     ranks' state checksums equal; (d) WindFieldSR(mesh=).upscale of 8
+     fields on those two: equal bit for bit to one process on each rank's
+     rows, within 1e-2 of one process at batch 8, one trunk launch each.
+  Phase 8's four command-line passes read the 6k pack once (PackMemo);
+  phase 13 pays with that.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -280,6 +309,8 @@ D_STEP_LAUNCHES = (1, 0, 0, 0, 0)
 G_STEP_LAUNCHES_HEAD = (1, 1, 2, 1, 1)
 D_STEP_LAUNCHES_HEAD = (1, 0, 0, 0, 1)
 LAUNCH_LABELS = "trunk/bwd/gradient/adjoint/head"
+# phase 5's state's seed, the state phase 13's legs (b) to (d) start from
+TRAIN_SEED = 2001
 # the bf16 kernels on the tensor cores, by library: the trunk's tiles
 # (trunk_mma.cuh) and the HR head's (head_mma.cuh, k = 5 and k = 3)
 TC_KERNELS = {"rdb_trunk": ("tc_growth_fwd", "tc_lff_fwd"),
@@ -1151,7 +1182,7 @@ def train_phase(cfg, dev, rng, card):
         fail("milestone9k does not take the trunk kernels in training")
     lr_shape = (n, size // s, size // s, zl, C)
     hr_shape = (n, size, size, zl, 3)
-    state = gan.init_state(2001, lr_shape, hr_shape)
+    state = gan.init_state(TRAIN_SEED, lr_shape, hr_shape)
 
     def batch():
         lr, z = sample(rng, n, size // s, size, zl, C)
@@ -1225,9 +1256,21 @@ def train_phase(cfg, dev, rng, card):
     del plain, res, grads_k, grads_p, grads_r, G_ref
     torch.cuda.empty_cache()
 
-    total = drive_steps(gan, state, batch, G_STEP_LAUNCHES, D_STEP_LAUNCHES,
-                        card, "train path")
-    return gan, state, batch, total
+    # the steps' state before and after them and their batches, on the
+    # host, for phase 13 (b) to run again on a mesh
+    recorded = []
+
+    def recording():
+        out = batch()
+        recorded.append([t.cpu() for t in out])
+        return out
+
+    before = copy_state(state, "cpu")
+    total = drive_steps(gan, state, recording, G_STEP_LAUNCHES,
+                        D_STEP_LAUNCHES, card, "train path")
+    steps = dict(before=before, after=copy_state(state, "cpu"),
+                 batches=recorded, launches=total)
+    return gan, state, batch, total, steps
 
 
 def head_train_phase(cfg, gan, state, batch, dev, card):
@@ -2166,6 +2209,33 @@ def test_copy(tmp, root, **flags):
     return path
 
 
+class PackMemo(Patches):
+    """Reads each continuation pack once through
+    ``checkpoint.load_continuation`` (every reader of weights in a
+    command-line pass goes through it) and hands later reads the same
+    arrays, which the readers copy onto the card; so phase 8's four passes
+    pay the pack's zlib once. ``reads`` holds the real reads' (path,
+    seconds)."""
+
+    def __init__(self):
+        from gan_sr_wind_field_tpu_torch.train import checkpoint
+
+        super().__init__()
+        self.reads, cache = [], {}
+        reads = self.reads
+
+        def wrap(real):
+            def load(path):
+                if path not in cache:
+                    t = time.monotonic()
+                    cache[path] = real(path)
+                    reads.append((path, time.monotonic() - t))
+                return cache[path]
+            return load
+
+        self.patch(checkpoint, "load_continuation", wrap)
+
+
 def cli_pass(label, cwd, *argv):
     """run.main(argv) in ``cwd`` on phase 7's data; → (its result, the
     GenerateProbe, the launches, wall seconds)."""
@@ -2392,7 +2462,9 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     del captured
     torch.cuda.empty_cache()
 
-    # 3. the held-out test chain as a user runs it
+    # 3. the held-out test chain as a user runs it; the four passes read
+    # the 6k pack once
+    memo = PackMemo()
     avgs_jax, fields_jax = jax_test_result()
     jax_raw, jax_ema = avgs_jax["milestone6k"], avgs_jax["milestone6k_ema"]
     copy_ini = test_copy(tmp, "test")
@@ -2461,6 +2533,13 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     # 5. --use: the SR field dumps of the test split
     _, _, use_launches, use_s = cli_pass("--use", cwd, "--cfg", copy_ini,
                                          "--use")
+    memo.close()
+    log(f"  the four passes read {len(memo.reads)} pack(s) from disk: "
+        + ", ".join(f"{os.path.basename(path)} in {secs:.3f} s"
+                    for path, secs in memo.reads)
+        + "; the later passes took the first read's arrays")
+    if len(memo.reads) != 1:
+        fail("phase 8's passes did not read the 6k pack exactly once")
     runs = os.path.join(tmp, "test", "runs")
     fields = os.path.join(runs, sorted(os.listdir(runs))[-1], "fields")
     dumps = sorted(os.listdir(fields))
@@ -4093,17 +4172,21 @@ def reference_sr_adam(dev, card, tmp, resident, f32_g_ms):
     return per_step, chunked, g_ms
 
 
-def copy_state(state):
-    """A deep copy of a training state, its generator's state included."""
+def copy_state(state, device=None):
+    """A deep copy of a training state, its generator's state included;
+    its tensors on ``device`` (default: where they are)."""
     import dataclasses
 
     import torch
 
     def tree(t):
-        return None if t is None else {k: v.clone() for k, v in t.items()}
+        return None if t is None else {
+            k: v.to(device, copy=True) if device else v.clone()
+            for k, v in t.items()}
 
     def adam(o):
-        return type(o)(o.count.clone(), tree(o.mu), tree(o.nu))
+        return type(o)(o.count.to(device, copy=True) if device
+                       else o.count.clone(), tree(o.mu), tree(o.nu))
 
     rng = torch.Generator(device=state.rng.device)
     rng.set_state(state.rng.get_state())
@@ -4406,6 +4489,477 @@ def horizontal_phase(dev, card, tmp, resident, p6):
     return dict(steps=steps, chunk=chunk, g_ms=g_ms, d_ms=d_ms)
 
 
+# ------------------------------------------------ phase 13: the data mesh
+# leg (a): run.py --train under torchrun, world size 1 (NCCL), resumes phase
+# 7's one-process leg from its ckpt_6008 to 6012 and writes its checkpoint
+MESH_STEP_TOL = 1e-6     # (b) world size 1 against no mesh, rel L2 per tree
+MESH_GRAD_TOL = 1e-2     # (c) two ranks' summed G gradients, bf16, rel L2
+# (c) their D gradients in float32 (TF32 off): bf16's are dominated by its
+# rounding (PERF.md section 6: one process's bf16 D gradients lie far
+# from its float32 ones), so D is held in float32 and bf16 is printed
+MESH_D32_TOL = 1e-4
+MESH_LOSS_TOL = 1e-3     # (c) their losses, relative
+# (d) two ranks' served batch of 8 against one process's at batch 8, rel L2
+# (bf16: cuDNN picks its conv algorithms by the batch, 1.6e-3 measured);
+# against one process on the same rows it must be equal bit for bit
+MESH_SERVE_TOL = 1e-2
+MESH_RANKS = 2
+
+
+def mesh_leg_start(tmp):
+    """Leg (a): ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 -m gan_sr_wind_field_tpu_torch.run --train`` on
+    phase 7's copy of milestone9k and data, resuming its ckpt_6008 (a
+    one-process checkpoint into a mesh) to 6012, in a process group of its
+    own. → (the process, its start)."""
+    cfg, ini = leg_config(tmp, "mesh_leg", resume_training_from_save=True)
+    cfg.env.state_load_path = os.path.join(cfg_run_folder(tmp, "leg"),
+                                           f"ckpt_{LEG_FROM + 8}")
+    cfg.save(ini)
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, *filter(None, [env.get("PYTHONPATH")])])
+    out = open(os.path.join(tmp, "mesh_leg.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "gan_sr_wind_field_tpu_torch.run",
+         "--cfg", ini, "--train", "--synthetic", *LEG_DATA, "--max_steps",
+         str(LEG_TO)], cwd=REPO, env=env, stdout=out,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    out.close()
+    CHILDREN.append(proc)
+    return proc, time.monotonic()
+
+
+def mesh_rank(rank, tmp):
+    """One of leg (c)'s two processes on the card, over gloo: waits for
+    the parent's go, then on its rows of the batch of 32 the G and D
+    gradients summed over the group against the parent's one-process ones,
+    steps 49 (G) and 50 (D) (each step's ms, the gradients' all_reduce ms,
+    its launches; the leg's peak memory) and (d) WindFieldSR(mesh=).upscale
+    of 8 fields; rank 0 writes what it gathered."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    # beside phase 12 the host's cores are shared: two threads each
+    torch.set_num_threads(2)
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.parallel import make_mesh
+    from gan_sr_wind_field_tpu_torch.train import gan as gan_mod
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo_store",
+                            rank=rank, world_size=MESH_RANKS,
+                            timeout=__import__("datetime").timedelta(
+                                seconds=300))
+    try:
+        mesh = make_mesh(-1, devices=dev)
+        src = torch.load(os.path.join(tmp, "mesh_in.pt"), weights_only=False)
+        cfg = load_config(src["ini"])
+        gan = WindFieldGAN(cfg, src["coords"], src["coords"], device=dev,
+                           mesh=mesh)
+        # the parent's state: the same seed, drawn the same way
+        state = gan.init_state(TRAIN_SEED, *src["shapes"])
+        rows = mesh.rows(src["batch"][0].shape[0])
+        lr, hr, z = (t[rows].to(dev) for t in src["batch"])
+        wait_for(os.path.join(tmp, "mesh_go"))
+        params0 = {k: v.clone() for k, v in state.params_G.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        ar_ms = []
+
+        def timed(real):
+            def call(tensors, group):
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                real(tensors, group)
+                torch.cuda.synchronize()
+                ar_ms.append(1e3 * (time.monotonic() - t))
+            return call
+
+        gan_mod.all_reduce_flat = timed(gan_mod.all_reduce_flat)
+        ref = torch.load(os.path.join(tmp, "mesh_ref.pt"), weights_only=True)
+        res = {}
+        state.it = 47
+        gen = torch.Generator(device=dev).manual_seed(MESH_BATCHES)
+        total, losses, grads = gan.g_grads(state, lr, hr, z, 48, gen)
+        res["g_err"] = rel_l2(torch.cat([g.flatten() for g in grads]).cpu(),
+                              ref["g_grads"])
+        res["g_loss"] = {k: float(v) for k, v in losses.items()}
+        del grads
+        gen = torch.Generator(device=dev).manual_seed(MESH_BATCHES)
+        d_loss, d_grads = d_step_grads(gan, state, lr, hr, z, gen)
+        res["d_err"] = rel_l2(torch.cat([g.flatten() for g in d_grads]).cpu(),
+                              ref["d_grads"])
+        res["d_loss"] = d_loss
+        gen = torch.Generator(device=dev).manual_seed(MESH_BATCHES)
+        twin = float32_twin(gan, src["shapes"][1])
+        _, d_grads = d_step_grads(twin, state, lr, hr, z, gen)
+        res["d32_err"] = rel_l2(torch.cat([g.flatten() for g in d_grads])
+                                .cpu(), ref["d_grads32"])
+        del d_grads, twin
+        # steps 49 (G) and 50 (D), each timed on its own once the torchrun
+        # leg has left the card
+        wait_for(os.path.join(tmp, "mesh_leg_done"))
+        state.it, steps = 48, []
+        for i in range(2):
+            ar_ms.clear()
+            reset_counters()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = gan.train_step(state, *(a.to(dev) for a in (
+                src["steps"][i][0][rows], src["steps"][i][1][rows],
+                src["steps"][i][2][rows])))
+            torch.cuda.synchronize()
+            steps.append((state.it, bool(m["is_g_step"]),
+                          1e3 * (time.monotonic() - t), sum(ar_ms),
+                          counters(), float(m["total"]),
+                          float(m["D_train_loss"])))
+        res["steps"] = steps
+        res["peak"] = torch.cuda.max_memory_allocated(dev)
+        res["sum"] = state_checksum(state)
+        sr = WindFieldSR(cfg, params0, device=dev, mesh=mesh)
+        reset_counters()
+        res["served"] = sr.upscale(src["serve"][0], src["serve"][1])
+        res["serve_launches"] = counters()
+        every = [None] * MESH_RANKS
+        dist.all_gather_object(every, {k: v for k, v in res.items()
+                                       if k != "served"},
+                               group=mesh.control)
+        if rank == 0:
+            torch.save(dict(ranks=every, served=res["served"]),
+                       os.path.join(tmp, "mesh_out.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def wait_for(path, timeout=600):
+    """Until the file ``path`` exists (a flag from the parent process)."""
+    t = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t > timeout:
+            raise TimeoutError(f"no {os.path.basename(path)} in {timeout} s")
+        time.sleep(0.02)
+
+
+def state_checksum(state):
+    """A digest of every tensor of a state, its it and its generator's
+    state: equal digests on two ranks are equal states, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    trees = [state.params_G, state.params_D, state.batch_stats_D,
+             state.params_G_ema or {}]
+    for opt in (state.opt_state_G, state.opt_state_D):
+        trees += [opt.mu, opt.nu, {"count": opt.count}]
+    for tree in trees:
+        for k, v in tree.items():
+            h.update(k.encode())
+            h.update(v.detach().reshape(-1).view(__import__("torch").uint8)
+                     .cpu().numpy().tobytes())
+    h.update(str(state.it).encode())
+    h.update(state.rng.get_state().numpy().tobytes())
+    return h.hexdigest()
+
+
+def float32_twin(gan, hr_shape):
+    """The same trainer in float32 (its own D module; the state's master
+    weights are float32 already), for the D gradients of (c)."""
+    import dataclasses
+
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    cfg = dataclasses.replace(gan.cfg, compute_dtype="float32")
+    twin = WindFieldGAN(cfg, gan.x.cpu().numpy(), gan.y.cpu().numpy(),
+                        device=gan.device, mesh=gan.mesh)
+    twin.D = twin._build_D(hr_shape)
+    return twin
+
+
+def d_step_grads(gan, state, lr, hr, z, gen):
+    """One D step's loss (the batch's) and gradients (summed over a mesh)
+    at it 50, without the update; the state's statistics untouched."""
+    params = {k: v.detach().requires_grad_() for k, v in
+              state.params_D.items()}
+    stats = {k: v.clone() for k, v in state.batch_stats_D.items()}
+    fake = gan._g_forward_nograd(state.params_G, lr, z)
+    loss, _, _ = gan._d_loss(params, stats, hr[..., :3], fake, 50, gen,
+                             True)
+    grads = gan._grads(loss, params)
+    return float(gan._reduce({"d": loss.detach()})["d"]), grads
+
+
+MESH_BATCHES = 2013
+
+
+def mesh_start(dev, card, tmp, resident):
+    """The start of phase 13, at phase 12's: the card's compute mode; leg
+    (a) under torchrun and leg (c)'s two processes, each at a lower
+    scheduling priority, so that their start-up (imports, data, the pack,
+    the seeded state on the host) takes the host's spare cycles beside
+    phase 12, as phase 10's command lines do beside phases 7 to 9; (c)'s
+    go comes from mesh_phase. The batches (c) and (d) take, cut from
+    phase 11's resident volumes, go to a file for them. → what mesh_phase
+    needs."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    log(f"mesh: compute mode {mode} ({card})")
+    if "Exclusive" in mode:
+        fail(f"compute mode {mode}: two processes cannot share the card")
+    leg, leg_t0 = mesh_leg_start(tmp)
+    os.setpriority(os.PRIO_PROCESS, leg.pid, 10)
+    cfg = load_config(CFG)
+    ini = os.path.join(tmp, "mesh.ini")
+    cfg.save(ini)
+    g = cfg.gan_config
+    n, p, zl = cfg.dataset_train.batch_size, g.slice_size, g.number_of_z_layers
+    coords = np.arange(p, dtype=np.float32) * 150.0
+    shapes = ((n, p // cfg.scale, p // cfg.scale, zl, cfg.lr_num_channels),
+              (n, p, p, zl, 3))
+    kw = dict(resident.slice_kwargs(), batch_size=n)
+    gen = torch.Generator(device=dev)
+    # batch 0 for (c)'s gradients, 1-4 for steps 48-51, 5 for the val_step
+    batches = [batch_at(resident.full, resident.zraw, MESH_BATCHES, i, gen,
+                        **kw) for i in range(6)]
+    serve_in = sample(np.random.default_rng(MESH_BATCHES), 8, p // cfg.scale,
+                      p, zl, cfg.lr_num_channels)
+    torch.save(dict(ini=ini, coords=coords, shapes=shapes,
+                    batch=tuple(t.cpu() for t in batches[0]),
+                    steps=[tuple(t.cpu() for t in b) for b in batches[1:5]],
+                    serve=serve_in), os.path.join(tmp, "mesh_in.pt"))
+    ctx = mp.start_processes(mesh_rank, args=(tmp,), nprocs=MESH_RANKS,
+                             start_method="spawn", join=False)
+    CHILDREN.extend(ctx.processes)
+    for proc in ctx.processes:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+    return dict(leg=leg, leg_t0=leg_t0, ctx=ctx, cfg=cfg, coords=coords,
+                shapes=shapes, batches=batches, serve_in=serve_in)
+
+
+def mesh_phase(dev, card, tmp, started, p5):
+    """Phase 13: the data mesh (parallel/), from ``mesh_start``. (b) phase
+    5's steps 48-51 and val_step again on an NCCL mesh of one, from its
+    state and on its batches (``p5``), against phase 5's result; (c) the
+    two processes sharing the card over gloo against this one at batch 32;
+    (d) serving on those two; (a) the entry point under torchrun at world
+    size 1 (NCCL), resuming phase 7's checkpoint, against phase 7. Returns
+    the mesh path's launches in this process and the two ranks'
+    figures."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+    )
+    from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    t0 = time.monotonic()
+    leg, leg_t0, ctx = started["leg"], started["leg_t0"], started["ctx"]
+    cfg, coords, batches = (started[k] for k in ("cfg", "coords", "batches"))
+    serve_in, seed = started["serve_in"], MESH_BATCHES
+    n = cfg.dataset_train.batch_size
+    hr_shape = started["shapes"][1]
+
+    # (b) phase 5's steps on an NCCL mesh of one: phase 5's state is
+    # init_state(TRAIN_SEED), the state (c)'s ranks seed too
+    init_distributed(dev, init_method=f"file://{tmp}/nccl_store", rank=0,
+                     world_size=1, timeout_s=300)
+    mesh = make_mesh(-1, devices=dev)
+    log(f"  (b) {dist.get_backend(mesh.group)} mesh {mesh.shape}, "
+        f"{type(mesh.device_mesh).__name__} {mesh.device_mesh}")
+    gan_m = WindFieldGAN(cfg, coords, coords, device=dev, mesh=mesh)
+    gan_m.D = gan_m._build_D(hr_shape)
+    recorded = iter(p5["batches"])
+    sm = copy_state(p5["before"], dev)
+    on_mesh = drive_steps(gan_m, sm,
+                          lambda: [t.to(dev) for t in next(recorded)],
+                          G_STEP_LAUNCHES, D_STEP_LAUNCHES, card,
+                          "(b) NCCL mesh of 1, phase 5's steps")
+    diffs = tree_diffs(sm, copy_state(p5["after"], dev))
+    for name, (mx, rel, bits) in diffs.items():
+        log(f"  (b) mesh of 1 vs phase 5 (no mesh) {name:<18} max abs "
+            f"{mx:.3e}, rel L2 {rel:.3e}, bit for bit {bits}")
+    if on_mesh != p5["launches"]:
+        fail(f"(b) the mesh launched {on_mesh}, phase 5 {p5['launches']}")
+    if not all(diffs[t][1] <= MESH_STEP_TOL for t in
+               ("params_G", "params_G_ema", "params_D", "batch_stats_D")):
+        fail(f"(b) the mesh of 1 is off by more than {MESH_STEP_TOL:.0e}")
+    del sm, gan_m
+    dist.destroy_process_group()
+    done("(b)")
+
+    gan1 = WindFieldGAN(cfg, coords, coords, device=dev)
+    gan1.D = gan1._build_D(hr_shape)
+    s0 = copy_state(p5["before"], dev)
+    s0.it = 47
+    # the one-process references of (c) and (d), from the same state
+    st = copy_state(s0)
+    lr, hr, z = batches[0]
+    gen1 = torch.Generator(device=dev).manual_seed(seed)
+    total1, losses1, grads1 = gan1.g_grads(st, lr, hr, z, 48, gen1)
+    gen1 = torch.Generator(device=dev).manual_seed(seed)
+    d_loss1, d_grads1 = d_step_grads(gan1, st, lr, hr, z, gen1)
+    gen1 = torch.Generator(device=dev).manual_seed(seed)
+    _, d_grads32 = d_step_grads(float32_twin(gan1, started["shapes"][1]),
+                                st, lr, hr, z, gen1)
+    ref = dict(g_grads=torch.cat([x.flatten() for x in grads1]).cpu(),
+               d_grads=torch.cat([x.flatten() for x in d_grads1]).cpu(),
+               d_grads32=torch.cat([x.flatten() for x in d_grads32]).cpu())
+    torch.save(ref, os.path.join(tmp, "mesh_ref.pt"))
+    bf16_scale = rel_l2(ref["d_grads"], ref["d_grads32"])
+    losses1 = {k: float(v) for k, v in losses1.items()}
+    del grads1, d_grads1, d_grads32, st, ref
+    sr1 = WindFieldSR(cfg, s0.params_G, device=dev)
+    served1 = sr1.upscale(*serve_in)
+    # the same rows as the two ranks take
+    halves = np.concatenate([sr1.upscale(serve_in[0][h], serve_in[1][h])
+                             for h in (slice(0, 4), slice(4, 8))])
+    del sr1
+    done("the references of (c) and (d)")
+
+    # (c) and (d) go once this process has released its cache: their
+    # gradients beside the leg's last steps, their timed steps after it
+    del gan1
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    t_go = time.monotonic()
+    open(os.path.join(tmp, "mesh_go"), "w").close()
+
+    # (a): the leg's checks, its checkpoint against phase 7's; the ranks'
+    # timed steps go after it
+    t = time.monotonic()
+    rc = leg.wait(timeout=600)
+    waited = time.monotonic() - t
+    leg_s = time.monotonic() - leg_t0
+    with open(os.path.join(tmp, "mesh_leg.log")) as f:
+        out = f.read()
+    if rc != 0:
+        fail(f"(a) torchrun exited {rc}:\n{out[-4000:]}")
+    folder = cfg_run_folder(tmp, "mesh_leg")
+    kept = sorted(d for d in os.listdir(folder) if d.startswith("ckpt_"))
+    with open(os.path.join(tmp, "mesh_leg", "log", "status.log")) as f:
+        status = f.read()
+    axis = re.search(r"data axis of 1 ranks \((\w+)\)", status)
+    logged = re.findall(r"it (\d+) G_total (\S+) D (\S+)", status)
+    log(f"  (a) its start-up from the run folder to the first step "
+        f"{log_seconds(out, 'run folder:', 'beginning run at'):.3f} s, "
+        f"the steps and the save "
+        f"{log_seconds(out, 'beginning run at', f'ckpt_{LEG_TO}'):.3f} s "
+        f"(status lines' clock)")
+    log(f"  (a) torchrun --nproc_per_node=1 run.py --train from phase 7's "
+        f"ckpt_{LEG_FROM + 8} to {LEG_TO}: exit {rc} {leg_s:.1f} s after "
+        f"its start at phase 12's (this phase waited {waited:.1f} s), "
+        f"backend {axis and axis.group(1)}, logged {logged}, kept {kept}")
+    if (axis is None or axis.group(1) != "nccl" or kept != [f"ckpt_{LEG_TO}"]
+            or f"at it={LEG_FROM + 8}" not in status
+            or [int(r[0]) for r in logged] != [LEG_TO]
+            or not all(math.isfinite(float(v)) for r in logged
+                       for v in r[1:])):
+        fail("(a) the leg under torchrun did not resume and train as asked")
+    mesh_ckpt = ckpt.restore_checkpoint(os.path.join(folder,
+                                                     f"ckpt_{LEG_TO}"), s0)
+    one = ckpt.restore_checkpoint(os.path.join(cfg_run_folder(tmp, "leg"),
+                                               f"ckpt_{LEG_TO}"), s0)
+    diffs = tree_diffs(mesh_ckpt, one)
+    exact = all(v[2] for v in diffs.values()) and torch.equal(
+        mesh_ckpt.rng.get_state(), one.rng.get_state())
+    for tname, (mx, rel, bits) in diffs.items():
+        log(f"  (a) the torchrun leg's ckpt_{LEG_TO} vs phase 7's "
+            f"{tname:<18} max abs {mx:.3e}, rel L2 {rel:.3e}, bit-exact "
+            f"{bits}")
+    log(f"  (a) resumed on an NCCL mesh of one from phase 7's one-process "
+        f"ckpt_{LEG_FROM + 8}, against phase 7's uninterrupted leg: it "
+        f"{mesh_ckpt.it}, bit-exact {exact}")
+    if mesh_ckpt.it != LEG_TO or (not exact and not all(
+            v[1] <= RESUME_TOL for v in diffs.values())):
+        fail(f"(a) the resume is off by more than {RESUME_TOL:.0e}")
+    del mesh_ckpt, one
+    open(os.path.join(tmp, "mesh_leg_done"), "w").close()
+    done("(a) the leg")
+
+    # join returns when any one ends: wait for both
+    while not ctx.join(max(1.0, 600 - (time.monotonic() - t_go))):
+        if time.monotonic() - t_go > 600:
+            fail("(c) the two ranks did not end within 600 s")
+    ranks_s = time.monotonic() - t_go
+    res = torch.load(os.path.join(tmp, "mesh_out.pt"), weights_only=False)
+    every = res["ranks"]
+    log(f"  (c) two processes sharing one {card} over gloo (not a "
+        f"multi-card figure), batch {n // MESH_RANKS} each, {free / 2**30:.1f}"
+        f" GiB free at their go, {ranks_s:.1f} s from it to their end")
+    for r, v in enumerate(every):
+        log(f"  (c) rank {r}: summed over the two vs one process at batch "
+            f"{n}: G gradients (bf16) rel L2 {v['g_err']:.3e} (tol "
+            f"{MESH_GRAD_TOL:.0e}); D gradients in float32 "
+            f"{v['d32_err']:.3e} (tol {MESH_D32_TOL:.0e}), in bf16 "
+            f"{v['d_err']:.3e} (one process's bf16 D gradients from its "
+            f"float32 ones: {bf16_scale:.3e}); peak {v['peak'] / 2**30:.2f} "
+            f"GiB")
+        for it, g_step, ms, ar, launches, tot, dl in v["steps"]:
+            log(f"  (c) rank {r} it {it} ({'G' if g_step else 'D'} step): "
+                f"{ms:.1f} ms host clock, of it the gradients' all_reduce "
+                f"{ar:.1f} ms; launches {LAUNCH_LABELS} {launches}; G_total "
+                f"{tot:.5e} D {dl:.5e} (two ranks time-sharing one H100)")
+        if not (v["g_err"] <= MESH_GRAD_TOL and v["d32_err"] <= MESH_D32_TOL):
+            fail(f"(c) rank {r}'s summed gradients disagree")
+        for it, g_step, _, _, launches, _, _ in v["steps"]:
+            if launches != (G_STEP_LAUNCHES if g_step else D_STEP_LAUNCHES):
+                fail(f"(c) rank {r} launched {launches} at it {it}")
+    lerr = max([abs(every[0]["g_loss"][k] - v) / max(abs(v), 1e-12)
+                for k, v in losses1.items()]
+               + [abs(every[0]["d_loss"] - d_loss1) / abs(d_loss1)])
+    same = len({v["sum"] for v in every}) == 1
+    log(f"  (c) losses vs one process: largest relative difference "
+        f"{lerr:.3e} (tol {MESH_LOSS_TOL:.0e}); G total {total1:.6e} one "
+        f"process, {every[0]['g_loss']['total']:.6e} on the mesh; state "
+        f"checksums after steps 49 and 50 equal on both ranks: {same}")
+    if not (lerr <= MESH_LOSS_TOL and same):
+        fail("(c) the two ranks disagree with one process or each other")
+    served = torch.from_numpy(res["served"])
+    err = rel_l2(served, torch.from_numpy(served1))
+    bits = bool(np.array_equal(res["served"], served1))
+    same_rows = bool(np.array_equal(res["served"], halves))
+    log(f"  (d) WindFieldSR(mesh=).upscale of 8 fields on 2 ranks vs one "
+        f"process at batch 8: rel L2 {err:.3e} (tol {MESH_SERVE_TOL:.0e}), "
+        f"bit for bit {bits}; vs one process on each rank's 4 rows: bit for "
+        f"bit {same_rows}; launches per rank "
+        f"{[v['serve_launches'] for v in every]}")
+    if not (err <= MESH_SERVE_TOL and same_rows) or any(
+            v["serve_launches"][0] != 1 for v in every):
+        fail("(d) serving on two ranks disagrees or skipped the trunk kernel")
+    done("(c, d)")
+
+    secs = time.monotonic() - t0
+    log(f"  phase 13 took {secs:.1f} s")
+    g_ms = [[s[2] for s in v["steps"] if s[1]][-1] for v in every]
+    d_ms = [[s[2] for s in v["steps"] if not s[1]][-1] for v in every]
+    return dict(launches=on_mesh,
+                rank_launches=[tuple(map(sum, zip(*[s[4] for s in v["steps"]])))
+                               for v in every],
+                g_ms=g_ms, d_ms=d_ms,
+                ar_ms=[[s[3] for s in v["steps"]] for v in every],
+                peak=[v["peak"] for v in every], g_err=every[0]["g_err"],
+                d_err=every[0]["d_err"], d32_err=every[0]["d32_err"],
+                serve_err=err, seconds=secs)
+
+
 def main():
     import torch
 
@@ -4452,9 +5006,15 @@ def main():
         return _main_after_build(dev, card, built, mma_counts, tmp, leg_data)
     finally:
         for proc in CHILDREN:
-            if proc.poll() is None:
+            if isinstance(proc, subprocess.Popen):
+                if proc.poll() is None:
+                    # torchrun's workers are in its process group
+                    os.killpg(proc.pid, 9) if os.getpgid(proc.pid) == proc.pid \
+                        else proc.kill()
+                    proc.wait()
+            elif proc.is_alive():
                 proc.kill()
-                proc.wait()
+                proc.join()
         data_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4605,7 +5165,7 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
 
     # ------------------------------------------------------------ 5. train
     phase_start(5)
-    gan, state, batch, train_launches = train_phase(
+    gan, state, batch, train_launches, p5_steps = train_phase(
         copy.deepcopy(cfg), dev, rng, card)
     done("the G-step comparison and four steps")
     gan_h, state_h, head_train = head_train_phase(cfg, gan, state, batch,
@@ -4689,9 +5249,16 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     rf = reference_phase(dev, card, tmp, tt["g_ms"])
     # ------------------ 12. conv_mode horizontal_3D, D's instance norm
     phase_start(12)
-    hz = horizontal_phase(dev, card, tmp, rf.pop("resident"),
+    resident = rf.pop("resident")
+    # phase 13's processes start here, their start-up beside phase 12
+    started = mesh_start(dev, card, tmp, resident)
+    hz = horizontal_phase(dev, card, tmp, resident,
                           dict(g_ms=tt["g_ms"], d_ms=tt["d_ms"],
                                fwd_ms=fwd_ms))
+    # ------------------------------------------------- 13. the data mesh
+    phase_start(13)
+    mp_ = mesh_phase(dev, card, tmp, started, p5_steps)
+    del resident, started
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -4711,10 +5278,18 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # phase 12's launches: the horizontal steps and validation, and its
     # chunk of two steps
     hl = tuple(a + b for a, b in zip(hz["steps"], hz["chunk"]))
+    # phase 13's launches in this process: (b)'s steps and val_step on the
+    # mesh of one; (a)'s torchrun process and (c)'s two ranks count their
+    # own
+    ml = mp_["launches"]
+
+    def mesh_keys(i):
+        return dict(launches_mesh=ml[i], launches_mesh_ranks=[
+            r[i] for r in mp_["rank_launches"]])
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
-            serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0],
-            max_abs16, (ms, plain_ms, b1), lib_ms,
+            serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0]
+            + ml[0], max_abs16, (ms, plain_ms, b1), lib_ms, **mesh_keys(0),
             launches_serve=serve_launches, launches_reference=rl[0],
             max_abs_err_reference=rf["max_abs_err"][0],
             serving_8x_b8_ms=rf["fwd_ms"][8],
@@ -4731,16 +5306,17 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429",
-            tl[1] + ll[1] + cl[1] + rl[1], max_abs_bwd, tt["k2"][:3],
-            tt["k2"][3], launches_train=tl[1], launches_loop=ll[1],
+            tl[1] + ll[1] + cl[1] + rl[1] + ml[1], max_abs_bwd, tt["k2"][:3],
+            tt["k2"][3], **mesh_keys(1), launches_train=tl[1],
+            launches_loop=ll[1],
             launches_reference=rl[1],
             max_abs_err_reference=rf["max_abs_err"][1],
             launches_chunks=ch["chunk"][1], launches_host_path=ch["host"][1],
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
         *(row(name, "stencil.cu", replaces,
-              tl[i] + ll[i] + cl[i] + rl[i] + hl[i],
-              err, (k["ms"], k["plain_ms"], k["bound"]), None,
+              tl[i] + ll[i] + cl[i] + rl[i] + hl[i] + ml[i],
+              err, (k["ms"], k["plain_ms"], k["bound"]), None, **mesh_keys(i),
               launches_train=tl[i], launches_loop=ll[i],
               launches_reference=rl[i], launches_horizontal=hl[i],
               horizontal_g_step_ms=hz["g_ms"],
@@ -4755,7 +5331,7 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
             head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4]
-            + rl[4], err_head, th[8][:3], th[8][3],
+            + rl[4] + ml[4], err_head, th[8][:3], th[8][3], **mesh_keys(4),
             launches_serve=head_serve[4], launches_reference=rl[4],
             launches_train=head_train[4], launches_loop=ll[4],
             launches_test=ev["head"], launches_tiled=ch["tiled"][4],

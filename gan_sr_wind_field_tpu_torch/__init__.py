@@ -7,5 +7,6 @@ CUDA kernels live in ``ops/kernels/csrc`` and are built on first use.
 """
 
 from gan_sr_wind_field_tpu_torch.device import resolve_device
+from gan_sr_wind_field_tpu_torch.parallel import init_distributed, make_mesh
 
-__all__ = ["resolve_device"]
+__all__ = ["init_distributed", "make_mesh", "resolve_device"]

@@ -195,6 +195,18 @@ class WindDataset:
                 hr_raw, z_raw
         return lr, hr, zt
 
+    def _skip_draws(self, rng: np.random.Generator) -> None:
+        """The random draws ``get`` makes for one sample, without loading
+        it: the patch offsets, then the augmentation's."""
+        if self.enable_slicing:
+            rng.beta(0.25, 0.25)
+            rng.beta(0.25, 0.25)
+        if self.data_aug_rot:
+            rng.integers(0, 4)
+        if self.data_aug_flip:
+            rng.random()
+            rng.random()
+
     # -------------------------------------------------------------- batches
 
     def batches(
@@ -204,8 +216,12 @@ class WindDataset:
         shuffle: bool = True,
         epochs: int = 1,
         drop_remainder: bool = True,
+        rows: Optional[slice] = None,
     ):
-        """Yield stacked (LR, HR, Z) float32 batches."""
+        """Yield stacked (LR, HR, Z) float32 batches. With ``rows`` (a
+        rank's of the data axis) only those rows of each batch are loaded;
+        the others' random draws are made all the same, so ``rng`` moves
+        as it does for the whole batch."""
         n = len(self.filenames)
         for _ in range(epochs):
             order = rng.permutation(n) if shuffle else np.arange(n)
@@ -213,7 +229,14 @@ class WindDataset:
                 idx = order[i : i + batch_size]
                 if len(idx) < batch_size and drop_remainder:
                     break
-                items = [self.get(int(j), rng)[:3] for j in idx]
+                keep = (range(len(idx)) if rows is None
+                        else range(len(idx))[rows])
+                items = []
+                for b, j in enumerate(idx):
+                    if b in keep:
+                        items.append(self.get(int(j), rng)[:3])
+                    else:
+                        self._skip_draws(rng)
                 yield tuple(
                     np.stack([it[c] for it in items]) for c in range(3)
                 )

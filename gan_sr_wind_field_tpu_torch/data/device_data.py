@@ -90,11 +90,16 @@ def slice_batch_with(full, zraw, idx, xs, ys, *, patch: int, patch_y: int,
 
 
 def slice_batch(full, zraw, generator: torch.Generator, *, batch_size: int,
-                patch: int, patch_y: int, cf: int, enable_slicing: bool):
-    """One batch over the resident volumes with draws from ``generator``."""
+                patch: int, patch_y: int, cf: int, enable_slicing: bool,
+                rows: Optional[slice] = None):
+    """One batch over the resident volumes with draws from ``generator``;
+    with ``rows`` only those rows of it (a rank's on a data mesh), cut
+    from the whole batch's draws."""
     N, X, Y = full.shape[:3]
     draws = slice_draws(N, batch_size, X, Y, patch, patch_y, enable_slicing,
                         generator, full.device)
+    if rows is not None:
+        draws = tuple(d[rows] for d in draws)
     return slice_batch_with(full, zraw, *draws, patch=patch, patch_y=patch_y,
                             cf=cf)
 
@@ -135,16 +140,18 @@ def batch_seed(seed: int, count: int) -> int:
 def batch_at(full, zraw, seed: int, count: int,
              generator: Optional[torch.Generator] = None, *,
              batch_size: int, patch: int, patch_y: int, cf: int,
-             enable_slicing: bool):
+             enable_slicing: bool, rows: Optional[slice] = None):
     """Batch ``count`` of the stream ``seed``: the batch that the step of
     iteration ``count + 1`` trains on, whatever cut the iterations into
-    legs or chunks. Its draws come from ``generator`` (a new one if None)
-    seeded with ``batch_seed(seed, count)``."""
+    legs or chunks (``rows`` of it: ``slice_batch``). Its draws come from
+    ``generator`` (a new one if None) seeded with
+    ``batch_seed(seed, count)``."""
     gen = (torch.Generator(device=full.device) if generator is None
            else generator)
     gen.manual_seed(batch_seed(seed, count))
     return slice_batch(full, zraw, gen, batch_size=batch_size, patch=patch,
-                       patch_y=patch_y, cf=cf, enable_slicing=enable_slicing)
+                       patch_y=patch_y, cf=cf, enable_slicing=enable_slicing,
+                       rows=rows)
 
 
 class DeviceBatcher:
@@ -155,12 +162,15 @@ class DeviceBatcher:
     step). Batch ``count`` draws from a generator seeded with
     ``batch_seed(seed, count)``; the count starts at ``start_count``, so a
     resumed leg that passes its iteration continues the stream instead of
-    replaying it.
+    replaying it. With ``rows`` (a rank's of the data axis) each batch is
+    those rows of the global batch of ``batch_size``: every rank holds the
+    volumes and draws the whole batch's offsets.
     """
 
     def __init__(self, dataset, batch_size: int, device, seed: int = 0,
-                 start_count: int = 0):
+                 start_count: int = 0, rows: Optional[slice] = None):
         self.batch_size = int(batch_size)
+        self.rows = rows
         self.slice_size = int(dataset.slice_size)
         self.enable_slicing = bool(dataset.enable_slicing)
         self.cf = int(dataset.coarseness_factor)
@@ -192,6 +202,6 @@ class DeviceBatcher:
 
     def __next__(self):
         batch = batch_at(self.full, self.zraw, self.seed, self.count,
-                         self._gen, **self.slice_kwargs())
+                         self._gen, **self.slice_kwargs(), rows=self.rows)
         self.count += 1
         return batch

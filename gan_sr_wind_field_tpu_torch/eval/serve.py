@@ -23,6 +23,13 @@ blended into float32 accumulators there, and the blended volume is
 downloaded once. The HTTP server tiles through its micro-batcher instead
 (``server.py:tiled_upscale_via``), so that tiles batch with other traffic.
 
+With ``mesh`` (a data mesh, ``parallel/mesh.py``) serving is SPMD, as
+JAX's ``WindFieldSR(mesh=)`` shards a batch over its data axis: every rank
+passes the whole batch to ``upscale``, which pads it to a multiple of the
+axis (``pad_batch_to``), runs this rank's rows through the same forward
+and kernels, and gathers the rows from every rank. ``upscale_tiled`` then
+takes the host loop through ``upscale``, as JAX's does on a mesh.
+
 ``quantize`` and ``quantize_trunk`` calibrate the int8 serving paths
 (``ops/quant.py``, ``ops/quant_trunk.py``, through the port's int8 conv
 kernel) on representative LR fields; every later ``upscale``,
@@ -63,6 +70,8 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     pack_trunk_weights,
     trunk_fusable,
 )
+from gan_sr_wind_field_tpu_torch.parallel.collectives import gather_rows
+from gan_sr_wind_field_tpu_torch.parallel.mesh import pad_batch_to
 from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
@@ -76,12 +85,18 @@ def _cosine_window(n: int) -> np.ndarray:
 
 
 class WindFieldSR:
-    def __init__(self, cfg, params, device=None, norm_stats=None):
+    def __init__(self, cfg, params, device=None, norm_stats=None,
+                 mesh=None):
         """``params``: a port ``Generator3D`` state_dict (see
         ``utils/jax_params.py`` for weights from the JAX package).
         ``norm_stats``: the training data's normalization factors (a
         ``NormStats``-like object or dict), needed by ``upscale_physical``.
+        ``mesh``: a data mesh to shard each batch over (not an idle
+        rank's).
         """
+        if mesh is not None and mesh.idle:
+            raise ValueError("an idle rank of the mesh serves nothing")
+        self.mesh = mesh
         self.cfg = cfg
         self.device = resolve_device(device)
         self.scale = cfg.scale
@@ -235,14 +250,24 @@ class WindFieldSR:
                               head=self.head_packed is not None)
 
     def upscale(self, lr, z_terrain) -> np.ndarray:
-        """lr: (x, y, zl, C) or batched; returns (X, Y, zl, 3) float32."""
+        """lr: (x, y, zl, C) or batched; returns (X, Y, zl, 3) float32. On
+        a mesh every rank passes the same batch and gets all of it back."""
         lr = np.asarray(lr, np.float32)
         z_terrain = np.asarray(z_terrain, np.float32)
         squeeze = lr.ndim == 4
         if squeeze:
             lr, z_terrain = lr[None], z_terrain[None]
-        out = self._generate(torch.from_numpy(lr).to(self.device),
-                             torch.from_numpy(z_terrain).to(self.device))
+        if self.mesh is None:
+            out = self._generate(torch.from_numpy(lr).to(self.device),
+                                 torch.from_numpy(z_terrain).to(self.device))
+        else:
+            lr, n = pad_batch_to(lr, self.mesh.size)
+            z_terrain, _ = pad_batch_to(z_terrain, self.mesh.size)
+            rows = self.mesh.rows(lr.shape[0])
+            mine = self._generate(
+                torch.from_numpy(lr[rows]).to(self.device),
+                torch.from_numpy(z_terrain[rows]).to(self.device))
+            out = gather_rows(mine, self.mesh.group, rows, lr.shape[0])[:n]
         out = out.cpu().numpy()
         return out[0] if squeeze else out
 
@@ -286,6 +311,9 @@ class WindFieldSR:
         if X <= tile and Y <= tile:
             return self.upscale(lr, z_terrain)
         tile, win, coords = _tiling(X, Y, tile, overlap, batch, s)
+        if self.mesh is not None:
+            return self._upscale_tiled_host(lr, z_terrain, coords, tile,
+                                            batch, win)
         dev = self.device
         lr_d = torch.from_numpy(np.ascontiguousarray(lr, np.float32)).to(dev)
         zt_d = torch.from_numpy(
@@ -317,8 +345,8 @@ class WindFieldSR:
     def _upscale_tiled_host(self, lr, z_terrain, coords, tile: int,
                             batch: int, win: np.ndarray) -> np.ndarray:
         """The same tiling as a host loop: batches of tiles through
-        ``upscale`` and blended in numpy. The JAX package's path on a
-        mesh; here the yardstick the tests hold ``upscale_tiled``
+        ``upscale`` and blended in numpy. The path on a mesh, as in the JAX
+        package, and the yardstick the tests hold ``upscale_tiled``
         against."""
         s = self.scale
         X, Y = lr.shape[0], lr.shape[1]

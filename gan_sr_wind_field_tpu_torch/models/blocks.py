@@ -20,8 +20,11 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from gan_sr_wind_field_tpu_torch.parallel.collectives import group_sum
 
 
 def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
@@ -136,7 +139,17 @@ class BatchNorm(nn.Module):
     float32 (variance E[x²] − E[x]², clipped at 0); in training the batch
     statistics normalise, and with ``update_stats`` the running ones move
     as r ← 0.9·r + 0.1·batch, in place. The result is rounded to ``dtype``
-    once, at the end."""
+    once, at the end.
+
+    The batch sums of x and x² accumulate in float64: where a channel's
+    mean is large against its spread, the one-pass variance cancels most
+    of float32's digits, and its value then hangs on the order of the
+    sums (at milestone9k's D about 2e-3 of D's gradients, float32 sums
+    over two halves of a batch against one). With a process ``group``
+    (the data axis, ``Discriminator3D.sync_batch_norm``) the sums are over
+    every rank's rows, in one differentiable all_reduce, so every rank
+    normalises with, and moves its running statistics by, the same
+    values."""
 
     MOMENTUM = 0.9
     EPSILON = 1e-5
@@ -148,14 +161,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.dtype = dtype
+        self.group = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            sums = torch.cat([xf.sum(axes, dtype=torch.float64),
+                              (xf * xf).sum(axes, dtype=torch.float64)])
+            count = xf.numel() // xf.shape[-1]
+            if self.group is not None:
+                sums = group_sum(sums, self.group)
+                count *= dist.get_world_size(self.group)
+            mean, ex2 = (sums / count).chunk(2)
+            var = torch.clamp_min(ex2 - mean * mean, 0.0).float()
+            mean = mean.float()
             if update_stats:
                 m = self.MOMENTUM
                 with torch.no_grad():

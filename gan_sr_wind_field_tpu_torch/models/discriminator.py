@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gan_sr_wind_field_tpu_torch.models.blocks import (
+    BatchNorm,
     ConvLReLU,
     DiscriminatorBlock,
     channel_dropout,
@@ -103,6 +104,13 @@ class Discriminator3D(nn.Module):
         self.dropout_probability = dropout_probability
         self.negative_slope = negative_slope
         self.dtype = dtype
+
+    def sync_batch_norm(self, group) -> None:
+        """Take every batch norm's train-mode statistics over ``group``'s
+        rows (the data axis; ``None``: this process's rows alone)."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = group
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False, features_only: bool = False,

@@ -90,6 +90,7 @@ class Generator3D(nn.Module):
         self.terrain_conv1 = ConvLReLU(terrain_features, terrain_features,
                                        lrelu=False, **kw)
         hr_feats = nf + terrain_features
+        self.hr_features = hr_feats  # hr_conv0's channels (the dropout's)
         hp = (hr_kern_size - 1) // 2
         hr_kw = dict(kernel_size=hr_kern_size, padding=hp, lrelu=False, **kw)
         if conv_mode == "3D":

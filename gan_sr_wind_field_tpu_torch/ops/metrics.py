@@ -16,6 +16,13 @@ def psnr(hr: torch.Tensor, sr: torch.Tensor, max_diff_squared: float = 4.0,
     hr, sr = hr.float(), sr.float()
     n, w, h, l = hr.shape[:4]
     mse = ((hr - sr) ** 2).sum() / (w * h * l * n)
+    return psnr_from_mse(mse, max_diff_squared, epsilon)
+
+
+def psnr_from_mse(mse: torch.Tensor, max_diff_squared: float = 4.0,
+                  epsilon: float = 1e-8) -> torch.Tensor:
+    """PSNR in dB of ``psnr``'s MSE (a batch's on a mesh: its ranks' shares
+    summed)."""
     return 10.0 * torch.log10(max_diff_squared / (mse + epsilon))
 
 

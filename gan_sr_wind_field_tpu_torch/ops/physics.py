@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from gan_sr_wind_field_tpu_torch.parallel.collectives import group_amax
+
 
 def _nonuniform_gradient_1d(f: torch.Tensor, coords: torch.Tensor,
                             axis: int) -> torch.Tensor:
@@ -78,15 +80,21 @@ def divergence_xy(grad9: torch.Tensor) -> torch.Tensor:
     return grad9[..., 0] + grad9[..., 4]
 
 
-def gradient_norm_factors(hr_grad: torch.Tensor, sr_grad: torch.Tensor):
+def gradient_norm_factors(hr_grad: torch.Tensor, sr_grad: torch.Tensor,
+                          group=None):
     """(xy-gradient, z-gradient, divergence, xy-divergence) factors, each
-    max(HR_max, SR_max / 100); the z factor is a signed max."""
+    max(HR_max, SR_max / 100); the z factor is a signed max. With a
+    process ``group`` (the data axis) the maxima are over every rank's
+    rows (``parallel/collectives.py:group_amax``)."""
+    def amax(t):
+        return torch.amax(t) if group is None else group_amax(t, group)
+
     def both(f):
-        return torch.maximum(f(hr_grad), f(sr_grad) / 100.0)
+        return torch.maximum(amax(f(hr_grad)), amax(f(sr_grad)) / 100.0)
 
     return (
-        both(lambda g: g[..., :6].abs().amax()),
-        both(lambda g: g[..., 6:].amax()),
-        both(lambda g: divergence_3d(g).abs().amax()),
-        both(lambda g: divergence_xy(g).abs().amax()),
+        both(lambda g: g[..., :6].abs()),
+        both(lambda g: g[..., 6:]),
+        both(lambda g: divergence_3d(g).abs()),
+        both(lambda g: divergence_xy(g).abs()),
     )

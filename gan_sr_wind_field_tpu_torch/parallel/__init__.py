@@ -1,0 +1,27 @@
+"""The data axis over a group of processes, one card each (the JAX
+package's ``parallel/``): ``make_mesh`` and the placement helpers in
+``mesh.py``, the step's collectives in ``collectives.py``."""
+
+from gan_sr_wind_field_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    init_distributed,
+    make_mesh,
+    pad_batch_to,
+    replicate,
+    shard_params,
+    shard_state,
+    volume_sharding,
+)
+
+__all__ = [
+    "Mesh",
+    "batch_sharding",
+    "init_distributed",
+    "make_mesh",
+    "pad_batch_to",
+    "replicate",
+    "shard_params",
+    "shard_state",
+    "volume_sharding",
+]

@@ -37,6 +37,20 @@ training run warm-starts from the same (and from a reference
 runs the plain PyTorch path on the CPU instead, and without either a card
 or that flag it raises. ``--download`` is accepted and raises
 ``NotImplementedError``: there is no network (``ROADMAP.md``).
+
+``--train`` reads ``[PARALLEL]``: under ``torchrun`` it trains on a data
+mesh of ``data_parallel`` ranks (-1: all; ``parallel/mesh.py``), one card
+each (``cuda:LOCAL_RANK``; with ``--device cpu`` CPU processes over
+gloo), and shrinks the axis to the largest divisor of the batch, as the
+JAX package does; ranks past it are idle. ``tensor_parallel`` or
+``spatial_parallel`` above 1 raise ``NotImplementedError`` (not ported),
+and so does a ``data_parallel`` above the ranks started. The other modes
+run in one process, as in the JAX package, and raise under ``torchrun``
+with more than one rank::
+
+    torchrun --standalone --nproc_per_node=8 \
+        -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
+        --cfg configs/milestone9k.ini
 """
 
 from __future__ import annotations
@@ -55,6 +69,12 @@ from gan_sr_wind_field_tpu_torch.data import preprocess
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.eval.export import export_generator
 from gan_sr_wind_field_tpu_torch.eval.test_loop import run_test, run_use
+from gan_sr_wind_field_tpu_torch.parallel.mesh import (
+    data_axis,
+    init_distributed,
+    make_mesh,
+    world_size_from_env,
+)
 from gan_sr_wind_field_tpu_torch.search.driver import param_search
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
@@ -162,12 +182,16 @@ def argv_to_cfg(argv=None):
     return cfg, args
 
 
-def setup_env_and_cfg(cfg):
+def setup_env_and_cfg(cfg, mesh=None):
     """Per-run folders (as ``run.py:setup_env_and_cfg``) and the snapshot
-    of the resolved config; → the log folder."""
+    of the resolved config; → the log folder. On a mesh every rank takes
+    the first rank's run name, and only that rank creates anything."""
     root = os.path.expanduser(cfg.env.root_path)
-    stamp = time.strftime("%Y-%m-%dT%H-%M-%S")
-    run_name = f"{cfg.name}_{stamp}"
+    stamp = [time.strftime("%Y-%m-%dT%H-%M-%S")]
+    if mesh is not None:
+        torch.distributed.broadcast_object_list(stamp, src=0,
+                                                group=mesh.control)
+    run_name = f"{cfg.name}_{stamp[0]}"
     cfg.env.this_runs_folder = os.path.join(
         root + cfg.env.runs_subpath, run_name
     )
@@ -175,6 +199,8 @@ def setup_env_and_cfg(cfg):
         root + cfg.env.tensorboard_subpath, run_name
     )
     log_dir = root + cfg.env.log_subpath
+    if mesh is not None and mesh.rank != 0:
+        return log_dir
     os.makedirs(cfg.env.this_runs_folder, exist_ok=True)
     os.makedirs(cfg.env.this_runs_tensorboard_log_folder, exist_ok=True)
     os.makedirs(log_dir, exist_ok=True)
@@ -210,8 +236,39 @@ def main(argv=None):
     artifact's header (``--export`` alone) or the stopped server
     (``--serve``)."""
     cfg, args = argv_to_cfg(argv)
+    if args.train and not args.param_search:
+        return _train_main(cfg, args)
+    if world_size_from_env() > 1:
+        raise ValueError(
+            "--test, --use, --serve, --export and --param_search run in one "
+            f"process; this is one of {world_size_from_env()} (start it "
+            "without torchrun)")
     device = resolve_device(args.device)
-    log_dir = setup_env_and_cfg(cfg)
+    return _main(cfg, args, device)
+
+
+def _train_main(cfg, args):
+    """``--train``: on a data mesh under ``torchrun``, else in this
+    process; the process group is destroyed at the end. → the final
+    state (None on an idle rank)."""
+    batch = cfg.dataset_train.batch_size if cfg.dataset_train else 1
+    world = world_size_from_env()
+    # raises for the model and spatial axes, and for more ranks than run
+    n = data_axis(cfg.parallel, world, batch)
+    if "RANK" not in os.environ:  # not under torchrun: one process
+        return _main(cfg, args, resolve_device(args.device))
+    device = init_distributed(args.device)
+    try:
+        mesh = make_mesh(n, devices=device)
+        if mesh.idle:
+            return None
+        return _main(cfg, args, resolve_device(device), mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _main(cfg, args, device, mesh=None):
+    log_dir = setup_env_and_cfg(cfg, mesh)
     level = getattr(logging, args.loglevel.upper(), logging.INFO)
     status, _ = setup_loggers(
         log_dir, also_log_to_terminal=cfg.also_log_to_terminal, level=level
@@ -221,11 +278,21 @@ def main(argv=None):
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else ""))
 
+    lead = mesh is None or mesh.rank == 0
+    if not lead:  # the first rank writes the data caches, then the rest
+        mesh.barrier()
     ds_train, ds_test, ds_val, x, y = preprocess(
         cfg, synthetic=args.synthetic,
         synthetic_hours=args.synthetic_hours,
         synthetic_size=args.synthetic_size,
     )
+    if mesh is not None and lead:
+        try:  # the train split's memmap
+            ds_train.use_npcache()
+        except (OSError, ValueError):
+            pass  # the loop tries again, and says why it falls back
+        finally:
+            mesh.barrier()
     status.info(f"datasets: train {len(ds_train)} / test {len(ds_test)} / "
                 f"val {len(ds_val)}")
     if cfg.is_param_search:
@@ -239,7 +306,7 @@ def main(argv=None):
         return train(cfg, ds_train, ds_val, x, y, max_steps=args.max_steps,
                      device=device,
                      profile_dir=(cfg.env.this_runs_tensorboard_log_folder
-                                  if args.profile else None))
+                                  if args.profile else None), mesh=mesh)
     if cfg.is_test:
         return run_test(cfg, ds_test, x, y, ema=args.test_ema, device=device)
 

@@ -41,6 +41,17 @@ validation, ``generate``). The port has no rematerialisation:
 and its adjoint (``ops/stencil.py``). On a CUDA device the constructor
 builds the kernels the configuration needs.
 
+On a data mesh (``parallel/mesh.py``, ``WindFieldGAN(mesh=)``) every
+step method takes this rank's rows of the global batch. Each loss term is
+this rank's share of the batch's mean (its rows' terms over the global
+count), so the gradients summed over the group (one flat all_reduce per
+model a step) are the global loss's. The relativistic-average means of
+D's logits, the physics factors' maxima and D's batch statistics in train
+mode are group-wide (``parallel/collectives.py``), and every batch-shaped
+draw is made at the global batch's shape and cut to the rows, so the step
+is the one-process step on the global batch. The metrics are the
+batch's, the same on every rank. The kernels run on each rank's rows.
+
 ``conv_mode = "horizontal_3D"`` (both models, from ``[GAN]``, as in the
 JAX package) runs G on its modules: the trunk and head kernels need "3D"
 (``trunk_fusable``), so ``use_fused_trunk`` and the head flags fall off,
@@ -51,6 +62,7 @@ at all without slicing: ``batch_stats_D`` is then empty.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -58,9 +70,13 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from gan_sr_wind_field_tpu_torch.data.augment import augment_batch
+from gan_sr_wind_field_tpu_torch.data.augment import (
+    augment_batch_with,
+    augment_draws,
+)
 from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
 from gan_sr_wind_field_tpu_torch.device import resolve_device
+from gan_sr_wind_field_tpu_torch.models.blocks import _draw_keep
 from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
 from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
 from gan_sr_wind_field_tpu_torch.models.generator import (
@@ -70,7 +86,7 @@ from gan_sr_wind_field_tpu_torch.models.generator import (
 )
 from gan_sr_wind_field_tpu_torch.ops import sr_cast
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
-from gan_sr_wind_field_tpu_torch.ops.metrics import psnr
+from gan_sr_wind_field_tpu_torch.ops.metrics import psnr_from_mse
 from gan_sr_wind_field_tpu_torch.ops.physics import (
     divergence_3d,
     divergence_xy,
@@ -80,6 +96,10 @@ from gan_sr_wind_field_tpu_torch.ops.physics import (
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import trunk_fusable
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
 from gan_sr_wind_field_tpu_torch.ops.stencil import WindFieldGradient
+from gan_sr_wind_field_tpu_torch.parallel.collectives import (
+    all_reduce_flat,
+    group_mean,
+)
 from gan_sr_wind_field_tpu_torch.train import tricks
 from gan_sr_wind_field_tpu_torch.train.schedule import (
     label_values,
@@ -92,15 +112,16 @@ from gan_sr_wind_field_tpu_torch.utils.jax_params import (
 
 Params = Dict[str, torch.Tensor]
 
-_NOT_PORTED = "is not ported yet (see ROADMAP.md)"
 _LOSS_KEYS = ("total", "adversarial", "pix", "xy_gradient", "z_gradient",
               "divergence", "xy_divergence", "feature_D")
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor):
-    """Mean binary cross-entropy on logits (torch BCEWithLogitsLoss)."""
-    return torch.mean(torch.clamp_min(logits, 0.0) - logits * targets
-                      + torch.log1p(torch.exp(-logits.abs())))
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                    mean=torch.mean):
+    """Mean binary cross-entropy on logits (torch BCEWithLogitsLoss);
+    ``mean`` takes the mean (a rank's share of it on a mesh)."""
+    return mean(torch.clamp_min(logits, 0.0) - logits * targets
+                + torch.log1p(torch.exp(-logits.abs())))
 
 
 @dataclass
@@ -154,12 +175,16 @@ class WindFieldGAN:
         sr = gan.generate(state, lr, z)
 
     ``x`` and ``y`` are the HR grid's coordinate vectors; lr, hr and z are
-    channels-last (N, X, Y, Zl, C) tensors or arrays.
+    channels-last (N, X, Y, Zl, C) tensors or arrays. With ``mesh`` (the
+    data axis, ``parallel.make_mesh``; not an idle rank's) they are this
+    rank's rows of the global batch, whose size is the rows times the
+    axis's.
     """
 
     def __init__(self, cfg, x, y, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"training on a mesh {_NOT_PORTED}")
+        if mesh is not None and mesh.idle:
+            raise ValueError("an idle rank of the mesh runs no step")
+        self.mesh = mesh
         t = cfg.training
         g = cfg.gan_config
         moments = getattr(t, "optimizer_state_dtype", "float32")
@@ -258,7 +283,7 @@ class WindFieldGAN:
     # ------------------------------------------------------------ state
     def _build_D(self, hr_shape, seed: int = 0) -> Discriminator3D:
         cfg, d = self.cfg, self.cfg.discriminator
-        return Discriminator3D(
+        D = Discriminator3D(
             in_channels=d.in_num_ch, base_features=d.num_features,
             feat_kern_size=d.feat_kern_size, norm=d.norm_type,
             number_of_z_layers=cfg.gan_config.number_of_z_layers,
@@ -270,6 +295,9 @@ class WindFieldGAN:
             spatial=tuple(hr_shape[1:3]),
             generator=torch.Generator().manual_seed(seed),
         ).to(self.device)
+        if self.mesh is not None:
+            D.sync_batch_norm(self.mesh.group)
+        return D
 
     def _new_state(self, params_G: Params, D: Discriminator3D, it: int,
                    seed: int, params_G_ema: Optional[Params] = None
@@ -340,6 +368,11 @@ class WindFieldGAN:
                          gen: torch.Generator, dropout_mask=None):
         head = (self._head_train if torch.is_grad_enabled()
                 else self._head_nograd)
+        p = self.G.dropout_probability
+        if (self.mesh is not None and train and p > 0.0
+                and dropout_mask is None):
+            dropout_mask = self._keep_rows(lr.shape[0], self.G.hr_features,
+                                           p, gen)
         return self._g_apply(
             params_G, lr, z, train=train, trunk=self._trunk, head=head,
             dropout_mask=dropout_mask, generator=gen)
@@ -365,6 +398,62 @@ class WindFieldGAN:
             return self._g_apply(params_G, self._as_input(lr),
                                  self._as_input(z), trunk=self._trunk,
                                  qhead=qhead, qtrunk=qtrunk)
+
+    # ------------------------------------------------------------ mesh
+    @contextlib.contextmanager
+    def one_process(self):
+        """Inside, the steps run on this process's batch alone, with no
+        collective, as without a mesh (the loop's validation on the first
+        rank)."""
+        mesh, self.mesh = self.mesh, None
+        if mesh is not None and self.D is not None:
+            self.D.sync_batch_norm(None)
+        try:
+            yield self
+        finally:
+            self.mesh = mesh
+            if mesh is not None and self.D is not None:
+                self.D.sync_batch_norm(mesh.group)
+
+    def _n(self, rows: int) -> int:
+        """The global batch of ``rows`` rows on each rank."""
+        return rows if self.mesh is None else rows * self.mesh.size
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t``, drawn at the global batch's shape."""
+        return t if self.mesh is None else t[self.mesh.rows(t.shape[0])]
+
+    def _keep_rows(self, rows: int, channels: int, p: float,
+                   gen: torch.Generator) -> torch.Tensor:
+        """This rank's rows of a channel-dropout keep mask drawn for the
+        global batch, as a module draws it for a batch of that size."""
+        keep = _draw_keep((self._n(rows), 1, 1, 1, channels), p, gen,
+                          self.device)
+        return self._rows(keep)
+
+    def _mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The batch mean of ``t`` (this rank's rows): on a mesh this rank's
+        share of it, the rows' sum over the global count."""
+        if self.mesh is None:
+            return t.mean()
+        return t.sum() / (t.numel() * self.mesh.size)
+
+    def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The batch mean of ``t``, the same value on every rank; its
+        gradient reaches every rank's rows."""
+        if self.mesh is None:
+            return t.mean()
+        return group_mean(t, self.mesh.group, self._n(t.shape[0]))
+
+    def _reduce(self, shares: dict) -> dict:
+        """The ranks' shares summed (no gradient): the batch's values."""
+        if self.mesh is None:
+            return shares
+        keys = list(shares)
+        vec = torch.stack([shares[k].detach().float().reshape(())
+                           for k in keys])
+        torch.distributed.all_reduce(vec, group=self.mesh.group)
+        return dict(zip(keys, vec.unbind()))
 
     # -------------------------------------------------------- schedules
     def _set_iteration(self, it: int) -> None:
@@ -392,6 +481,7 @@ class WindFieldGAN:
 
     # ----------------------------------------------------------- losses
     def _make_labels(self, batch: int, gen: torch.Generator):
+        """The real and fake label vectors of a (global) batch."""
         pred_real, pred_fake = not self.flip_labels, self.flip_labels
         std = 0.05 if self.use_noisy_labels else 0.0
         kw = dict(noise_stddev=std, true_label_val=self._sc["real_label"],
@@ -406,8 +496,9 @@ class WindFieldGAN:
         if not self.use_instance_noise:
             return x
         scale = self._sc["noise_G" if sigma == 2.0 else "noise_D"]
-        return x + tricks.instance_noise(scale, x.shape, device=self.device,
-                                         generator=gen)
+        shape = (self._n(x.shape[0]),) + tuple(x.shape[1:])
+        return x + self._rows(tricks.instance_noise(
+            scale, shape, device=self.device, generator=gen))
 
     def _g_losses(self, params_G: Params, state: GANTrainState, lr, hr, z,
                   it: Optional[int], gen: torch.Generator, train: bool,
@@ -423,8 +514,10 @@ class WindFieldGAN:
         zero = torch.zeros((), device=self.device)
         losses = {k: zero for k in _LOSS_KEYS}
 
+        mean = self._mean
         if self.use_adv:
-            hr_labels, fake_labels = self._make_labels(hr.shape[0], gen)
+            hr_labels, fake_labels = (self._rows(v) for v in self._make_labels(
+                self._n(hr.shape[0]), gen))
             # D eval-mode forwards with σ=2 instance noise
             real_in = self._noisy_d_input(hr3, 2.0, gen)
             fake_in = self._noisy_d_input(fake, 2.0, gen)
@@ -434,11 +527,12 @@ class WindFieldGAN:
             fake_y_pred = self._d_apply(state.params_D, state.batch_stats_D,
                                         fake_in, train=False)
             if self.gan_type == "relativistic":
-                adv = bce_with_logits(fake_y_pred - y_pred, hr_labels)
+                adv = bce_with_logits(fake_y_pred - y_pred, hr_labels, mean)
             else:
-                adv = (bce_with_logits(fake_y_pred - y_pred.mean(), hr_labels)
-                       + bce_with_logits(y_pred - fake_y_pred.mean(),
-                                         fake_labels)) / 2.0
+                adv = (bce_with_logits(fake_y_pred - self._batch_mean(y_pred),
+                                       hr_labels, mean)
+                       + bce_with_logits(y_pred - self._batch_mean(fake_y_pred),
+                                         fake_labels, mean)) / 2.0
             losses["adversarial"] = adv * self.w_adv
 
         if self.use_feature_D:
@@ -448,36 +542,48 @@ class WindFieldGAN:
                                          features_only=True)
             feats_fake = self._d_apply(*frozen, fake, train=False,
                                        features_only=True)
-            losses["feature_D"] = (((feats_hr - feats_fake) ** 2).mean()
+            losses["feature_D"] = (mean((feats_hr - feats_fake) ** 2)
                                    * self.w_feat)
 
         if self.pixel_criterion == "l1":
-            losses["pix"] = (hr3 - fake).abs().mean() * w["pix"]
+            losses["pix"] = mean((hr3 - fake).abs()) * w["pix"]
         elif self.pixel_criterion == "l2":
-            losses["pix"] = ((hr3 - fake) ** 2).mean() * w["pix"]
+            losses["pix"] = mean((hr3 - fake) ** 2) * w["pix"]
 
         hr_grad = self._wind_gradient(hr3, self.x, self.y, z)
         sr_grad = self._wind_gradient(fake, self.x, self.y, z)
-        f_xy, f_z, f_div, f_xydiv = gradient_norm_factors(hr_grad, sr_grad)
-        losses["xy_gradient"] = ((sr_grad[..., :6] / f_xy
-                                  - hr_grad[..., :6] / f_xy) ** 2
-                                 ).mean() * w["gxy"]
-        losses["z_gradient"] = ((sr_grad[..., 6:] / f_z
-                                 - hr_grad[..., 6:] / f_z) ** 2
-                                ).mean() * w["gz"]
-        losses["divergence"] = ((divergence_3d(hr_grad) / f_div
-                                 - divergence_3d(sr_grad) / f_div) ** 2
-                                ).mean() * w["div"]
-        losses["xy_divergence"] = ((divergence_xy(hr_grad) / f_xydiv
-                                    - divergence_xy(sr_grad) / f_xydiv) ** 2
-                                   ).mean() * w["xydiv"]
-        physics = (losses["xy_gradient"] + losses["z_gradient"]
-                   + losses["divergence"] + losses["xy_divergence"])
+        f_xy, f_z, f_div, f_xydiv = gradient_norm_factors(
+            hr_grad, sr_grad, None if self.mesh is None else self.mesh.group)
+        losses["xy_gradient"] = mean((sr_grad[..., :6] / f_xy
+                                      - hr_grad[..., :6] / f_xy) ** 2
+                                     ) * w["gxy"]
+        losses["z_gradient"] = mean((sr_grad[..., 6:] / f_z
+                                     - hr_grad[..., 6:] / f_z) ** 2
+                                    ) * w["gz"]
+        losses["divergence"] = mean((divergence_3d(hr_grad) / f_div
+                                     - divergence_3d(sr_grad) / f_div) ** 2
+                                    ) * w["div"]
+        losses["xy_divergence"] = mean((divergence_xy(hr_grad) / f_xydiv
+                                        - divergence_xy(sr_grad) / f_xydiv)
+                                       ** 2) * w["xydiv"]
+        def physics_of(terms):
+            return (terms["xy_gradient"] + terms["z_gradient"]
+                    + terms["divergence"] + terms["xy_divergence"])
+
+        physics = physics_of(losses)
+        # the batch's terms (on a mesh: the shares summed over the group)
+        values = self._reduce(losses)
+        physics_all = physics_of(values)
         # NaN/Inf guard: physics terms leave the total
+        finite = torch.isfinite(physics_all)
         total = (losses["adversarial"] + losses["pix"] + losses["feature_D"]
-                 + torch.where(torch.isfinite(physics), physics, zero))
+                 + torch.where(finite, physics, zero))
         losses["total"] = total
-        return total, (losses, fake)
+        if self.mesh is not None:
+            values["total"] = (values["adversarial"] + values["pix"]
+                               + values["feature_D"]
+                               + torch.where(finite, physics_all, zero))
+        return total, (values, fake)
 
     def _d_loss(self, params_D: Params, stats: Params, hr3, fake,
                 it: Optional[int], gen: torch.Generator, update_stats: bool):
@@ -485,24 +591,40 @@ class WindFieldGAN:
         statistics, dropout) at iteration ``it`` (None: the one last
         written); with ``update_stats`` the running statistics in
         ``stats`` move, real batch first. Returns (loss, y_pred,
-        fake_y_pred)."""
+        fake_y_pred); on a mesh the loss is this rank's share."""
         if it is not None:
             self._set_iteration(it)
-        hr_labels, fake_labels = self._make_labels(hr3.shape[0], gen)
+        n = self._n(hr3.shape[0])
+        hr_all, fake_all = self._make_labels(n, gen)
+        hr_labels, fake_labels = self._rows(hr_all), self._rows(fake_all)
         real_in = self._noisy_d_input(hr3, 1.0, gen)
         fake_in = self._noisy_d_input(fake.detach(), 1.0, gen)
         kw = dict(train=True, update_stats=update_stats, generator=gen)
-        y_pred = self._d_apply(params_D, stats, real_in, **kw)
-        fake_y_pred = self._d_apply(params_D, stats, fake_in, **kw)
+        p = self.D.dropout_probability
+
+        def keep():  # on a mesh, this rank's rows of D's global mask
+            if self.mesh is None or p == 0.0:
+                return None
+            return self._keep_rows(hr3.shape[0], self.D.feature_shape[-1],
+                                   p, gen)
+
+        y_pred = self._d_apply(params_D, stats, real_in, **kw,
+                               dropout_mask=keep())
+        fake_y_pred = self._d_apply(params_D, stats, fake_in, **kw,
+                                    dropout_mask=keep())
+        mean = self._mean
         if self.gan_type == "relativistic":
-            loss = bce_with_logits(y_pred - fake_y_pred, hr_labels)
+            loss = bce_with_logits(y_pred - fake_y_pred, hr_labels, mean)
         else:
-            loss = (bce_with_logits(y_pred - fake_y_pred.mean(), hr_labels)
-                    + bce_with_logits(fake_y_pred - y_pred.mean(),
-                                      fake_labels)) / 2.0
-            # bias when the one-sided-smoothed labels are exactly 0.9
-            loss = torch.where(torch.all(hr_labels == 0.9), loss - 0.1985,
-                               loss)
+            loss = (bce_with_logits(y_pred - self._batch_mean(fake_y_pred),
+                                    hr_labels, mean)
+                    + bce_with_logits(fake_y_pred - self._batch_mean(y_pred),
+                                      fake_labels, mean)) / 2.0
+            # bias when the one-sided-smoothed labels are exactly 0.9 (a
+            # share of it on each rank of a mesh)
+            ranks = 1 if self.mesh is None else self.mesh.size
+            loss = torch.where(torch.all(hr_all == 0.9),
+                               loss - 0.1985 / ranks, loss)
         return loss, y_pred, fake_y_pred
 
     # -------------------------------------------------------- optimizer
@@ -559,17 +681,23 @@ class WindFieldGAN:
         return norm
 
     def _grads(self, loss, params: Params):
+        """The gradients of ``loss`` w.r.t. ``params``; on a mesh summed
+        over the group (one flat all_reduce), the global loss's."""
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g
-                for g, p in zip(grads, params.values())]
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params.values())]
+        if self.mesh is not None:
+            all_reduce_flat(grads, self.mesh.group)
+        return grads
 
     # ----------------------------------------------------------- steps
     def g_grads(self, state: GANTrainState, lr, hr, z, it: int,
                 generator: torch.Generator, weights=None, dropout_mask=None):
         """The losses of a G step at iteration ``it`` and the gradients of
         its total w.r.t. ``state.params_G`` (a list in the dict's order),
-        without the update: (total, losses, grads)."""
+        without the update: (total, losses, grads); on a mesh the batch's
+        losses and the gradients summed over the group."""
         self._set_iteration(it)
         return self._g_grads(state, lr, hr, z, generator, weights,
                              dropout_mask)
@@ -582,8 +710,8 @@ class WindFieldGAN:
                                            generator, True, weights,
                                            dropout_mask)
         grads = self._grads(loss, params)
-        return loss.detach(), {k: v.detach() for k, v in losses.items()}, \
-            grads
+        return (losses["total"].detach(),
+                {k: v.detach() for k, v in losses.items()}, grads)
 
     def _g_branch(self, state: GANTrainState, lr, hr, z, w):
         loss, metrics, grads = self._g_grads(state, lr, hr, z, state.rng, w)
@@ -609,7 +737,7 @@ class WindFieldGAN:
                         self._sc["lr_D"], *self.opt_D, gen=state.rng)
         zero = torch.zeros((), device=self.device)
         metrics = {k: zero for k in _LOSS_KEYS}
-        metrics["D_train_loss"] = loss_D.detach()
+        metrics["D_train_loss"] = self._reduce({"D": loss_D})["D"].detach()
         if self.clip_norm is not None:
             metrics["G_grad_norm"] = zero
         return metrics
@@ -634,7 +762,8 @@ class WindFieldGAN:
         """One iteration, G or D by the alternation; updates ``state`` in
         place and returns ``(state, metrics)``. With ``augment`` the batch
         is first rotated and mirrored per sample (``data/augment.py``),
-        with draws from ``state.rng`` before any other of the step's."""
+        with draws from ``state.rng`` before any other of the step's. On a
+        mesh, ``lr``, ``hr`` and ``z`` are this rank's rows."""
         lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
         it = self._begin_step(state)
         metrics = self._step(state, lr, hr, z, augment, self.is_g_step(it),
@@ -665,7 +794,9 @@ class WindFieldGAN:
         of ``state`` in place, no host sync, so a CUDA graph can capture
         it. Returns the metrics."""
         if augment:
-            lr, hr, z = augment_batch(state.rng, lr, hr, z)
+            draws = augment_draws(self._n(lr.shape[0]), state.rng, lr.device)
+            lr, hr, z = augment_batch_with(lr, hr, z,
+                                           *(self._rows(d) for d in draws))
         w = weights or self.default_weights
         if g_step:
             metrics = self._g_branch(state, lr, hr, z, w)
@@ -695,10 +826,26 @@ class WindFieldGAN:
         same stream whatever the chunk boundaries). On a CUDA device each
         step kind runs as a CUDA graph of the step (``step_graphs.py``),
         captured on its first use and replayed; a failed capture or replay
-        raises. On the CPU the same steps run eagerly. Returns ``(state,
-        the last step's metrics)``."""
+        raises. On the CPU the same steps run eagerly. On a mesh
+        ``batch_size`` is the global batch's and each rank cuts its rows;
+        the graphs capture the step's collectives, which NCCL allows and
+        gloo does not (``step_graphs.capturable``): on a card with a gloo
+        group this raises ValueError. Returns ``(state, the last step's
+        metrics)``."""
+        from gan_sr_wind_field_tpu_torch.train.step_graphs import (
+            StepGraphs,
+            capturable,
+        )
+
+        if self.device.type == "cuda" and not capturable(self.mesh):
+            raise ValueError(
+                "train_chunk captures the step's collectives in CUDA "
+                "graphs, which a gloo group cannot be: train on NCCL, or "
+                "with steps_per_dispatch = 1")
         kw = dict(batch_size=batch_size, patch=patch, patch_y=patch_y, cf=cf,
-                  enable_slicing=enable_slicing)
+                  enable_slicing=enable_slicing,
+                  rows=None if self.mesh is None
+                  else self.mesh.rows(batch_size))
         gen = torch.Generator(device=full.device)
         if self.device.type != "cuda":
             for _ in range(n_steps):
@@ -706,8 +853,6 @@ class WindFieldGAN:
                 state, metrics = self.train_step(state, *batch,
                                                  augment=augment)
             return state, metrics
-        from gan_sr_wind_field_tpu_torch.train.step_graphs import StepGraphs
-
         batch = batch_at(full, zraw, seed, state.it, gen, **kw)
         if self._graphs is None or not self._graphs.fits(state, batch,
                                                          augment):
@@ -723,7 +868,8 @@ class WindFieldGAN:
         """Validation losses and metrics. As the reference does, the D
         forwards run in train mode and move D's running statistics; they
         are written into ``state.batch_stats_D``, which is returned beside
-        the metrics."""
+        the metrics. On a mesh, ``lr``, ``hr`` and ``z`` are this rank's
+        rows, and the metrics are the batch's."""
         lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
         gen = state.rng if generator is None else generator
         w = weights or self.default_weights
@@ -733,23 +879,30 @@ class WindFieldGAN:
                                                z, state.it, gen, False, w)
             metrics = {f"G_val_{k}": v for k, v in losses.items()}
             zero = torch.zeros((), device=self.device)
+            shares = dict(D_val_loss=zero, D_pred_HR=zero, D_pred_SR=zero)
             if self.use_adv:
                 loss_D, y_pred, fake_y_pred = self._d_loss(
                     state.params_D, state.batch_stats_D, hr3, fake, None,
                     gen, update_stats=True)
-                metrics["D_val_loss"] = loss_D
-                metrics["D_pred_HR"] = torch.sigmoid(y_pred).mean()
-                metrics["D_pred_SR"] = torch.sigmoid(fake_y_pred).mean()
-            else:
-                metrics.update(D_val_loss=zero, D_pred_HR=zero,
-                               D_pred_SR=zero)
+                shares.update(D_val_loss=loss_D,
+                              D_pred_HR=self._mean(torch.sigmoid(y_pred)),
+                              D_pred_SR=self._mean(torch.sigmoid(
+                                  fake_y_pred)))
             trilinear = upsample_trilinear_xy(lr[..., :3], self.cfg.scale)
-            metrics["val_PSNR"] = psnr(hr3, fake)
-            metrics["Trilinear_PSNR"] = psnr(hr3, trilinear)
+            voxels = hr3[..., 0].numel() * (1 if self.mesh is None
+                                            else self.mesh.size)
+            # psnr's MSE: the squared error over the batch's voxels
+            shares["val_PSNR"] = ((hr3 - fake) ** 2).sum() / voxels
+            shares["Trilinear_PSNR"] = ((hr3 - trilinear) ** 2).sum() / voxels
             if self.pixel_criterion == "l2":
-                metrics["trilinear_pix_loss"] = ((hr3 - trilinear) ** 2).mean()
+                shares["trilinear_pix_loss"] = self._mean(
+                    (hr3 - trilinear) ** 2)
             else:
-                metrics["trilinear_pix_loss"] = (hr3 - trilinear).abs().mean()
+                shares["trilinear_pix_loss"] = self._mean(
+                    (hr3 - trilinear).abs())
+            metrics.update(self._reduce(shares))
+            for k in ("val_PSNR", "Trilinear_PSNR"):
+                metrics[k] = psnr_from_mse(metrics[k])
             # the weight may be a 0-d tensor (the search's): no host sync
             w_pix = torch.as_tensor(w["pix"], dtype=torch.float32,
                                     device=self.device)

@@ -28,6 +28,16 @@ Counterpart of ``gan_sr_wind_field_tpu/train/loop.py:train`` and
   seeded from it) and, beside it or alone, a reference ``D_{it}.pth``
   loads D and its statistics, and a port checkpoint loads weights only.
 
+On a data mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the loop
+on its rows of each batch (``DeviceBatcher`` and the host path cut them
+from the same global draw) and holds the same state after every step. Only
+the first rank writes: logs, TensorBoard, images, profiles and
+checkpoints, with a barrier around each save; every rank resumes from the
+same file. Validation runs on the first rank alone on whole batches, as
+the one-process loop does, and D's running statistics it moves are then
+broadcast to the others. A stop (SIGTERM, the watchdog's) is agreed by
+every rank at each iteration.
+
 Where a save and a validation fall on one iteration, the port validates
 first: validation moves D's running statistics (as the reference does), so
 the checkpoint then holds the state that training goes on from, and a resume
@@ -50,6 +60,7 @@ from gan_sr_wind_field_tpu_torch.data.device_data import DeviceBatcher
 from gan_sr_wind_field_tpu_torch.data.pipeline import prefetch_to_device
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
+from gan_sr_wind_field_tpu_torch.parallel.mesh import replicate, shard_state
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import GANTrainState, WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.watchdog import StallWatchdog
@@ -116,22 +127,26 @@ def _load_weights(cfg, gan: WindFieldGAN, state: GANTrainState,
 
 def train(cfg, dataset_train, dataset_validation, x, y,
           max_steps: Optional[int] = None, device=None,
-          profile_dir: Optional[str] = None) -> GANTrainState:
+          profile_dir: Optional[str] = None, mesh=None) -> GANTrainState:
     """Run training to ``cfg.training.niter`` (at most ``max_steps``, an
     absolute iteration) on ``device`` (the card unless the caller asks for
-    the CPU); with ``profile_dir``, trace the first iterations into it.
+    the CPU); with ``profile_dir``, trace the first iterations into it;
+    with ``mesh`` (the data axis, this rank not idle) on the group's ranks.
     Returns the final state."""
     device = resolve_device(device)
     status = logging.getLogger("status")
     cfg_t = cfg.training
+    # the one rank that writes
+    lead = mesh is None or mesh.rank == 0
     run_folder = cfg.env.this_runs_folder or "./runs_root/run"
-    os.makedirs(os.path.join(run_folder, "images"), exist_ok=True)
+    if lead:
+        os.makedirs(os.path.join(run_folder, "images"), exist_ok=True)
     tb = MetricsWriter(
         cfg.env.this_runs_tensorboard_log_folder
         or os.path.join(run_folder, "tb"),
         use_tensorboard=cfg.use_tensorboard_logger,
     )
-    gan = WindFieldGAN(cfg, x, y, device=device)
+    gan = WindFieldGAN(cfg, x, y, device=device, mesh=mesh)
 
     # consolidate the pickle cache into one float32 memmap (data/npcache.py)
     try:
@@ -147,6 +162,8 @@ def train(cfg, dataset_train, dataset_validation, x, y,
     dataset_train.data_aug_flip = False
 
     batch_size = cfg.dataset_train.batch_size if cfg.dataset_train else 1
+    # this rank's rows of every batch
+    rows = None if mesh is None else mesh.rows(batch_size)
     rng_np = np.random.default_rng(cfg.env.fixed_seed)
     if batch_size > len(dataset_train):
         raise ValueError(
@@ -162,6 +179,13 @@ def train(cfg, dataset_train, dataset_validation, x, y,
     )
     if cfg.load_model_from_save:
         state = _load_weights(cfg, gan, state, run_folder, status)
+    if mesh is not None:
+        # every rank read the same files; the first rank's state is kept
+        shard_state(state, mesh)
+        status.info(f"data axis of {mesh.size} ranks "
+                    f"({torch.distributed.get_backend(mesh.group)}): rows "
+                    f"{rows.start}..{rows.stop - 1} of each batch of "
+                    f"{batch_size}")
 
     niter = min(cfg_t.niter, max_steps) if max_steps else cfg_t.niter
     start_it = state.it
@@ -180,7 +204,7 @@ def train(cfg, dataset_train, dataset_validation, x, y,
             seed=int(rng_np.integers(0, 2**31 - 1)),
             # continue the batch stream across resume legs (the seed comes
             # from fixed_seed the same way on every start)
-            start_count=start_it,
+            start_count=start_it, rows=rows,
         )
         status.info(
             "device-resident training data: "
@@ -189,17 +213,17 @@ def train(cfg, dataset_train, dataset_validation, x, y,
     else:
         batches = prefetch_to_device(
             dataset_train.batches(batch_size, rng_np, shuffle=True,
-                                  epochs=epochs),
+                                  epochs=epochs, rows=rows),
             device,
         )
 
     bar = None
-    if cfg.display_bar:
+    if cfg.display_bar and lead:
         bar = DisplayBar(max_value=batches_per_epoch, start_it=it,
                          niter=niter)
 
     profiler = None
-    if profile_dir:
+    if profile_dir and lead:
         profiler = torch.profiler.profile(activities=(
             [torch.profiler.ProfilerActivity.CPU]
             + ([torch.profiler.ProfilerActivity.CUDA]
@@ -246,10 +270,16 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         nonlocal saved_at
         if watchdog is not None:
             watchdog.grace(max(2 * cfg_t.stall_watchdog_s, 600))
-        path = ckpt.save_checkpoint(run_folder, state,
-                                    keep_last=cfg_t.keep_checkpoints)
+        if mesh is not None:
+            mesh.barrier()
+        if lead:
+            path = ckpt.save_checkpoint(run_folder, state,
+                                        keep_last=cfg_t.keep_checkpoints)
+            status.info(f"saved checkpoint {path}")
+        if mesh is not None:
+            # no rank goes on (or reads it back) before it is written
+            mesh.barrier()
         saved_at = state.it
-        status.info(f"saved checkpoint {path}")
         if watchdog is not None:
             watchdog.beat()
 
@@ -259,7 +289,7 @@ def train(cfg, dataset_train, dataset_validation, x, y,
             watchdog.beat()
         if profiler is not None and it - start_it >= 10:
             stop_profile()
-        if it % cfg_t.log_period == 0:
+        if it % cfg_t.log_period == 0 and lead:
             host_m = {k: float(metrics[k]) for k in TRAIN_LOSS_KEYS}
             dt = time.time() - t_window
             ips = (it - it_window) / max(dt, 1e-9)
@@ -282,8 +312,14 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         if dataset_validation is not None and it % cfg_t.val_period == 0:
             if watchdog is not None:
                 watchdog.grace(max(6 * cfg_t.stall_watchdog_s, 1800))
-            state = run_validation(cfg, gan, state, dataset_validation, tb,
-                                   run_folder, it)
+            if lead:
+                with gan.one_process():
+                    state = run_validation(cfg, gan, state,
+                                           dataset_validation, tb,
+                                           run_folder, it)
+            if mesh is not None:
+                # the statistics validation moved, on every rank
+                replicate(mesh, state.batch_stats_D)
             if watchdog is not None:
                 watchdog.beat()
         if it % cfg_t.save_model_period == 0:
@@ -306,8 +342,14 @@ def train(cfg, dataset_train, dataset_validation, x, y,
             cands.append(start_it + 10)
         return min(c for c in cands if c > i)
 
+    stopped = False
     try:
-        while it < niter and not stop_signal:
+        while it < niter:
+            # on a mesh every rank stops at the same iteration
+            stopped = (bool(stop_signal) if mesh is None
+                       else mesh.agree(bool(stop_signal)))
+            if stopped:
+                break
             if chunked and next_boundary(it) - it >= chunk_steps:
                 state, metrics = gan.train_chunk(
                     state, batches.full, batches.zraw, batches.seed,
@@ -331,7 +373,7 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         if not cfg.device_resident_data:
             batches.close()
 
-    if stop_signal:
+    if stopped:
         status.warning(f"SIGTERM at it {it}: checkpointing and exiting "
                        "cleanly")
     elif it < niter:

@@ -21,6 +21,12 @@ per step instead of the step's thousands of kernels.
   the graph, and added once per replay.
 
 A failed capture or replay raises; nothing falls back to eager steps.
+
+On a data mesh the graphs hold the step's collectives too. NCCL's
+all_reduce can be captured and replayed (checked on an H100 with NCCL
+2.28.9: a captured all_reduce replays with the right sum); gloo's runs on
+the host and cannot (its capture fails with
+``cudaErrorStreamCaptureInvalidated``). ``capturable`` is that rule.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 from gan_sr_wind_field_tpu_torch.ops import hr_head, rdb_trunk, stencil
 
@@ -48,6 +55,12 @@ def add_launches(counts) -> None:
     """Add ``counts`` (as ``launch_counts`` orders them) to the counters."""
     for (m, n), c in zip(_COUNTERS, counts):
         setattr(m, n, getattr(m, n) + c)
+
+
+def capturable(mesh) -> bool:
+    """Whether the step on ``mesh`` (None: one process) can be captured in
+    a CUDA graph: its collectives must be NCCL's."""
+    return mesh is None or dist.get_backend(mesh.group) == "nccl"
 
 
 def _state_key(state) -> tuple:

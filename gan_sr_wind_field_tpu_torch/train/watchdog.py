@@ -19,6 +19,12 @@ periodic checkpoint stands and a supervisor relaunches.
   with :data:`STALL_EXIT_CODE`, so a supervisor can tell watchdog death
   (relaunch from the checkpoint) from real errors.
 
+In a group of processes (a data mesh) every rank runs its own watchdog
+and logs with its rank (``utils/logging.py``): the ranks agree on a
+SIGTERM at the next iteration (``train/loop.py``), and a rank blocked in a
+collective whose peer is gone fails at the process group's timeout
+(``parallel/mesh.py:init_distributed``) or ends in the hard exit here.
+
 Enable with ``[TRAINING] stall_watchdog_s = <seconds>`` (0 = off, the
 default). Pick a threshold well above one validation sweep plus one
 checkpoint save.

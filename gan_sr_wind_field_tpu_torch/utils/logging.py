@@ -1,5 +1,9 @@
 """Run loggers: 'status' (human-readable progress) and 'train' (loss lines)
-(the port's own copy of ``gan_sr_wind_field_tpu/utils/logging.py``)."""
+(the port's own copy of ``gan_sr_wind_field_tpu/utils/logging.py``).
+
+In a group of processes (``torchrun``) only rank 0 writes the log files;
+the other ranks log warnings and errors to the terminal, their rank in
+each line."""
 
 from __future__ import annotations
 
@@ -7,9 +11,23 @@ import logging
 import os
 import sys
 
+from gan_sr_wind_field_tpu_torch.parallel.mesh import process_rank
+
 
 def setup_loggers(log_dir: str, also_log_to_terminal: bool = True,
                   level: int = logging.INFO):
+    rank = process_rank()
+    if rank != 0:
+        fmt = logging.Formatter(
+            f"%(asctime)s rank {rank} %(levelname)s: %(message)s")
+        for name in ("status", "train"):
+            log = logging.getLogger(name)
+            log.setLevel(logging.WARNING)
+            log.handlers.clear()
+            sh = logging.StreamHandler(sys.stdout)
+            sh.setFormatter(fmt)
+            log.addHandler(sh)
+        return logging.getLogger("status"), logging.getLogger("train")
     os.makedirs(log_dir, exist_ok=True)
     fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s")
 

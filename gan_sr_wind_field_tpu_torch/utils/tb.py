@@ -3,7 +3,9 @@
 
 Every scalar goes to ``events.jsonl``, always. tensorboardX is imported
 only when a writer is made with ``use_tensorboard``, and used only when it
-imports; figures go to TensorBoard only (``has_figure_sink``).
+imports; figures go to TensorBoard only (``has_figure_sink``). In a group
+of processes (a data mesh) only rank 0 writes: on the others the writer
+creates no file and drops what it is given.
 """
 
 from __future__ import annotations
@@ -13,13 +15,18 @@ import os
 import time
 from typing import Dict
 
+from gan_sr_wind_field_tpu_torch.parallel.mesh import process_rank
+
 
 class MetricsWriter:
     def __init__(self, log_dir: str, use_tensorboard: bool = True):
-        os.makedirs(log_dir, exist_ok=True)
         self.log_dir = log_dir
-        self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
+        self._jsonl = None
         self._tb = None
+        if process_rank() != 0:
+            return
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, "events.jsonl"), "a")
         if use_tensorboard:
             try:
                 import tensorboardX
@@ -29,6 +36,8 @@ class MetricsWriter:
                 pass
 
     def add_scalars(self, tag: str, values: Dict[str, float], step: int):
+        if self._jsonl is None:
+            return
         rec = {"t": time.time(), "tag": tag, "step": step,
                "values": {k: float(v) for k, v in values.items()}}
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -48,6 +57,7 @@ class MetricsWriter:
             self._tb.add_figure(tag, figure, step)
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

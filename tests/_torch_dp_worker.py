@@ -1,0 +1,348 @@
+"""Ranks of a gloo group on the CPU for the port's data-mesh tests.
+
+``spawn(task, world, tmp_path, payload)`` starts ``world`` processes over a
+``file://`` store under ``tmp_path``; each joins the group, builds a data
+mesh and runs ``TASKS[task](mesh, payload)``, and rank 0's return value
+comes back. The workers import torch and the port only: the JAX side of a
+comparison runs in the test's own process. ``payload`` is pickled with
+``torch.save`` (it carries the port's ``Config``).
+"""
+
+import dataclasses
+import hashlib
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from gan_sr_wind_field_tpu_torch.parallel import (
+    batch_sharding,
+    init_distributed,
+    make_mesh,
+    shard_state,
+    volume_sharding,
+)
+
+
+def spawn(task: str, world: int, tmp_path, payload=None, timeout=240):
+    """Run ``task`` on ``world`` gloo ranks; → rank 0's result. Ranks still
+    running after ``timeout`` seconds are killed and the call raises."""
+    tmp = str(tmp_path)
+    os.makedirs(tmp, exist_ok=True)
+    src = os.path.join(tmp, f"{task}_{world}_in.pt")
+    out = os.path.join(tmp, f"{task}_{world}_out.pt")
+    torch.save(payload, src)
+    ctx = mp.start_processes(_main, args=(world, tmp, task, src, out),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = time.monotonic() + timeout
+    # join returns when any one rank ends: wait for all of them
+    while not ctx.join(max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{task} on {world} ranks: over {timeout} s")
+    return torch.load(out, weights_only=False)
+
+
+def _main(rank, world, tmp, task, src, out):
+    torch.set_num_threads(1)
+    init_distributed("cpu", init_method=f"file://{tmp}/store_{task}_{world}",
+                     rank=rank, world_size=world, timeout_s=120)
+    try:
+        payload = torch.load(src, weights_only=False)
+        result = TASKS[task](payload)
+        if rank == 0:
+            torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def checksum(state) -> str:
+    """A digest of every tensor of a ``GANTrainState``, ``it`` and its
+    generator's state: equal digests are equal states, bit for bit."""
+    h = hashlib.sha256()
+    trees = [state.params_G, state.params_D, state.batch_stats_D,
+             state.params_G_ema or {}]
+    for opt in (state.opt_state_G, state.opt_state_D):
+        trees += [opt.mu, opt.nu, {"count": opt.count}]
+    for tree in trees:
+        for k, t in tree.items():
+            h.update(k.encode())
+            h.update(t.detach().reshape(-1).view(torch.uint8).numpy()
+                     .tobytes())
+    h.update(str(state.it).encode())
+    h.update(state.rng.get_state().numpy().tobytes())
+    return h.hexdigest()
+
+
+def all_equal(mesh, value) -> bool:
+    """Whether ``value`` is the same on every rank of the mesh."""
+    values = [None] * mesh.size
+    dist.all_gather_object(values, value, group=mesh.control)
+    return all(v == values[0] for v in values)
+
+
+# ----------------------------------------------------------------- tasks
+def _gan(cfg, mesh, state0, coords):
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    gan = WindFieldGAN(cfg, coords, coords, device="cpu", mesh=mesh)
+    state = gan.init_state(0, state0["lr_shape"], state0["hr_shape"])
+    with torch.no_grad():
+        for tree in ("params_G", "params_D", "batch_stats_D"):
+            for k, v in getattr(state, tree).items():
+                v.copy_(state0[tree][k])
+        if state.params_G_ema is not None:
+            for k, v in state.params_G_ema.items():
+                v.copy_(state0["params_G"][k])
+    state.it = state0["it"]
+    return gan, state
+
+
+def _rows(mesh, batch):
+    sl = mesh.rows(batch[0].shape[0])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a[sl]))
+                 for a in batch)
+
+
+def _d_grads(gan, state, lr, hr, z, it, gen=None):
+    """One D step's loss, gradients and moved statistics, without the
+    update (as ``tests/test_torch_train_step.py`` takes them), drawing
+    from ``gen`` (default the state's generator)."""
+    params = {k: v.detach().requires_grad_() for k, v in
+              state.params_D.items()}
+    stats = {k: v.clone() for k, v in state.batch_stats_D.items()}
+    fake = gan._g_forward_nograd(state.params_G, lr, z)
+    loss, _, _ = gan._d_loss(params, stats, hr[..., :3], fake, it,
+                             state.rng if gen is None else gen, True)
+    grads = dict(zip(params, gan._grads(loss, params)))
+    value = gan._reduce({"loss": loss})["loss"]
+    return float(value), grads, stats
+
+
+def _local(gan, where):
+    """Make one batch-global place of ``gan``'s step local to each rank's
+    rows (a naive data-parallel step there): 'ragan' (the means of D's
+    logits), 'physics' (the physics factors' maxima) or 'bn' (D's batch
+    statistics)."""
+    import gan_sr_wind_field_tpu_torch.train.gan as gan_mod
+
+    if where == "ragan":
+        gan._batch_mean = lambda t: t.mean()
+    elif where == "physics":
+        full = gan_mod.gradient_norm_factors
+        gan_mod.gradient_norm_factors = lambda a, b, group=None: full(a, b)
+        return lambda: setattr(gan_mod, "gradient_norm_factors", full)
+    elif where == "bn":
+        gan.D.sync_batch_norm(None)
+    return lambda: None
+
+
+def task_jax_step(p):
+    """One G step's gradients, one D step's, val_step, an 8-step
+    trajectory and the negative controls on the mesh, from the JAX state;
+    → rank 0's results and whether every rank ended bit for bit equal."""
+    mesh = make_mesh(-1)
+    cfg = p["cfg"]
+    gan, state = _gan(cfg, mesh, p["state"], p["coords"])
+    res = {}
+    losses, grads = gan.g_grads(state, *_rows(mesh, p["g_batch"]), 1,
+                                state.rng)[1:]
+    res["g"] = ({k: float(v) for k, v in losses.items()},
+                dict(zip(state.params_G, grads)))
+    res["d"] = _d_grads(gan, state, *_rows(mesh, p["d_batch"]), 0)
+    # the negative controls: one place local at a time
+    for where in ("ragan", "physics", "bn"):
+        g2, s2 = _gan(cfg, mesh, p["state"], p["coords"])
+        undo = _local(g2, where)
+        if where == "physics":
+            res[f"local_{where}"] = dict(zip(s2.params_G, g2.g_grads(
+                s2, *_rows(mesh, p["g_batch"]), 1, s2.rng)[2]))
+        else:
+            res[f"local_{where}"] = _d_grads(g2, s2,
+                                             *_rows(mesh, p["d_batch"]), 0)
+        undo()
+    metrics, stats = gan.val_step(state, *_rows(mesh, p["val_batch"]))
+    res["val"] = ({k: float(v) for k, v in metrics.items()},
+                  {k: v.clone() for k, v in stats.items()})
+    # the trajectory, from a fresh state with the EMA on
+    cfg8 = dataclasses.replace(cfg)
+    cfg8.training = dataclasses.replace(cfg.training, g_ema_decay=0.999)
+    gan8, st = _gan(cfg8, mesh, p["state"], p["coords"])
+    steps = []
+    for batch in p["traj"]:
+        st, m = gan8.train_step(st, *_rows(mesh, batch))
+        steps.append({k: float(v) for k, v in m.items()})
+    res["traj"] = (steps, st.params_G, st.params_G_ema,
+                   {**st.params_D, **st.batch_stats_D})
+    res["same_on_every_rank"] = all_equal(mesh, checksum(st))
+    return res
+
+
+def task_port_vs_port(p):
+    """With instance noise, noisy labels, dropout and augmentation: a
+    validation batch, one G step's gradients, one D step's and four steps
+    on the mesh and in one process on the global batches, from one state
+    and one generator state; → the largest relative errors by name, the
+    D biases' largest difference after the steps, and whether every rank
+    ended bit for bit equal."""
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    mesh = make_mesh(-1)
+    cfg = p["cfg"]
+    gan, state = _gan(cfg, mesh, p["state"], p["coords"])
+    shard_state(state, mesh)
+    one = WindFieldGAN(cfg, p["coords"], p["coords"], device="cpu")
+    ref = one.init_state(0, p["state"]["lr_shape"], p["state"]["hr_shape"])
+    for tree in ("params_G", "params_D", "batch_stats_D", "params_G_ema"):
+        with torch.no_grad():
+            for k, v in getattr(ref, tree).items():
+                v.copy_(getattr(state, tree)[k])
+    ref.it = state.it
+    ref.rng.set_state(state.rng.get_state())
+    errs = {}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / max(abs(float(b)), 1e-12)
+
+    def rel_trees(name, a, b, skip=()):
+        for k in b:
+            if k not in skip:
+                errs[f"{name} {k}"] = float((a[k] - b[k]).norm()
+                                            / b[k].norm().clamp_min(1e-30))
+
+    def gens():
+        return (torch.Generator().manual_seed(7),
+                torch.Generator().manual_seed(7))
+
+    batch = p["traj"][0]
+    g1, g2 = gens()
+    mv, _ = gan.val_step(state, *_rows(mesh, batch), generator=g1)
+    mvr, _ = one.val_step(ref, *batch, generator=g2)
+    for k, b in mvr.items():
+        errs[f"val {k}"] = rel(mv[k], b)
+    rel_trees("val stats", state.batch_stats_D, ref.batch_stats_D)
+    g1, g2 = gens()
+    _, lm, gm = gan.g_grads(state, *_rows(mesh, batch), 2, g1)
+    _, lr_, gr = one.g_grads(ref, *(torch.from_numpy(a) for a in batch), 2,
+                             g2)
+    for k, b in lr_.items():
+        errs[f"G loss {k}"] = rel(lm[k], b)
+    rel_trees("G grad", dict(zip(state.params_G, gm)),
+              dict(zip(ref.params_G, gr)))
+    g1, g2 = gens()
+    dm = _d_grads(gan, state, *_rows(mesh, batch), 2, g1)
+    dr = _d_grads(one, ref, *(torch.from_numpy(a) for a in batch), 2, g2)
+    errs["D loss"] = rel(dm[0], dr[0])
+    rel_trees("D grad", dm[1], dr[1], skip=("fc1.bias",))
+    errs["D grad fc1.bias abs"] = float((dm[1]["fc1.bias"]
+                                         - dr[1]["fc1.bias"]).abs().max())
+    rel_trees("D stats", dm[2], dr[2])
+    for batch in p["traj"]:
+        state, m = gan.train_step(state, *_rows(mesh, batch), augment=True)
+        ref, mr = one.train_step(ref, *batch, augment=True)
+        for k in ("total", "pix", "xy_gradient", "D_train_loss"):
+            errs[f"step {state.it} {k}"] = rel(m[k], mr[k])
+    for tree in ("params_G", "params_G_ema", "batch_stats_D"):
+        rel_trees(tree, getattr(state, tree), getattr(ref, tree))
+    biases = [k for k in ref.params_D if k.endswith(".bias")]
+    rel_trees("params_D", state.params_D, ref.params_D, skip=biases)
+    bias_diff = max(float((state.params_D[k] - ref.params_D[k]).abs().max())
+                    for k in biases)
+    return dict(errs=errs, bias_diff=bias_diff,
+                same_on_every_rank=all_equal(mesh, checksum(state)),
+                same_rng=bool(torch.equal(state.rng.get_state(),
+                                          ref.rng.get_state())))
+
+
+def task_units(p):
+    """The mesh's axes and spare ranks, each collective's value and
+    gradient, batch norm and the physics factors over the group, the
+    placement helpers; → every rank's results, gathered on rank 0."""
+    from gan_sr_wind_field_tpu_torch.models.blocks import BatchNorm
+    from gan_sr_wind_field_tpu_torch.ops.physics import gradient_norm_factors
+    from gan_sr_wind_field_tpu_torch.parallel import collectives as col
+    from gan_sr_wind_field_tpu_torch.parallel.mesh import replicate
+
+    rank = dist.get_rank()
+    res = {"rank": rank}
+    spare = make_mesh(2)
+    res["spare"] = (spare.idle, spare.size, spare.rank, spare.shape)
+    mesh = make_mesh(-1)
+    res["mesh"] = (mesh.size, mesh.rank, mesh.shape,
+                   tuple(mesh.device_mesh.mesh_dim_names),
+                   mesh.rows(8))
+    res["sharding"] = [batch_sharding(mesh)(np.arange(8)).tolist(),
+                       volume_sharding(mesh)(torch.arange(4)).tolist()]
+    g = mesh.group
+    x = torch.from_numpy(p["x"][rank]).requires_grad_()
+    s = col.group_sum(x.sum(), g)
+    (s * p["w"][0]).backward()
+    res["sum"] = (float(s), x.grad.clone())
+    x.grad = None
+    m = col.group_amax(x, g)
+    (m * p["w"][1]).backward()
+    res["amax"] = (float(m), x.grad.clone())
+    x.grad = None
+    mean = col.group_mean(x, g, p["x"].shape[0] * x.shape[0])
+    (mean * p["w"][2]).backward()
+    res["mean"] = (float(mean), x.grad.clone())
+    flat = [torch.full((3,), float(rank)), torch.full((2, 2), 1.0),
+            torch.full((2,), rank, dtype=torch.int64)]
+    col.all_reduce_flat(flat, g)
+    res["flat"] = flat
+    rows = mesh.rows(x.shape[0] * mesh.size)
+    res["gather"] = col.gather_rows(x.detach(), g, rows,
+                                    x.shape[0] * mesh.size)
+    # batch norm in train mode over the group, statistics moved
+    bn = BatchNorm(p["bn_x"].shape[-1])
+    bn.group = g
+    bx = torch.from_numpy(p["bn_x"][mesh.rows(p["bn_x"].shape[0])])
+    bx.requires_grad_()
+    y = bn(bx, train=True, update_stats=True)
+    (y * torch.from_numpy(p["bn_w"][mesh.rows(p["bn_x"].shape[0])])
+     ).sum().backward()
+    res["bn"] = (y.detach(), bx.grad.clone(), bn.scale.grad.clone(),
+                 bn.mean.clone(), bn.var.clone())
+    # the physics factors' maxima over the group, with their gradient
+    sr = torch.from_numpy(p["sr"][mesh.rows(p["sr"].shape[0])])
+    sr.requires_grad_()
+    hr = torch.from_numpy(p["hr"][mesh.rows(p["hr"].shape[0])])
+    f = gradient_norm_factors(hr, sr, g)
+    sum(f).backward()
+    res["factors"] = ([float(v) for v in f], sr.grad.clone())
+    # placement: rank 0's tensors everywhere
+    t = [torch.full((4,), float(rank)), torch.full((2,), rank,
+                                                   dtype=torch.int32)]
+    replicate(mesh, t)
+    res["replicate"] = t
+    values = [None] * mesh.size
+    dist.all_gather_object(values, res, group=mesh.control)
+    return values
+
+
+def task_serve(p):
+    """``WindFieldSR(mesh=)``: every rank passes the whole batch (7 fields:
+    padded to 8) and gets all of it back; ``upscale_tiled`` on the mesh
+    (the host loop); → rank 0's outputs, the one-process ones and whether
+    every rank got the same."""
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+
+    mesh = make_mesh(-1)
+    sr = WindFieldSR(p["cfg"], p["params"], device="cpu", mesh=mesh)
+    one = WindFieldSR(p["cfg"], p["params"], device="cpu")
+    out = sr.upscale(p["lr"], p["z"])
+    tiled = sr.upscale_tiled(p["field_lr"], p["field_z"], tile=4,
+                             overlap=2, batch=4)
+    return dict(out=out, one=one.upscale(p["lr"], p["z"]), tiled=tiled,
+                tiled_one=one.upscale_tiled(p["field_lr"], p["field_z"],
+                                            tile=4, overlap=2, batch=4),
+                same=all_equal(mesh, hashlib.sha256(
+                    out.tobytes() + tiled.tobytes()).hexdigest()))
+
+
+TASKS = {"jax_step": task_jax_step, "port_vs_port": task_port_vs_port,
+         "units": task_units, "serve": task_serve}

@@ -20,6 +20,7 @@ from _torch_tiny import COORDS, HR_SHAPE, LR_SHAPE, make_batch, tiny_cfg
 from gan_sr_wind_field_tpu.train import schedule as jschedule
 from gan_sr_wind_field_tpu.train.gan import WindFieldGAN as JaxGAN
 from gan_sr_wind_field_tpu.train.gan import bce_with_logits as jax_bce
+from gan_sr_wind_field_tpu_torch.parallel import make_mesh
 from gan_sr_wind_field_tpu_torch.train import schedule
 from gan_sr_wind_field_tpu_torch.train.gan import (
     WindFieldGAN,
@@ -303,7 +304,9 @@ def test_ema_g_step_count_matches_enumeration():
 
 @pytest.mark.parametrize("what", ["mesh", "bfloat16_sr", "horizontal_3D"])
 def test_options_not_ported_raise(what):
-    """Meshes raise; bfloat16_sr is ported (its moments are bf16,
+    """A mesh with a model or spatial axis raises (the data axis is
+    ported: tests/test_torch_parallel*.py); bfloat16_sr is ported (its
+    moments are bf16,
     tests/test_torch_sr_cast.py trains with it), and so is horizontal_3D
     (tests/test_torch_horizontal.py): it builds 6-D kernels and leaves the
     trunk kernels, whatever use_fused_trunk says, as JAX's
@@ -327,9 +330,9 @@ def test_options_not_ported_raise(what):
         assert state.opt_state_G.mu["feature_conv.weight"].dim() == 6
         assert state.params_D["blocks.0.conv.weight"].dim() == 6
         return
-    kw = {"mesh": object()} if what == "mesh" else {}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        WindFieldGAN(cfg, COORDS, COORDS, device="cpu", **kw)
+    for axes in ((1, 2, 1), (1, 1, 4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_mesh(*axes)
 
 
 def test_default_device_is_the_card():

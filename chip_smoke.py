@@ -7,7 +7,9 @@ the reference's users: .pth checkpoints into the readers at 8x and 16x,
 the physics-weight search and bf16 Adam moments; then the model options
 conv_mode = horizontal_3D and D's instance norm; then the data mesh
 (parallel/): training under torchrun, phase 5's steps on a mesh of one,
-two processes sharing the card over gloo, and serving on them.
+two processes sharing the card over gloo, and serving on them; then the
+spatial axis: configs/fullvol.ini on data 2 x spatial 4, eight processes
+sharing the card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -90,26 +92,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      directory, with log_period 4, val_period 8, save_model_period 8,
      keep_checkpoints 2 and d_g_train_period 4 and all else as committed
      (bf16, batch 32, device-resident data, on-card augmentation, the warm
-     start from the 6k pack), to --max_steps 6012: the data feed's host
+     start from the 6k pack), to --max_steps 6008: the data feed's host
      parts timed in a thread beside phases 3 to 5 (synthetic cache,
      preprocess, npcache, resident volumes), then the upload and one
      slice_batch + augment_batch at batch 32 timed alone; then
-     the leg starts at it 6000, logs finite losses at 6004..6012,
-     validates at 6008, keeps ckpt_6008 and the final ckpt_6012, and each
+     the leg starts at it 6000, logs finite losses at 6004 and 6008,
+     validates at 6008, keeps ckpt_6004 and the final ckpt_6008, and each
      kernel's launches equal what its G steps, D steps, validation batches
      and generate calls predict; the loop's steady-state G and D step
      (CUDA events from one step's start to the next, iterations without
      boundary work) beside phase 6's bare train_step, a validation sweep
-     and a checkpoint save with its bytes; restore_checkpoint(ckpt_6012)
+     and a checkpoint save with its bytes; restore_checkpoint(ckpt_6008)
      equals the live state bit for bit, the generator's state included;
-     a second leg resumed from a copy of ckpt_6008 to 6012, each tree's
+     a second leg resumed from a copy of ckpt_6004 to 6008, each tree's
      largest difference from the first leg printed (bit-exact, or within
      1e-3 relative L2 where the card's step is not deterministic);
   8. evaluate, use and serve what the port trains, in phase 7's temporary
-     directory on its data: pack_from_state of the live state at 6012 in
+     directory on its data: pack_from_state of the live state at 6008 in
      float32 and bf16 (in two threads, beside the rest of phase 8), read
      back bit for bit (bf16: the state rounded by
-     torch); WindFieldSR.from_checkpoint(ckpt_6012) serves a batch of 8
+     torch); WindFieldSR.from_checkpoint(ckpt_6008) serves a batch of 8
      (one trunk launch), equal bit for bit to gan.generate with the
      state's EMA, and eval/server.py's main with --checkpoint builds the
      same backend;
@@ -248,14 +250,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      step by kernel; (h) peak memory and the phase's seconds.
   13. the data mesh (parallel/), milestone9k as committed (bf16, batch 32);
      its processes start at phase 12's start, at a lower priority, so that
-     their start-up takes the host's spare cycles beside phase 12: the
+     their start-up takes the host's spare cycles beside phase 12 ((c)'s
+     two take the card after phase 14's references): the
      card's compute mode (an exclusive one fails: (c) needs two processes
      on it); (a) python -m torch.distributed.run --standalone
      --nproc_per_node=1 -m gan_sr_wind_field_tpu_torch.run --train on
      phase 7's copy of milestone9k and data, resuming phase 7's
-     one-process ckpt_6008 to 6012: exit 0, the status log's NCCL data
-     axis of 1 and resume at 6008, a finite logged loss at 6012, its
-     ckpt_6012 equal to phase 7's uninterrupted leg's (bit-exact, or
+     one-process ckpt_6004 to 6008: exit 0, the status log's NCCL data
+     axis of 1 and resume at 6004, a finite logged loss at 6008, its
+     ckpt_6008 equal to phase 7's uninterrupted leg's (bit-exact, or
      within 1e-3 relative L2 as phase 7); (b) phase 5's steps 48-51 and val_step again on an
      NCCL mesh of one in this process, from phase 5's state on its batches:
      each step's launches as phase 5's, G, EMA, D and D's statistics within
@@ -265,12 +268,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the two against this process's at batch 32 (rel L2 <= 1e-2), their D
      gradients in float32 (<= 1e-4; bf16's printed beside one process's
      bf16-against-float32 gap), their losses (<= 1e-3 relative); then,
-     once (a) has ended, steps 49 (G) and 50 (D), each step's launches as
+     once (a) has ended and phase 14's processes have built their models,
+     steps 49 (G) and 50 (D), alone on the card, each step's launches as
      phase 5's, its ms (host clock) and all_reduce ms, the peak memory
      (two ranks time-sharing one card: no multi-card figure), the two
      ranks' state checksums equal; (d) WindFieldSR(mesh=).upscale of 8
      fields on those two: equal bit for bit to one process on each rank's
      rows, within 1e-2 of one process at batch 8, one trunk launch each.
+  14. the spatial axis (parallel/halo.py): configs/fullvol.ini at full
+     width (nf 128, 16 RRDB, gc 32, hr_kern 5, whole 128x128x10 volumes
+     from phase 11's resident volumes, seeded weights) on its own mesh of
+     data 2 x spatial 4: eight processes sharing the card over gloo, each
+     on its rows and its x slab of 32 planes, started at phase 12's start
+     at a lower priority. Their one-process references run in this
+     process at phase 13's start, alone on the card; then the eight build
+     their models on the card beside phase 13's untimed work, and get
+     their go once phase 13's processes have ended, so that they have the
+     card to themselves. From phase 12 on this process keeps to 0.9 of
+     the card's memory. From one
+     seeded state, D step (it 50) then G step (it 49, the same weights):
+     (a) as committed (bf16, batch 8): G gradients summed over the eight
+     against one process (rel L2 <= 1e-2), losses (<= 1e-3 relative),
+     every rank's state equal after the steps, D's bf16 gradients printed;
+     (b) a float32 copy with use_pallas_stencil at batch 2 (one row per
+     data rank): G and D gradients (<= 1e-4), the four physics terms (<=
+     1e-5 relative), kernels 3 and 4 counted on every rank (>= 2 and >= 1
+     a G step), and on each rank's slab widened by its halo the kernels
+     against their plain versions (<= 1e-5); (c)
+     WindFieldSR(mesh=).upscale of 8 volumes: within 1e-2 of one process,
+     the whole batch on every rank. Each rank's steps (host clock) with
+     their halo exchanges (count, bytes, ms), gathers and the gradients'
+     all_reduce, the one-process steps, peak memory, the phase's seconds.
   Phase 8's four command-line passes read the 6k pack once (PackMemo);
   phase 13 pays with that.
 The line before the last is the kernel table as JSON; the last line is
@@ -1219,10 +1247,10 @@ def train_phase(cfg, dev, rng, card):
                                     **trunk_geometry(G_ref))
 
     def ref_forward(lr, z, train=False, trunk=None, head=None,
-                    dropout_mask=None, generator=None):
+                    dropout_mask=None, generator=None, slab=None):
         return generator_forward(G_ref, lr, z, ref_trunk, train=train,
                                  dropout_mask=dropout_mask,
-                                 generator=generator)
+                                 generator=generator, slab=slab)
 
     G_ref.forward = ref_forward
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -1746,11 +1774,11 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
     return res
 
 
-# phase 7: the leg of milestone9k the loop trains (it 6000 -> 6012 from the
-# 6k pack), its schedule cut so that 12 steps cross two G and two D blocks,
-# one validation and two checkpoints (one periodic, the final one)
-LEG_FROM, LEG_TO = 6000, 6012
-LEG_SCHEDULE = dict(log_period=4, val_period=8, save_model_period=8,
+# phase 7: the leg of milestone9k the loop trains (it 6000 -> 6008 from the
+# 6k pack), its schedule cut so that 8 steps cross a G and a D block, one
+# validation and two checkpoints (one periodic at LEG_MID, the final one)
+LEG_FROM, LEG_MID, LEG_TO = 6000, 6004, 6008
+LEG_SCHEDULE = dict(log_period=4, val_period=8, save_model_period=4,
                     keep_checkpoints=2, d_g_train_period=4)
 LEG_DATA = ("--synthetic_hours", "240", "--synthetic_size", "128")
 VAL_LAUNCHES = (1, 0, 2, 0, 0)       # one validation batch (val_step)
@@ -1876,10 +1904,17 @@ def tree_diffs(a, b):
               for o in ("opt_state_G", "opt_state_D") for m in ("mu", "nu")]
     out = {}
     for name, ta, tb in pairs:
-        fa, fb = (torch.cat([x[k].flatten().double() for k in ta])
-                  for x in (ta, tb))
-        out[name] = ((fa - fb).abs().max().item(), rel_l2(fa, fb),
-                     all(torch.equal(ta[k], tb[k]) for k in ta))
+        # tensor by tensor, so that no float64 copy of a whole tree is held
+        mx, num, den = 0.0, 0.0, 0.0
+        for k in ta:
+            d = ta[k].double() - tb[k].double()
+            if d.numel():
+                mx = max(mx, d.abs().max().item())
+            num += torch.linalg.vector_norm(d).item() ** 2
+            den += torch.linalg.vector_norm(tb[k].double()).item() ** 2
+        rel = (torch.tensor(num, dtype=torch.float64).sqrt()
+               / torch.tensor(den, dtype=torch.float64).sqrt()).item()
+        out[name] = (mx, rel, all(torch.equal(ta[k], tb[k]) for k in ta))
     return out
 
 
@@ -1920,7 +1955,7 @@ def prepare_leg_data(tmp):
 
 def loop_phase(dev, card, bare, tmp, data, waited):
     """Phase 7: python -m gan_sr_wind_field_tpu_torch.run --train on a copy
-    of milestone9k in ``tmp``, from the 6k pack, 12 steps; then the
+    of milestone9k in ``tmp``, from the 6k pack, 8 steps; then the
     checkpoint round trip and a resumed leg. ``data`` is the done future
     of ``prepare_leg_data``, which phase 7 waited ``waited`` seconds for.
     Returns the leg's launches, its live state at the end and the path of
@@ -2043,7 +2078,7 @@ def loop_phase(dev, card, bare, tmp, data, waited):
         fail("no warm start from the pack in the status log")
     kept = sorted(d for d in os.listdir(run_folder)
                   if d.startswith("ckpt_"))
-    if kept != [f"ckpt_{LEG_FROM + 8}", f"ckpt_{LEG_TO}"]:
+    if kept != [f"ckpt_{LEG_MID}", f"ckpt_{LEG_TO}"]:
         fail(f"checkpoints kept: {kept}")
 
     # times: steady state over iterations without boundary work
@@ -2086,13 +2121,13 @@ def loop_phase(dev, card, bare, tmp, data, waited):
     del restored
 
     done("the leg and its checks")
-    # a resumed leg from ckpt_6008, in a copy of the run folder
+    # a resumed leg from ckpt_6004, in a copy of the run folder
     copy = os.path.join(tmp, "resume_from")
     shutil.copytree(run_folder, copy,
                     ignore=shutil.ignore_patterns(f"ckpt_{LEG_TO}"))
     cfg2, ini2 = leg_config(
         tmp, "resumed", resume_training_from_save=True)
-    cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_FROM + 8}")
+    cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_MID}")
     cfg2.save(ini2)
     probe = LegProbe()
     try:
@@ -2100,7 +2135,7 @@ def loop_phase(dev, card, bare, tmp, data, waited):
                             *LEG_DATA, "--max_steps", str(LEG_TO)])
     finally:
         probe.close()
-    if probe.steps[0][3] != LEG_FROM + 8 or resumed.it != LEG_TO:
+    if probe.steps[0][3] != LEG_MID or resumed.it != LEG_TO:
         fail(f"the resumed leg ran {probe.steps[0][3]} -> {resumed.it}")
     diffs = tree_diffs(resumed, state)
     exact = all(v[2] for v in diffs.values()) and torch.equal(
@@ -2108,7 +2143,7 @@ def loop_phase(dev, card, bare, tmp, data, waited):
     for name, (mx, rel, bits) in diffs.items():
         log(f"  resumed vs uninterrupted {name:<18} max abs {mx:.3e}, "
             f"rel L2 {rel:.3e}, bit-exact {bits}")
-    log(f"  resumed leg from ckpt_{LEG_FROM + 8}: bit-exact {exact}")
+    log(f"  resumed leg from ckpt_{LEG_MID}: bit-exact {exact}")
     if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
         fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
     del resumed
@@ -2349,7 +2384,7 @@ def check_trunk_on_field(ini, probe, dev):
 
 def eval_phase(dev, card, tmp, state, ckpt_path):
     """Phase 8: pack the live state of phase 7 and read it back, serve its
-    ckpt_6012 (from_checkpoint and the server's --checkpoint), then the
+    ckpt_6008 (from_checkpoint and the server's --checkpoint), then the
     held-out test chain, --test_ema, a pass through the HR-head kernel and
     --use, as a user runs them (run.main in process). Returns the trunk
     and head kernels' launches and times."""
@@ -2418,7 +2453,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
         log(f"  the two packs written and read back beside steps 2-5, done "
             f"{time.monotonic() - t_packs:.3f} s after their start")
 
-    # 2. serve ckpt_6012: from_checkpoint, and the server's --checkpoint
+    # 2. serve ckpt_6008: from_checkpoint, and the server's --checkpoint
     run_cfg = os.path.join(os.path.dirname(ckpt_path), "config.ini")
     cfg = load_config(run_cfg)
     g = cfg.gan_config
@@ -2590,7 +2625,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
 # use (6001, 6004) and replayed after (3 G and 3 D replays); (b) the host
 # data path, 6000 -> 6004 per step (G, G, G, D); (c) upscale_tiled at the
 # server's tile (the training LR patch)
-CHUNK_STEPS, CHUNK_TO, HOST_TO = 4, LEG_FROM + 8, LEG_FROM + 4
+CHUNK_STEPS, CHUNK_TO, HOST_TO = 4, LEG_TO, LEG_MID
 # 4 G, 4 D, one validation batch and one generate
 CHUNK_LAUNCHES = (10, 4, 10, 4, 0)
 CHUNK_REPLAYS = 6
@@ -2687,7 +2722,7 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
     from gan_sr_wind_field_tpu_torch.train import loop
 
     # (a) the chunked leg, profiled
-    cfg, ini = leg_config(tmp, "chunked")
+    cfg, ini = leg_config(tmp, "chunked", save_model_period=8)
     cfg.steps_per_dispatch = CHUNK_STEPS
     cfg.save(ini)
     log(f"chunked leg: the phase-7 leg with steps_per_dispatch "
@@ -4491,7 +4526,7 @@ def horizontal_phase(dev, card, tmp, resident, p6):
 
 # ------------------------------------------------ phase 13: the data mesh
 # leg (a): run.py --train under torchrun, world size 1 (NCCL), resumes phase
-# 7's one-process leg from its ckpt_6008 to 6012 and writes its checkpoint
+# 7's one-process leg from its ckpt_6004 to 6008 and writes its checkpoint
 MESH_STEP_TOL = 1e-6     # (b) world size 1 against no mesh, rel L2 per tree
 MESH_GRAD_TOL = 1e-2     # (c) two ranks' summed G gradients, bf16, rel L2
 # (c) their D gradients in float32 (TF32 off): bf16's are dominated by its
@@ -4504,17 +4539,25 @@ MESH_LOSS_TOL = 1e-3     # (c) their losses, relative
 # against one process on the same rows it must be equal bit for bit
 MESH_SERVE_TOL = 1e-2
 MESH_RANKS = 2
+# from phase 12 on, when the torchrun leg, phase 13's two ranks and phase
+# 14's eight share the card with this process, this process takes at most
+# this share of its memory (phase 12's chunk check holds over 50 GiB of
+# 79, 33 of them in its CUDA graphs' pools: 0.7 ran out at 56.6), so that
+# the torchrun leg, started at phase 12's start, finds room for its
+# context; the others take the card in turn: the two ranks after phase
+# 14's references, the eight once the leg has ended
+MAIN_CARD_SHARE = 0.9
 
 
 def mesh_leg_start(tmp):
     """Leg (a): ``python -m torch.distributed.run --standalone
     --nproc_per_node=1 -m gan_sr_wind_field_tpu_torch.run --train`` on
-    phase 7's copy of milestone9k and data, resuming its ckpt_6008 (a
-    one-process checkpoint into a mesh) to 6012, in a process group of its
-    own. → (the process, its start)."""
+    phase 7's copy of milestone9k and data, resuming its ckpt_6004 (a
+    one-process checkpoint into a mesh) to 6008, in a process group of its
+    own, at a lower scheduling priority. → (the process, its start)."""
     cfg, ini = leg_config(tmp, "mesh_leg", resume_training_from_save=True)
     cfg.env.state_load_path = os.path.join(cfg_run_folder(tmp, "leg"),
-                                           f"ckpt_{LEG_FROM + 8}")
+                                           f"ckpt_{LEG_MID}")
     cfg.save(ini)
     env = dict(os.environ, OMP_NUM_THREADS="2")
     env["PYTHONPATH"] = os.pathsep.join(
@@ -4528,6 +4571,7 @@ def mesh_leg_start(tmp):
         stderr=subprocess.STDOUT, start_new_session=True)
     out.close()
     CHILDREN.append(proc)
+    os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
     return proc, time.monotonic()
 
 
@@ -4553,6 +4597,8 @@ def mesh_rank(rank, tmp):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    # the card only once the parent says it has room (MAIN_CARD_SHARE)
+    wait_for(os.path.join(tmp, "mesh_card"))
     torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo_store",
                             rank=rank, world_size=MESH_RANKS,
@@ -4652,16 +4698,20 @@ def state_checksum(state):
     state: equal digests on two ranks are equal states, bit for bit."""
     import hashlib
 
+    import torch
+
     h = hashlib.sha256()
     trees = [state.params_G, state.params_D, state.batch_stats_D,
              state.params_G_ema or {}]
     for opt in (state.opt_state_G, state.opt_state_D):
         trees += [opt.mu, opt.nu, {"count": opt.count}]
     for tree in trees:
-        for k, v in tree.items():
-            h.update(k.encode())
-            h.update(v.detach().reshape(-1).view(__import__("torch").uint8)
-                     .cpu().numpy().tobytes())
+        # a tree's bytes in one copy to the host (one wait on the card)
+        h.update(" ".join(tree).encode())
+        if tree:
+            h.update(torch.cat([v.detach().reshape(-1).view(torch.uint8)
+                                for v in tree.values()]).cpu().numpy()
+                     .tobytes())
     h.update(str(state.it).encode())
     h.update(state.rng.get_state().numpy().tobytes())
     return h.hexdigest()
@@ -4703,6 +4753,7 @@ def mesh_start(dev, card, tmp, resident):
     scheduling priority, so that their start-up (imports, data, the pack,
     the seeded state on the host) takes the host's spare cycles beside
     phase 12, as phase 10's command lines do beside phases 7 to 9; (c)'s
+    two take the card once the parent writes the flag mesh_card, and their
     go comes from mesh_phase. The batches (c) and (d) take, cut from
     phase 11's resident volumes, go to a file for them. → what mesh_phase
     needs."""
@@ -4720,7 +4771,6 @@ def mesh_start(dev, card, tmp, resident):
     if "Exclusive" in mode:
         fail(f"compute mode {mode}: two processes cannot share the card")
     leg, leg_t0 = mesh_leg_start(tmp)
-    os.setpriority(os.PRIO_PROCESS, leg.pid, 10)
     cfg = load_config(CFG)
     ini = os.path.join(tmp, "mesh.ini")
     cfg.save(ini)
@@ -4749,13 +4799,16 @@ def mesh_start(dev, card, tmp, resident):
                 shapes=shapes, batches=batches, serve_in=serve_in)
 
 
-def mesh_phase(dev, card, tmp, started, p5):
+def mesh_phase(dev, card, tmp, started, p5, settle=None):
     """Phase 13: the data mesh (parallel/), from ``mesh_start``. (b) phase
     5's steps 48-51 and val_step again on an NCCL mesh of one, from its
     state and on its batches (``p5``), against phase 5's result; (c) the
     two processes sharing the card over gloo against this one at batch 32;
     (d) serving on those two; (a) the entry point under torchrun at world
-    size 1 (NCCL), resuming phase 7's checkpoint, against phase 7. Returns
+    size 1 (NCCL), resuming phase 7's checkpoint, against phase 7.
+    ``settle`` (phase 14's wait for its eight processes' start-up) runs
+    once the torchrun leg has ended, before the two ranks' timed steps get
+    their go, so that nothing else works on the card beside them. Returns
     the mesh path's launches in this process and the two ranks'
     figures."""
     import numpy as np
@@ -4864,11 +4917,11 @@ def mesh_phase(dev, card, tmp, started, p5):
         f"{log_seconds(out, 'beginning run at', f'ckpt_{LEG_TO}'):.3f} s "
         f"(status lines' clock)")
     log(f"  (a) torchrun --nproc_per_node=1 run.py --train from phase 7's "
-        f"ckpt_{LEG_FROM + 8} to {LEG_TO}: exit {rc} {leg_s:.1f} s after "
+        f"ckpt_{LEG_MID} to {LEG_TO}: exit {rc} {leg_s:.1f} s after "
         f"its start at phase 12's (this phase waited {waited:.1f} s), "
         f"backend {axis and axis.group(1)}, logged {logged}, kept {kept}")
     if (axis is None or axis.group(1) != "nccl" or kept != [f"ckpt_{LEG_TO}"]
-            or f"at it={LEG_FROM + 8}" not in status
+            or f"at it={LEG_MID}" not in status
             or [int(r[0]) for r in logged] != [LEG_TO]
             or not all(math.isfinite(float(v)) for r in logged
                        for v in r[1:])):
@@ -4885,12 +4938,14 @@ def mesh_phase(dev, card, tmp, started, p5):
             f"{tname:<18} max abs {mx:.3e}, rel L2 {rel:.3e}, bit-exact "
             f"{bits}")
     log(f"  (a) resumed on an NCCL mesh of one from phase 7's one-process "
-        f"ckpt_{LEG_FROM + 8}, against phase 7's uninterrupted leg: it "
+        f"ckpt_{LEG_MID}, against phase 7's uninterrupted leg: it "
         f"{mesh_ckpt.it}, bit-exact {exact}")
     if mesh_ckpt.it != LEG_TO or (not exact and not all(
             v[1] <= RESUME_TOL for v in diffs.values())):
         fail(f"(a) the resume is off by more than {RESUME_TOL:.0e}")
     del mesh_ckpt, one
+    if settle is not None:
+        settle()
     open(os.path.join(tmp, "mesh_leg_done"), "w").close()
     done("(a) the leg")
 
@@ -4958,6 +5013,537 @@ def mesh_phase(dev, card, tmp, started, p5):
                 peak=[v["peak"] for v in every], g_err=every[0]["g_err"],
                 d_err=every[0]["d_err"], d32_err=every[0]["d32_err"],
                 serve_err=err, seconds=secs)
+
+
+
+# ----------------------------------------- phase 14: the spatial axis
+# configs/fullvol.ini at full width on its own mesh of data 2 x spatial 4:
+# eight processes sharing the card over gloo against one process on it
+SPATIAL_AXES = (2, 4)
+SPATIAL_SEED = 2014
+SPATIAL_CFG = os.path.join(REPO, "configs", "fullvol.ini")
+SPATIAL_G_TOL = 1e-2      # (a) bf16 G gradients summed over 8 ranks, rel L2
+SPATIAL_LOSS_TOL = 1e-3   # (a) the losses, relative
+SPATIAL_F32_TOL = 1e-4    # (b) float32 G and D gradients, rel L2
+SPATIAL_PHYS_TOL = 1e-5   # (b) the four physics terms, relative
+SPATIAL_STENCIL_TOL = 1e-5  # (b) kernels 3 and 4 on a haloed slab vs plain
+SPATIAL_SERVE_TOL = 1e-2  # (c) the served batch of 8, rel L2
+# (b)'s global batch: one row per data rank keeps float32's activations small
+SPATIAL_F32_BATCH = 2
+# each leg's two steps, by the state's it before them: the D step (it 50)
+# first, so that both start from the seeded weights (a G step first would
+# move G by Adam's first steps, where a rounding difference in a near-zero
+# gradient moves an entry by ±lr either way, and the D step's fake with it)
+SPATIAL_ITS = (49, 48)
+PHYSICS_KEYS = ("xy_gradient", "z_gradient", "divergence", "xy_divergence")
+
+
+class CollectiveSpy:
+    """Stands for ``torch.distributed`` in ``parallel/halo.py``: each
+    all_reduce synchronised on both sides and recorded as (what, bytes,
+    ms), 'halo' for the exchange's (s, 2, ...) buffers and 'gather' for
+    gather_x's."""
+
+    def __init__(self, real):
+        self.real = real
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def all_reduce(self, t, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        self.real.all_reduce(t, **kw)
+        torch.cuda.synchronize()
+        self.calls.append(("halo" if t.dim() == 7 else "gather",
+                           t.numel() * t.element_size(),
+                           1e3 * (time.monotonic() - t0)))
+
+    def summary(self):
+        out = {}
+        for what in ("halo", "gather"):
+            c = [x for x in self.calls if x[0] == what]
+            out[what] = (len(c), sum(x[1] for x in c), sum(x[2] for x in c))
+        return out
+
+
+def spy_grads(gan):
+    """Record every Adam step's gradients, flat in float32 on the host, in
+    the list returned (G's on a G step, D's on a D step; on a mesh summed
+    over it)."""
+    import torch
+
+    seen = []
+    real = gan._adam_step
+
+    def step(params, grads, *a, **kw):
+        seen.append(torch.cat([g.detach().float().flatten()
+                               for g in grads]).cpu())
+        return real(params, grads, *a, **kw)
+
+    gan._adam_step = step
+    return seen
+
+
+def spatial_configs(tmp):
+    """configs/fullvol.ini as committed, and its float32 copy with
+    use_pallas_stencil (kernels 3 and 4), written in ``tmp`` → (cfg, cfg32,
+    their paths)."""
+    from gan_sr_wind_field_tpu_torch.config import load_config
+
+    cfg = load_config(SPATIAL_CFG)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.compute_dtype = "float32"
+    cfg32.use_pallas_stencil = True
+    paths = (os.path.join(tmp, "spatial.ini"),
+             os.path.join(tmp, "spatial32.ini"))
+    cfg.save(paths[0])
+    cfg32.save(paths[1])
+    return cfg, cfg32, paths
+
+
+def spatial_shapes(cfg, n):
+    g = cfg.gan_config
+    X = 128  # whole volumes, no patch slicing
+    return ((n, X // cfg.scale, X // cfg.scale, g.number_of_z_layers,
+             cfg.lr_num_channels), (n, X, X, g.number_of_z_layers, 3))
+
+
+def spatial_rank(rank, tmp):
+    """One of phase 14's eight processes on the card, over gloo: rank r is
+    data row r // 4 at x slab r % 4. Waits for the parent's go, then (a)
+    the committed bf16 config's D step (it 50) and G step (it 49, from the
+    same weights) on its rows and slab of the batch of 8, (b) the float32 copy's with kernels 3
+    and 4 at a batch of 2 (and the kernels on its haloed slab against
+    their plain versions), (c)
+    WindFieldSR(mesh=).upscale of 8 volumes. Rank 0 writes what it
+    gathered."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.ops.physics import wind_field_gradient
+    from gan_sr_wind_field_tpu_torch.ops.stencil import (
+        wind_gradient,
+        wind_gradient_adjoint,
+        wind_gradient_adjoint_reference,
+    )
+    from gan_sr_wind_field_tpu_torch.parallel import halo as halo_mod
+    from gan_sr_wind_field_tpu_torch.parallel import make_mesh
+    from gan_sr_wind_field_tpu_torch.train import gan as gan_mod
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # the card only once the parent says it has room (MAIN_CARD_SHARE)
+    wait_for(os.path.join(tmp, "mesh_card"))
+    t_start = time.monotonic()
+    torch.cuda.set_device(dev)
+    d, s = SPATIAL_AXES
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/spatial_store", rank=rank,
+        world_size=d * s,
+        timeout=__import__("datetime").timedelta(seconds=300))
+    try:
+        mesh = make_mesh(d, 1, s, devices=dev)
+        slab = mesh.slab()
+        src = torch.load(os.path.join(tmp, "spatial_in.pt"),
+                         weights_only=False)
+        spy = CollectiveSpy(dist)
+        halo_mod.dist = spy
+        ar_ms = []
+        real_ar = gan_mod.all_reduce_flat
+
+        def timed_ar(tensors, group):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            real_ar(tensors, group)
+            torch.cuda.synchronize()
+            ar_ms.append(1e3 * (time.monotonic() - t))
+
+        gan_mod.all_reduce_flat = timed_ar
+        cfg, cfg32 = (load_config(p) for p in src["ini"])
+        gan = WindFieldGAN(cfg, src["coords"], src["coords"], device=dev,
+                           mesh=mesh)
+        state = gan.init_state(SPATIAL_SEED, *src["shapes"])
+        grads = spy_grads(gan)
+
+        def steps_of(g, st, batches, n):
+            rows = mesh.rows(n)
+            out = []
+            for it, b in zip(SPATIAL_ITS, batches):
+                st.it = it
+                b = tuple(t[rows].to(dev) for t in b)
+                spy.calls.clear()
+                ar_ms.clear()
+                reset_counters()
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                st, m = g.train_step(st, *b)
+                torch.cuda.synchronize()
+                out.append(dict(
+                    it=st.it, g_step=bool(m["is_g_step"]),
+                    ms=1e3 * (time.monotonic() - t),
+                    collectives=spy.summary(), ar_ms=sum(ar_ms),
+                    launches=counters(),
+                    losses={k: float(m[k]) for k in (
+                        "total", "pix", "adversarial", "D_train_loss",
+                        *PHYSICS_KEYS)}))
+            return st, out
+
+        # (b)'s trainer and (c)'s server are built before the go too
+        gan32 = WindFieldGAN(cfg32, src["coords"], src["coords"],
+                             device=dev, mesh=mesh)
+        st32 = gan32.init_state(SPATIAL_SEED, *src["shapes32"])
+        grads32 = spy_grads(gan32)
+        sr = WindFieldSR(cfg, state.params_G, device=dev, mesh=mesh)
+        res = dict(rank=rank, start_s=time.monotonic() - t_start)
+        torch.cuda.synchronize()
+        open(os.path.join(tmp, f"spatial_ready_{rank}"), "w").close()
+        wait_for(os.path.join(tmp, "spatial_go"))
+        t_go = time.monotonic()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # (a) the committed bf16 config
+        state, res["a"] = steps_of(gan, state, src["a"], 8)
+        res["a_sum"] = state_checksum(state)
+        res["a_peak"] = torch.cuda.max_memory_allocated(dev)
+        a_grads = grads[:]
+        del gan, state, grads
+        torch.cuda.empty_cache()
+        # (b) the float32 copy with kernels 3 and 4, batch 2
+        st32, res["b"] = steps_of(gan32, st32, src["b"], SPATIAL_F32_BATCH)
+        res["b_sum"] = state_checksum(st32)
+        # kernels 3 and 4 on this rank's haloed slab (the exchange is a
+        # collective of the row: every rank takes part) against their
+        # plain versions, outside the counted steps
+        from gan_sr_wind_field_tpu_torch.parallel.halo import x_window
+
+        _, hr, z = (t[mesh.rows(SPATIAL_F32_BATCH)].to(dev)
+                    for t in src["b"][0])
+        wide, lo = x_window(slab.cut(hr), slab)
+        zw = x_window(slab.cut(z), slab)[0]
+        a = slab.index * slab.cut(hr).shape[1] - lo
+        xs = gan32.x[a:a + wide.shape[1]]
+        got = wind_gradient(wide, xs, gan32.y, zw)
+        want = wind_field_gradient(wide, xs, gan32.y, zw)
+        g9 = torch.randn(got.shape, device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(rank))
+        adj = wind_gradient_adjoint(g9, xs, gan32.y, zw)
+        adj_want = wind_gradient_adjoint_reference(g9, xs, gan32.y, zw)
+        res["stencil"] = (tuple(wide.shape), rel_l2(got, want),
+                          rel_l2(adj, adj_want))
+        del gan32, st32
+        torch.cuda.empty_cache()
+        # (c) serving 8 volumes over the eight ranks
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        served = sr.upscale(*src["serve"])
+        res["c_ms"] = 1e3 * (time.monotonic() - t)
+        res["c_launches"] = counters()
+        res["c_sum"] = __import__("hashlib").sha256(
+            served.tobytes()).hexdigest()
+        res["peak"] = torch.cuda.max_memory_allocated(dev)
+        res["go_s"] = time.monotonic() - t_go
+        res["c_s"] = res["go_s"] - (t - t_go)
+        every = [None] * mesh.world
+        dist.all_gather_object(every, res, group=mesh.control)
+        if rank == 0:
+            t = time.monotonic()
+            out = os.path.join(tmp, "spatial_out.pt")
+            torch.save(dict(ranks=every, served=served, a_grads=a_grads,
+                            b_grads=grads32), out + ".part")
+            os.replace(out + ".part", out)  # the parent reads it whole
+            log(f"  phase 14's rank 0 wrote its results in "
+                f"{time.monotonic() - t:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_inputs(dev, tmp, resident):
+    """Phase 14's inputs, at phase 12's start: the configs, the batches
+    (cut from phase 11's resident volumes: whole 128x128x10 volumes, LR by
+    the strided decimation) and the serving input, in a file for the eight
+    processes. → what spatial_reference, spatial_launch and spatial_phase
+    need."""
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+
+    cfg, cfg32, inis = spatial_configs(tmp)
+    if resident.full.shape[-1] != cfg.lr_num_channels:
+        fail(f"resident volumes carry {resident.full.shape[-1]} channels, "
+             f"fullvol's LR {cfg.lr_num_channels}")
+    X = resident.full.shape[1]
+    coords = np.arange(X, dtype=np.float32) * 150.0
+    gen = torch.Generator(device=dev)
+
+    def batch(n, i):
+        return tuple(t.cpu() for t in batch_at(
+            resident.full, resident.zraw, SPATIAL_SEED, i, gen, batch_size=n,
+            patch=X, patch_y=X, cf=cfg.scale, enable_slicing=False))
+
+    src = dict(ini=inis, coords=coords,
+               shapes=spatial_shapes(cfg, 8),
+               shapes32=spatial_shapes(cfg32, SPATIAL_F32_BATCH),
+               a=[batch(8, i) for i in range(2)],
+               b=[batch(SPATIAL_F32_BATCH, 2 + i) for i in range(2)],
+               serve=sample(np.random.default_rng(SPATIAL_SEED), 8,
+                            X // cfg.scale, X,
+                            cfg.gan_config.number_of_z_layers,
+                            cfg.lr_num_channels))
+    torch.save(src, os.path.join(tmp, "spatial_in.pt"))
+    return dict(src=src, cfg=cfg, cfg32=cfg32, tmp=tmp)
+
+
+def spatial_launch(started):
+    """Start phase 14's eight processes at phase 12's start, at a lower
+    scheduling priority, so that their imports take the host's spare
+    cycles beside phase 12. Each takes the card only once the parent
+    writes the flag mesh_card (after phase 14's references, at phase 13's
+    start), builds its models there beside phase 13's untimed work, says
+    when it is ready and waits for its go from spatial_phase. → the
+    processes' context, in ``started``."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(spatial_rank, args=(started["tmp"],),
+                             nprocs=SPATIAL_AXES[0] * SPATIAL_AXES[1],
+                             start_method="spawn", join=False)
+    CHILDREN.extend(ctx.processes)
+    for proc in ctx.processes:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+    started["ctx"] = ctx
+    started["t_launch"] = time.monotonic()
+
+
+def spatial_ready(started):
+    """Until phase 14's eight processes have started up (their models on
+    the card, waiting for their go): phase 13 calls it before its two
+    ranks' timed steps, so that no start-up works on the card beside
+    them. Fails if a process ended."""
+    tmp, ctx = started["tmp"], started["ctx"]
+    t = time.monotonic()
+    while not all(os.path.exists(os.path.join(tmp, f"spatial_ready_{r}"))
+                  for r in range(len(ctx.processes))):
+        codes = [proc.exitcode for proc in ctx.processes]
+        if any(c is not None for c in codes):
+            fail(f"phase 14's ranks ended {codes} during their start-up")
+        if time.monotonic() - t > 600:
+            fail("phase 14's eight ranks did not start up within 600 s")
+        time.sleep(0.05)
+    started.setdefault("t_ready", time.monotonic())
+
+
+def spatial_reference(dev, started):
+    """Phase 14's one-process references on the card, at phase 13's start,
+    before any process of phases 13 and 14 works on the card (the
+    torchrun leg is still starting up on the host): the same steps from
+    the same seeded
+    state on the whole batches (G and D gradients, losses, host-clock ms,
+    launches) and the served batch of 8."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    src = started["src"]
+    ref = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for key, cfg, shapes in (("a", started["cfg"], src["shapes"]),
+                             ("b", started["cfg32"], src["shapes32"])):
+        gan = WindFieldGAN(cfg, src["coords"], src["coords"], device=dev)
+        st = gan.init_state(SPATIAL_SEED, *shapes)
+        if key == "a":
+            ref["params0"] = {k: v.clone() for k, v in st.params_G.items()}
+        ref["names"] = [(k, v.numel()) for tree in (st.params_G,
+                                                     st.params_D)
+                        for k, v in tree.items()]
+        ref["n_G"] = len(st.params_G)
+        grads = spy_grads(gan)
+        steps = []
+        for it, b in zip(SPATIAL_ITS, src[key]):
+            st.it = it
+            reset_counters()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            st, m = gan.train_step(st, *(x.to(dev) for x in b))
+            torch.cuda.synchronize()
+            steps.append(dict(ms=1e3 * (time.monotonic() - t),
+                              launches=counters(), g_step=bool(
+                                  m["is_g_step"]),
+                              losses={k: float(m[k]) for k in (
+                                  "total", "pix", "adversarial",
+                                  "D_train_loss", *PHYSICS_KEYS)}))
+        ref[key] = steps
+        ref[f"{key}_grads"] = grads
+        ref[f"{key}_peak"] = torch.cuda.max_memory_allocated(dev)
+        del gan, st
+        torch.cuda.empty_cache()
+    sr = WindFieldSR(started["cfg"], ref["params0"], device=dev)
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    ref["served"] = sr.upscale(*src["serve"])
+    ref["c_ms"] = 1e3 * (time.monotonic() - t)
+    del sr
+    torch.cuda.empty_cache()
+    return ref
+
+
+def spatial_phase(dev, card, tmp, started, ref):
+    """Phase 14: configs/fullvol.ini at full width on data 2 x spatial 4,
+    eight processes sharing the card over gloo, against one process on it
+    from the same state (``ref``, spatial_reference's, made alone on the
+    card at phase 13's start): (a) as committed, bf16, batch 8; (b)
+    float32 with kernels 3 and 4, batch 2; (c) serving 8 volumes. Phase
+    13's processes have ended: the eight get their go here and have the
+    card to themselves. Returns the ranks' launches and figures."""
+    import numpy as np
+    import torch
+
+    t0 = time.monotonic()
+    ctx = started["ctx"]
+    spatial_ready(started)
+    t_go = time.monotonic()
+    open(os.path.join(tmp, "spatial_go"), "w").close()
+    for key in ("a", "b"):
+        for st in ref[key]:
+            log(f"  one process, {'bf16 batch 8' if key == 'a' else 'float32 batch 2'}: "
+                f"{'G' if st['g_step'] else 'D'} step {st['ms']:.1f} ms host "
+                f"clock, launches {LAUNCH_LABELS} {st['launches']}; peak "
+                f"{ref[f'{key}_peak'] / 2**30:.2f} GiB ({card})")
+    log(f"  one process serves 8 volumes in {ref['c_ms']:.1f} ms host clock "
+        f"({card}); these references ran at phase 13's start, with no other "
+        f"process working on the card")
+    # the results, as soon as rank 0 has written them; the ranks end after
+    path = os.path.join(tmp, "spatial_out.pt")
+    while not os.path.exists(path):
+        codes = [proc.exitcode for proc in ctx.processes]
+        # rank 0 writes the file before it ends: look again once all ended
+        if any(c not in (None, 0) for c in codes) or (
+                None not in codes and not os.path.exists(path)):
+            fail(f"phase 14's ranks ended {codes} without their results")
+        if time.monotonic() - t_go > 600:
+            fail("phase 14's eight ranks gave no results within 600 s")
+        time.sleep(0.05)
+    ranks_s = time.monotonic() - t_go
+    out = torch.load(path, weights_only=False)
+    every = out["ranks"]
+    d, s = SPATIAL_AXES
+    log(f"  eight processes sharing one {card} over gloo (not a multi-card "
+        f"figure), data {d} x spatial {s}: their card start-up "
+        f"{max(v['start_s'] for v in every):.1f} s beside phase 13's untimed "
+        f"work (all ready {started['t_ready'] - started['t_launch']:.1f} s "
+        f"after their launch at phase 12's start), {ranks_s:.1f} s from "
+        f"their go, at this phase's start, to their results, alone on the "
+        f"card")
+
+    def grad_errs(key):
+        """G's and D's relative L2, and their three worst tensors (the
+        spied gradients come D step first)."""
+        names, n_g = ref["names"], ref["n_G"]
+        errs, worst = [], []
+        for i, (g, w) in enumerate(zip(out[f"{key}_grads"][::-1],
+                                       ref[f"{key}_grads"][::-1])):
+            errs.append(rel_l2(g, w))
+            part = names[:n_g] if i == 0 else names[n_g:]
+            each, at = [], 0
+            for name, n in part:
+                each.append((rel_l2(g[at:at + n], w[at:at + n])
+                             if w[at:at + n].norm() > 0 else 0.0, name))
+                at += n
+            worst.append(sorted(each, reverse=True)[:3])
+        return errs, worst
+
+    for key, label in (("a", "(a) bf16, batch 8"),
+                       ("b", "(b) float32 + kernels 3, 4, batch 2")):
+        for r, v in enumerate(every):
+            for st in v[key]:
+                c = st["collectives"]
+                log(f"  {label} rank {r} (row {r // s}, slab {r % s}) it "
+                    f"{st['it']} ({'G' if st['g_step'] else 'D'} step): "
+                    f"{st['ms']:.1f} ms host clock; {c['halo'][0]} halo "
+                    f"exchanges, {c['halo'][1] / 1e6:.1f} MB, "
+                    f"{c['halo'][2]:.1f} ms; {c['gather'][0]} gathers "
+                    f"{c['gather'][1] / 1e6:.1f} MB {c['gather'][2]:.1f} ms; "
+                    f"the gradients' all_reduce {st['ar_ms']:.1f} ms; "
+                    f"launches {LAUNCH_LABELS} {st['launches']} ({card})")
+        (g_err, d_err), worst = grad_errs(key)
+        log(f"  {label}: the worst tensors, G: "
+            + ", ".join(f"{n} {e:.2e}" for e, n in worst[0]) + "; D: "
+            + ", ".join(f"{n} {e:.2e}" for e, n in worst[1]))
+        lerr = max(abs(v - w) / max(abs(w), 1e-12)
+                   for st, wt in zip(every[0][key], ref[key])
+                   for k, w in wt["losses"].items()
+                   for v in [st["losses"][k]] if w != 0.0 or v != 0.0)
+        log(f"  {label}: summed over the eight vs one process: G gradients "
+            f"rel L2 {g_err:.3e}, D gradients {d_err:.3e}; losses' largest "
+            f"relative difference {lerr:.3e}")
+        same = len({v[f"{key}_sum"] for v in every}) == 1
+        log(f"  {label}: every rank's state equal to rank 0's after the "
+            f"steps: {same}")
+        if not same:
+            fail(f"{label}: the ranks' states differ")
+        if key == "a":
+            if not (g_err <= SPATIAL_G_TOL and lerr <= SPATIAL_LOSS_TOL):
+                fail(f"(a) the mesh disagrees with one process (tol "
+                     f"{SPATIAL_G_TOL:.0e} / {SPATIAL_LOSS_TOL:.0e})")
+        else:
+            perr = max(abs(st["losses"][k] - wt["losses"][k])
+                       / max(abs(wt["losses"][k]), 1e-30)
+                       for st, wt in zip(every[0]["b"], ref["b"])
+                       if st["g_step"] for k in PHYSICS_KEYS)
+            log(f"  (b) the four physics terms' largest relative difference "
+                f"{perr:.3e} (tol {SPATIAL_PHYS_TOL:.0e}); gradients tol "
+                f"{SPATIAL_F32_TOL:.0e}")
+            if not (g_err <= SPATIAL_F32_TOL and d_err <= SPATIAL_F32_TOL
+                    and perr <= SPATIAL_PHYS_TOL):
+                fail("(b) the float32 mesh disagrees with one process")
+            for r, v in enumerate(every):
+                g = [st["launches"] for st in v["b"] if st["g_step"]]
+                if not g or g[0][2] < 2 or g[0][3] < 1:
+                    fail(f"(b) rank {r}'s G step launched {g}: kernels 3 "
+                         f"and 4 did not run on its slab")
+    for r, v in enumerate(every):
+        shape, e_grad, e_adj = v["stencil"]
+        log(f"  (b) kernels 3 and 4 on rank {r}'s haloed slab {shape}: "
+            f"gradient rel L2 {e_grad:.3e}, adjoint {e_adj:.3e} against "
+            f"their plain versions (tol {SPATIAL_STENCIL_TOL:.0e})")
+        if not (e_grad <= SPATIAL_STENCIL_TOL
+                and e_adj <= SPATIAL_STENCIL_TOL):
+            fail("(b) the stencil kernels disagree on a haloed slab")
+    served = torch.from_numpy(out["served"])
+    err = rel_l2(served, torch.from_numpy(ref["served"]))
+    same = len({v["c_sum"] for v in every}) == 1
+    log(f"  (c) WindFieldSR(mesh=).upscale of 8 volumes on the eight ranks: "
+        f"rel L2 {err:.3e} against one process (tol "
+        f"{SPATIAL_SERVE_TOL:.0e}), the whole batch on every rank "
+        f"{same}, {[round(v['c_ms'], 1) for v in every]} ms host clock, "
+        f"launches {every[0]['c_launches']} ({card})")
+    if not (err <= SPATIAL_SERVE_TOL and same and served.shape == (
+            8, 128, 128, 10, 3) and bool(np.isfinite(out["served"]).all())):
+        fail("(c) serving on the spatial mesh disagrees")
+    log(f"  peak memory a rank {[round(v['peak'] / 2**30, 2) for v in every]}"
+        f" GiB; seconds from the go to the results, (a) to (c), a rank "
+        f"{[round(v['go_s'], 1) for v in every]}, of them (c) "
+        f"{[round(v['c_s'], 1) for v in every]} ({card})")
+    # the ranks end on their own (main's cleanup stops any that has not)
+    secs = time.monotonic() - t0
+    log(f"  phase 14 took {secs:.1f} s")
+    return dict(launches_spatial=[
+        [sum(st["launches"][i] for st in v["b"]) for v in every]
+        for i in (2, 3)], seconds=secs,
+        g_ms=[[st["ms"] for st in v["a"] if st["g_step"]][0] for v in every],
+        d_ms=[[st["ms"] for st in v["a"] if not st["g_step"]][0]
+              for v in every])
 
 
 def main():
@@ -5250,15 +5836,33 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # ------------------ 12. conv_mode horizontal_3D, D's instance norm
     phase_start(12)
     resident = rf.pop("resident")
-    # phase 13's processes start here, their start-up beside phase 12
+    # phase 13's processes start here, their start-up beside phase 12; from
+    # here on several processes share the card, and this one keeps to its
+    # share of it (the others' card work waits for flags from it)
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(MAIN_CARD_SHARE, dev)
     started = mesh_start(dev, card, tmp, resident)
+    started_sp = spatial_inputs(dev, tmp, resident)
+    spatial_launch(started_sp)
     hz = horizontal_phase(dev, card, tmp, resident,
                           dict(g_ms=tt["g_ms"], d_ms=tt["d_ms"],
                                fwd_ms=fwd_ms))
     # ------------------------------------------------- 13. the data mesh
     phase_start(13)
-    mp_ = mesh_phase(dev, card, tmp, started, p5_steps)
+    # phase 14's one-process references first, alone on the card; then
+    # the two and the eight processes take the card, their models built
+    # beside phase 13's untimed work, and phase 13's timed steps wait for
+    # the eight to be ready
+    ref_sp = spatial_reference(dev, started_sp)
+    done("phase 14's one-process references")
+    open(os.path.join(tmp, "mesh_card"), "w").close()
+    mp_ = mesh_phase(dev, card, tmp, started, p5_steps,
+                     settle=lambda: spatial_ready(started_sp))
     del resident, started
+    # --------------------------------------- 14. the spatial axis, fullvol
+    phase_start(14)
+    sp = spatial_phase(dev, card, tmp, started_sp, ref_sp)
+    del started_sp, ref_sp
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -5324,6 +5928,7 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
               max_abs_err_reference=rf["max_abs_err"][i],
               launches_chunks=ch["chunk"][i],
               launches_host_path=ch["host"][i],
+              launches_spatial=sp["launches_spatial"][i - 2],
               device_ms=k["device_ms"], device_ms_cold=k["device_ms_cold"])
           for name, replaces, i, err, k in (
               ("wind_gradient", "stencil.py:78", 2, err_grad, tt["k3"]),

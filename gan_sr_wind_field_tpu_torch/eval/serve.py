@@ -23,12 +23,17 @@ blended into float32 accumulators there, and the blended volume is
 downloaded once. The HTTP server tiles through its micro-batcher instead
 (``server.py:tiled_upscale_via``), so that tiles batch with other traffic.
 
-With ``mesh`` (a data mesh, ``parallel/mesh.py``) serving is SPMD, as
-JAX's ``WindFieldSR(mesh=)`` shards a batch over its data axis: every rank
-passes the whole batch to ``upscale``, which pads it to a multiple of the
-axis (``pad_batch_to``), runs this rank's rows through the same forward
-and kernels, and gathers the rows from every rank. ``upscale_tiled`` then
-takes the host loop through ``upscale``, as JAX's does on a mesh.
+With ``mesh`` (``parallel/mesh.py``) serving is SPMD, as JAX's
+``WindFieldSR(mesh=)`` shards a batch over its data axis and full volumes
+over its spatial axis: every rank passes the whole batch to ``upscale``,
+which pads it to a multiple of the data axis (``pad_batch_to``), runs this
+rank's rows through the same forward and kernels, and gathers the rows
+from every rank. On a spatial axis each rank runs its x slab of its rows,
+every conv with its x halo, so that one forward spans the data row's
+cards; the output is gathered along x, then over rows. There, as JAX's
+``dp_only`` rule says, the trunk and head kernels stay off, and int8
+serving raises (JAX ``eval/serve.py:133-136``). ``upscale_tiled`` on a
+mesh takes the host loop through ``upscale``, as JAX's does.
 
 ``quantize`` and ``quantize_trunk`` calibrate the int8 serving paths
 (``ops/quant.py``, ``ops/quant_trunk.py``, through the port's int8 conv
@@ -38,6 +43,8 @@ kernel) on representative LR fields; every later ``upscale``,
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -71,6 +78,7 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     trunk_fusable,
 )
 from gan_sr_wind_field_tpu_torch.parallel.collectives import gather_rows
+from gan_sr_wind_field_tpu_torch.parallel.halo import gather_x
 from gan_sr_wind_field_tpu_torch.parallel.mesh import pad_batch_to
 from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
@@ -91,8 +99,8 @@ class WindFieldSR:
         ``utils/jax_params.py`` for weights from the JAX package).
         ``norm_stats``: the training data's normalization factors (a
         ``NormStats``-like object or dict), needed by ``upscale_physical``.
-        ``mesh``: a data mesh to shard each batch over (not an idle
-        rank's).
+        ``mesh``: a mesh to shard each batch over, its rows over the data
+        axis and its x over a spatial axis (not an idle rank's).
         """
         if mesh is not None and mesh.idle:
             raise ValueError("an idle rank of the mesh serves nothing")
@@ -109,8 +117,14 @@ class WindFieldSR:
         self.G = empty_generator(cfg, device=self.device).eval()
         self.G.load_state_dict(params, strict=True)
         G = self.G
+        self.slab = None if mesh is None else mesh.slab()
+        if self.slab is not None:
+            logging.getLogger("status").info(
+                f"spatial axis of {self.slab.size}: serving runs the "
+                "modules on x slabs; the trunk and HR-head kernels are off")
         self.packed = None
-        if trunk_fusable(G.num_rdb_convs, G.lff_kern_size, G.conv_mode):
+        if self.slab is None and trunk_fusable(G.num_rdb_convs,
+                                               G.lff_kern_size, G.conv_mode):
             self.packed = pack_trunk_weights(G.rrdbs, G.dtype, self.device)
         self.head_packed = None
         if (self.packed is not None and head_kernel_flags(cfg)[1]
@@ -162,7 +176,12 @@ class WindFieldSR:
 
     def _check_quantizable(self) -> None:
         """The precondition JAX ``_generate_q`` raises on: the trunk-kernel
-        path (``use_fused_trunk`` and a geometry the kernel takes)."""
+        path (``use_fused_trunk`` and a geometry the kernel takes), and no
+        spatial axis."""
+        if self.slab is not None:
+            raise ValueError(
+                "quantized serving is a single-device path; use tiling "
+                "instead of a spatial mesh")
         if not (getattr(self.cfg, "use_fused_trunk", False)
                 and self.packed is not None):
             raise ValueError(
@@ -244,6 +263,9 @@ class WindFieldSR:
         if self.qhead is not None or self.qtrunk is not None:
             return generate_fused(self.G, lr, z, self.packed,
                                   qhead=self.qhead, qtrunk=self.qtrunk)
+        if self.slab is not None:
+            return gather_x(self.G(*(self.slab.cut(t) for t in (lr, z)),
+                                   slab=self.slab), self.slab)
         if self.packed is None:
             return self.G(lr, z)
         return generate_fused(self.G, lr, z, self.packed, self.head_packed,
@@ -267,7 +289,8 @@ class WindFieldSR:
             mine = self._generate(
                 torch.from_numpy(lr[rows]).to(self.device),
                 torch.from_numpy(z_terrain[rows]).to(self.device))
-            out = gather_rows(mine, self.mesh.group, rows, lr.shape[0])[:n]
+            out = gather_rows(mine, self.mesh.data_group, rows,
+                              lr.shape[0])[:n]
         out = out.cpu().numpy()
         return out[0] if squeeze else out
 

@@ -12,6 +12,13 @@ and stays a shared 3D conv in either mode. Padding is zeros.
 ``BatchNorm`` is flax's ``nn.BatchNorm``, not PyTorch's: it keeps the
 biased batch variance in its running statistics. ``instance_norm`` is
 flax's ``GroupNorm`` with one channel per group and no affine.
+
+On the spatial axis of a mesh (``parallel/halo.py``) a block's input is
+this rank's x slab and its forward takes the ``slab``: each conv first
+takes ``padding_x`` planes from the neighbours (the halo exchange) and
+then convolves with no x padding, in either conv mode (a horizontal
+conv's windows lie along z, so its x halo is the same); the 1×1×1 LFF
+takes none. ``instance_norm`` sums each sample's moments over the slabs.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gan_sr_wind_field_tpu_torch.parallel.collectives import group_sum
+from gan_sr_wind_field_tpu_torch.parallel.halo import halo_exchange
 
 
 def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
@@ -83,17 +91,26 @@ def horizontal_conv3d_cl(x: torch.Tensor, w: torch.Tensor, padding,
     return y.permute(0, 2, 3, 1).reshape(N, y.shape[2], y.shape[3], W, O)
 
 
-def instance_norm(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, dtype: torch.dtype,
+                  slab=None) -> torch.Tensor:
     """flax ``GroupNorm(group_size=1, use_bias=False, use_scale=False,
     epsilon=1e-5)`` of a channels-last tensor: per sample and channel over
     every other axis, statistics in float32 (variance E[x²] − E[x]²,
     clipped at 0), rounded to ``dtype`` once. No parameters, no running
-    statistics."""
+    statistics. With a ``slab`` (x is this rank's x slab) the moments are
+    summed over the slabs of the sample, differentiably."""
     xf = x.float()
     axes = tuple(range(1, x.dim() - 1))
-    mean = xf.mean(axes, keepdim=True)
-    var = torch.clamp_min((xf * xf).mean(axes, keepdim=True) - mean * mean,
-                          0.0)
+    if slab is None:
+        mean = xf.mean(axes, keepdim=True)
+        ex2 = (xf * xf).mean(axes, keepdim=True)
+    else:
+        count = math.prod(x.shape[1:-1]) * slab.size
+        sums = group_sum(torch.cat([xf.sum(axes, keepdim=True),
+                                    (xf * xf).sum(axes, keepdim=True)]),
+                         slab.group) / count
+        mean, ex2 = sums.chunk(2)
+    var = torch.clamp_min(ex2 - mean * mean, 0.0)
     return ((xf - mean) * torch.rsqrt(var + 1e-5)).to(dtype)
 
 
@@ -146,10 +163,12 @@ class BatchNorm(nn.Module):
     of float32's digits, and its value then hangs on the order of the
     sums (at milestone9k's D about 2e-3 of D's gradients, float32 sums
     over two halves of a batch against one). With a process ``group``
-    (the data axis, ``Discriminator3D.sync_batch_norm``) the sums are over
-    every rank's rows, in one differentiable all_reduce, so every rank
-    normalises with, and moves its running statistics by, the same
-    values."""
+    (the mesh's ranks, ``Discriminator3D.sync_batch_norm``) the sums are
+    over every rank's rows and slabs, in one differentiable all_reduce, and
+    the count is the local one times the group's size, so every rank
+    normalises with, and moves its running statistics by, the same values.
+    After D's gather along x each rank of a data row holds the same copy:
+    the sums then count each row s times, and so does the count."""
 
     MOMENTUM = 0.9
     EPSILON = 1e-5
@@ -228,16 +247,22 @@ class ConvLReLU(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
+                update_stats: bool = False, slab=None) -> torch.Tensor:
+        """``slab``: x is this rank's x slab on a spatial axis
+        (``parallel/halo.py``): the conv takes its x halo first and runs
+        with no x padding."""
         conv = horizontal_conv3d_cl if self.horizontal else conv3d_cl
-        y = conv(x.to(self.dtype), self.weight.to(self.dtype), self.padding,
-                 self.strides)
+        x, pad = x.to(self.dtype), self.padding
+        if slab is not None:
+            x = halo_exchange(x, pad[0], slab)
+            pad = (0,) + pad[1:]
+        y = conv(x, self.weight.to(self.dtype), pad, self.strides)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.bn is not None:
             y = self.bn(y, train, update_stats)
         elif self.instance:
-            y = instance_norm(y, self.dtype)
+            y = instance_norm(y, self.dtype, slab)
         if self.lrelu:
             y = F.leaky_relu(y, self.negative_slope)
         return y
@@ -270,11 +295,11 @@ class RDB(nn.Module):
         )
         self.residual_scaling = residual_scaling
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab=None) -> torch.Tensor:
         feats = x
         for conv in self.convs:
-            feats = torch.cat([feats, conv(feats)], dim=-1)
-        return self.lff(feats) * self.residual_scaling + x
+            feats = torch.cat([feats, conv(feats, slab=slab)], dim=-1)
+        return self.lff(feats, slab=slab) * self.residual_scaling + x
 
 
 class RRDB(nn.Module):
@@ -300,10 +325,10 @@ class RRDB(nn.Module):
         )
         self.rrdb_residual_scaling = rrdb_residual_scaling
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slab=None) -> torch.Tensor:
         out = x
         for rdb in self.rdbs:
-            out = rdb(out)
+            out = rdb(out, slab)
         return out * self.rrdb_residual_scaling + x
 
 
@@ -337,6 +362,8 @@ class DiscriminatorBlock(nn.Module):
             norm=norm, z_in=z_mid, **kw)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                update_stats: bool = False) -> torch.Tensor:
-        x = self.conv(x, train, update_stats)
-        return self.strided_conv(x, train, update_stats)
+                update_stats: bool = False, slab=None) -> torch.Tensor:
+        """On a ``slab`` the strided conv needs an even slab width (so
+        that every slab starts at an even plane)."""
+        x = self.conv(x, train, update_stats, slab)
+        return self.strided_conv(x, train, update_stats, slab)

@@ -17,6 +17,15 @@ The flatten is channels-last, (x, y, z, c), as in the JAX package, so
 ``fc0``'s weight carries over from flax without a permutation. Because
 PyTorch has no lazy shapes, the input's x and y extent is given when the
 module is built (``spatial``). Returns float32 logits (N,).
+
+On the spatial axis of a mesh (``forward(slab=)``, ``parallel/halo.py``)
+the input is this rank's x slab: the blocks run on slabs, each conv with
+its x halo, while the slab halves evenly; at the first block whose input
+slab would not (and at the latest before the flatten), ``gather_x``
+assembles the whole x extent on every rank of the data row, and the rest
+runs on that copy, so the flatten is over the whole volume, as in JAX.
+``features_only`` returns the features where they are (a slab or the
+copy).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from gan_sr_wind_field_tpu_torch.models.blocks import (
     channel_dropout,
     kaiming_scaled_,
 )
+from gan_sr_wind_field_tpu_torch.parallel.halo import gather_x
 
 
 def remainder_z_layers(number_of_z_layers: int):
@@ -107,7 +117,8 @@ class Discriminator3D(nn.Module):
 
     def sync_batch_norm(self, group) -> None:
         """Take every batch norm's train-mode statistics over ``group``'s
-        rows (the data axis; ``None``: this process's rows alone)."""
+        rows and slabs (the mesh's ranks; ``None``: this process's rows
+        alone)."""
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.group = group
@@ -115,18 +126,24 @@ class Discriminator3D(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = True,
                 update_stats: bool = False, features_only: bool = False,
                 dropout_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x: (N, X, Y, Z, C). ``train`` picks batch statistics and channel
-        dropout; ``update_stats`` also moves the batch norms' running
-        statistics (in place)."""
+                generator: Optional[torch.Generator] = None,
+                slab=None) -> torch.Tensor:
+        """x: (N, X, Y, Z, C), or this rank's x slab of it with ``slab``.
+        ``train`` picks batch statistics and channel dropout;
+        ``update_stats`` also moves the batch norms' running statistics (in
+        place)."""
         x = x.to(self.dtype)
         for blk in self.blocks:
-            x = blk(x, train, update_stats)
+            if slab is not None and x.shape[1] % 2:
+                x, slab = gather_x(x, slab), None
+            x = blk(x, train, update_stats, slab)
         if self.enable_slicing:
-            x = self.head_conv0(x, train, update_stats)
-            x = self.head_conv1(x, train, update_stats)
+            x = self.head_conv0(x, train, update_stats, slab)
+            x = self.head_conv1(x, train, update_stats, slab)
         if features_only:
             return x.float()
+        if slab is not None:
+            x = gather_x(x, slab)
         p = self.dropout_probability
         if train and p > 0.0:
             x = channel_dropout(x, p, dropout_mask, generator)

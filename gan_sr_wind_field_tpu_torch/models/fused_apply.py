@@ -42,21 +42,24 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_nearest_xy
 
 
-def _x_features(G, lr: torch.Tensor, trunk_fn: Callable) -> torch.Tensor:
+def _x_features(G, lr: torch.Tensor, trunk_fn: Callable,
+                slab=None) -> torch.Tensor:
     """The HR-resolution features that enter hr_conv0's x-part."""
-    x = G.feature_conv(lr.to(G.dtype))
-    x = x + G.lr_conv(trunk_fn(x))  # long skip connection
+    x = G.feature_conv(lr.to(G.dtype), slab=slab)
+    x = x + G.lr_conv(trunk_fn(x), slab=slab)  # long skip connection
     for up in G.upconvs:
-        x = up(upsample_nearest_xy(x, 2))
+        # the nearest upsample is local to the slab
+        x = up(upsample_nearest_xy(x, 2), slab=slab)
     return x
 
 
 def _head_features(G, lr: torch.Tensor, z_terrain: torch.Tensor,
-                   trunk_fn: Callable):
+                   trunk_fn: Callable, slab=None):
     """The generator up to, not including, hr_conv0: the HR-resolution
     features x and the terrain features t, both channels-last."""
-    x = _x_features(G, lr, trunk_fn)
-    t = G.terrain_conv1(G.terrain_conv0(z_terrain.to(G.dtype)))
+    x = _x_features(G, lr, trunk_fn, slab)
+    t = G.terrain_conv1(G.terrain_conv0(z_terrain.to(G.dtype), slab=slab),
+                        slab=slab)
     return x, t
 
 
@@ -65,7 +68,7 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                       dropout_mask: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       head_fn: Optional[Callable] = None,
-                      qhead=None) -> torch.Tensor:
+                      qhead=None, slab=None) -> torch.Tensor:
     """Generator forward with a pluggable trunk; returns float32
     (N, x·s, y·s, zl, out_channels). With ``train`` and a dropout
     probability p > 0, whole channels after lrelu(hr_conv0) are dropped:
@@ -76,15 +79,19 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
     channels are drawn from the same generator either way. ``qhead`` (a
     ``QuantizedHead``, serving only: it raises under ``train``) computes
     hr_conv0's x-part in int8, the terrain part exactly, and leaves
-    ``head_fn`` unused."""
+    ``head_fn`` unused. With a ``slab`` (``parallel/halo.py``) lr and
+    z_terrain are this rank's x slabs, every conv takes its x halo, and
+    the output is the slab's; the trunk function then runs the modules on
+    the slab and neither a head function nor int8 is given
+    (``Generator3D.forward`` refuses them)."""
     if qhead is not None and train:
         raise ValueError("int8 head quantization is a serving-only option "
                          "(the terrain part stays exact)")
-    x, t = _head_features(G, lr, z_terrain, trunk_fn)
+    x, t = _head_features(G, lr, z_terrain, trunk_fn, slab)
     p = G.dropout_probability if train else 0.0
     if G.conv_mode != "3D":
         # one unsplit hr_conv0 on the concat (JAX generator.py:191-204)
-        x = F.leaky_relu(G.hr_conv0(torch.cat([x, t], dim=-1)),
+        x = F.leaky_relu(G.hr_conv0(torch.cat([x, t], dim=-1), slab=slab),
                          G.negative_slope)
         if p > 0.0:
             x = channel_dropout(x, p, dropout_mask, generator)
@@ -93,7 +100,8 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                                   out_dtype=G.dtype)
         x = F.leaky_relu(cx + G.hr_conv0_t(t), G.negative_slope)
     elif head_fn is None:
-        x = F.leaky_relu(G.hr_conv0_x(x) + G.hr_conv0_t(t), G.negative_slope)
+        x = F.leaky_relu(G.hr_conv0_x(x, slab=slab)
+                         + G.hr_conv0_t(t, slab=slab), G.negative_slope)
         if p > 0.0:
             x = channel_dropout(x, p, dropout_mask, generator)
     else:
@@ -102,7 +110,7 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
             scale = dropout_scale(x.shape[0], G.hr_conv0_x.weight.shape[0], p,
                                   G.dtype, x.device, dropout_mask, generator)
         x = head_fn(x, t.to(G.dtype), scale)
-    return G.hr_conv1(x).float()
+    return G.hr_conv1(x, slab=slab).float()
 
 
 def kernel_head_fn(G, packed: Optional[torch.Tensor] = None) -> Callable:

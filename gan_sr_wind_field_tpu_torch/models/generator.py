@@ -19,11 +19,15 @@ and hr_conv1 has no bias, as in JAX (``generator.py:191-220``); the
 window counts need the z extent ``z_layers``, and the trunk and head
 kernels do not apply. Channel dropout (``dropout_probability``) after
 lrelu(hr_conv0) acts only with ``train=True``. Parameters are float32;
-``dtype`` is the compute dtype. The output is float32.
+``dtype`` is the compute dtype. The output is float32. On the spatial axis
+of a mesh (``forward(slab=)``) the inputs and the output are this rank's x
+slabs and every conv takes its x halo (``models/blocks.py``); the kernels
+and int8 do not apply there, as JAX's ``dp_only`` rule keeps them off.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -102,10 +106,11 @@ class Generator3D(nn.Module):
         self.hr_conv1 = ConvLReLU(hr_feats, out_channels, use_bias=True,
                                   **hr_kw)
 
-    def trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """The RRDB chain, module by module (the plain path)."""
+    def trunk(self, x: torch.Tensor, slab=None) -> torch.Tensor:
+        """The RRDB chain, module by module (the plain path); on a
+        ``slab`` each conv takes its x halo."""
         for rrdb in self.rrdbs:
-            x = rrdb(x)
+            x = rrdb(x, slab)
         return x
 
     def forward(self, lr: torch.Tensor, z_terrain: torch.Tensor, *,
@@ -113,7 +118,7 @@ class Generator3D(nn.Module):
                 head: str = "modules",
                 dropout_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                qhead=None, qtrunk=None):
+                qhead=None, qtrunk=None, slab=None):
         """lr: (N, x, y, zl, C_in); z_terrain: (N, x·s, y·s, zl, 1).
         ``trunk`` picks how the RRDB trunk runs: "modules" (the RRDB
         modules, autograd through them) or "kernel" (the trunk kernels,
@@ -127,7 +132,8 @@ class Generator3D(nn.Module):
         (``qtrunk``, whatever ``trunk`` says) and hr_conv0's x-part
         (``qhead``, which turns the head kernel off). In horizontal mode
         the kernels and int8 raise ValueError, as JAX's ``trunk_fusable``
-        needs "3D"."""
+        needs "3D", and so do they on a ``slab`` (this rank's x slab on a
+        spatial axis, ``parallel/halo.py``), where the modules run."""
         if trunk not in ("modules", "kernel"):
             raise ValueError(f"unknown trunk {trunk!r}")
         if head not in ("modules", "kernel"):
@@ -138,17 +144,23 @@ class Generator3D(nn.Module):
             raise ValueError(f"conv_mode={self.conv_mode!r} runs the "
                              "modules only: the trunk and head kernels and "
                              "int8 need '3D'")
+        if slab is not None and (trunk != "modules" or head != "modules"
+                                 or qhead is not None or qtrunk is not None):
+            raise ValueError("a slab of the spatial axis runs the modules "
+                             "only: the kernels and int8 take whole "
+                             "volumes")
         if qtrunk is not None:
             trunk_fn = int8_trunk_fn(self, qtrunk)
         elif trunk == "modules":
-            trunk_fn = self.trunk
+            trunk_fn = functools.partial(self.trunk, slab=slab)
         else:
             trunk_fn = trainable_trunk_fn(self)
         use_head = head == "kernel" and qhead is None
         return generator_forward(
             self, lr, z_terrain, trunk_fn, train=train,
             dropout_mask=dropout_mask, generator=generator,
-            head_fn=kernel_head_fn(self) if use_head else None, qhead=qhead)
+            head_fn=kernel_head_fn(self) if use_head else None, qhead=qhead,
+            slab=slab)
 
 
 def _act_slope(act_type: str) -> float:

@@ -12,7 +12,8 @@ channels-last ``(N, X, Y, Z, C)``:
 
 Everything is computed in float32 whatever the input dtype: the stencils
 cancel, and bf16 would destroy the divergence signal. All functions are
-differentiable with autograd.
+differentiable with autograd. ``gradient_on_slab`` runs a gradient on this
+rank's x slab of a spatial axis, widened by one neighbour plane each side.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from gan_sr_wind_field_tpu_torch.parallel.collectives import group_amax
+from gan_sr_wind_field_tpu_torch.parallel.halo import x_window
 
 
 def _nonuniform_gradient_1d(f: torch.Tensor, coords: torch.Tensor,
@@ -70,6 +72,25 @@ def wind_field_gradient(uvw: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return torch.cat([gx, gy, gz], dim=-1)
 
 
+def gradient_on_slab(gradient, uvw: torch.Tensor, x: torch.Tensor,
+                     y: torch.Tensor, z_window, slab) -> torch.Tensor:
+    """``gradient(uvw, x, y, Z)`` (``wind_field_gradient`` or the stencil
+    kernel's ``WindFieldGradient.apply``) of this rank's x slab ``uvw`` of
+    a spatial axis (``parallel/halo.py``): the slab is widened by one plane
+    from each neighbour (none at the volume's ends), the gradient runs on
+    it with its x coordinates ``x[a−1 : b+1]``, and the halo's outputs are
+    dropped. Exact: the x derivative at an edge plane reads one neighbour
+    plane, and only the volume's two ends are one-sided. ``z_window`` is
+    ``x_window(Z, slab)[0]``, the heights widened the same way (taken once
+    for every gradient of a step). In the backward the halo's cotangents
+    go back to the neighbours."""
+    w = uvw.shape[1]
+    wide, lo = x_window(uvw, slab)
+    a = slab.index * w - lo
+    g = gradient(wide, x[a:a + wide.shape[1]], y, z_window)
+    return g[:, lo:lo + w]
+
+
 def divergence_3d(grad9: torch.Tensor) -> torch.Tensor:
     """∇·u from a 9-channel gradient: ch0 + ch4 + ch8."""
     return grad9[..., 0] + grad9[..., 4] + grad9[..., 8]
@@ -84,8 +105,8 @@ def gradient_norm_factors(hr_grad: torch.Tensor, sr_grad: torch.Tensor,
                           group=None):
     """(xy-gradient, z-gradient, divergence, xy-divergence) factors, each
     max(HR_max, SR_max / 100); the z factor is a signed max. With a
-    process ``group`` (the data axis) the maxima are over every rank's
-    rows (``parallel/collectives.py:group_amax``)."""
+    process ``group`` (the mesh's ranks) the maxima are over every rank's
+    rows and slabs (``parallel/collectives.py:group_amax``)."""
     def amax(t):
         return torch.amax(t) if group is None else group_amax(t, group)
 

@@ -1,7 +1,13 @@
-"""The data axis over a group of processes, one card each (the JAX
-package's ``parallel/``): ``make_mesh`` and the placement helpers in
-``mesh.py``, the step's collectives in ``collectives.py``."""
+"""The data and spatial axes over a group of processes, one card each (the
+JAX package's ``parallel/``): ``make_mesh`` and the placement helpers in
+``mesh.py``, the step's collectives in ``collectives.py``, the spatial
+axis's halo exchange and gather in ``halo.py``."""
 
+from gan_sr_wind_field_tpu_torch.parallel.halo import (
+    Slab,
+    gather_x,
+    halo_exchange,
+)
 from gan_sr_wind_field_tpu_torch.parallel.mesh import (
     Mesh,
     batch_sharding,
@@ -16,7 +22,10 @@ from gan_sr_wind_field_tpu_torch.parallel.mesh import (
 
 __all__ = [
     "Mesh",
+    "Slab",
     "batch_sharding",
+    "gather_x",
+    "halo_exchange",
     "init_distributed",
     "make_mesh",
     "pad_batch_to",

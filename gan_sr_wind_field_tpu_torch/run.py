@@ -38,19 +38,24 @@ runs the plain PyTorch path on the CPU instead, and without either a card
 or that flag it raises. ``--download`` is accepted and raises
 ``NotImplementedError``: there is no network (``ROADMAP.md``).
 
-``--train`` reads ``[PARALLEL]``: under ``torchrun`` it trains on a data
-mesh of ``data_parallel`` ranks (-1: all; ``parallel/mesh.py``), one card
-each (``cuda:LOCAL_RANK``; with ``--device cpu`` CPU processes over
-gloo), and shrinks the axis to the largest divisor of the batch, as the
-JAX package does; ranks past it are idle. ``tensor_parallel`` or
-``spatial_parallel`` above 1 raise ``NotImplementedError`` (not ported),
-and so does a ``data_parallel`` above the ranks started. The other modes
-run in one process, as in the JAX package, and raise under ``torchrun``
-with more than one rank::
+``--train`` reads ``[PARALLEL]``: under ``torchrun`` it trains on a mesh
+of ``data_parallel`` rows (-1: every rank the spatial axis leaves) ×
+``spatial_parallel`` x slabs (``parallel/mesh.py``), one card each
+(``cuda:LOCAL_RANK``; with ``--device cpu`` CPU processes over gloo), and
+shrinks the data axis to the largest divisor of the batch, as the JAX
+package does; ranks past the mesh are idle. ``tensor_parallel`` above 1
+raises ``NotImplementedError`` (not ported), and a mesh larger than the
+ranks started raises ``ValueError``. The other modes run in one process,
+as in the JAX package, and raise under ``torchrun`` with more than one
+rank::
 
     torchrun --standalone --nproc_per_node=8 \
         -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
         --cfg configs/milestone9k.ini
+    # whole 128x128x10 volumes on data 2 x spatial 4
+    torchrun --standalone --nproc_per_node=8 \
+        -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
+        --cfg configs/fullvol.ini
 """
 
 from __future__ import annotations
@@ -199,7 +204,7 @@ def setup_env_and_cfg(cfg, mesh=None):
         root + cfg.env.tensorboard_subpath, run_name
     )
     log_dir = root + cfg.env.log_subpath
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and not mesh.lead:
         return log_dir
     os.makedirs(cfg.env.this_runs_folder, exist_ok=True)
     os.makedirs(cfg.env.this_runs_tensorboard_log_folder, exist_ok=True)
@@ -248,18 +253,18 @@ def main(argv=None):
 
 
 def _train_main(cfg, args):
-    """``--train``: on a data mesh under ``torchrun``, else in this
-    process; the process group is destroyed at the end. → the final
-    state (None on an idle rank)."""
+    """``--train``: on a mesh under ``torchrun``, else in this process;
+    the process group is destroyed at the end. → the final state (None on
+    an idle rank)."""
     batch = cfg.dataset_train.batch_size if cfg.dataset_train else 1
     world = world_size_from_env()
-    # raises for the model and spatial axes, and for more ranks than run
-    n = data_axis(cfg.parallel, world, batch)
+    # raises for the model axis, and for more ranks than run
+    n, s = data_axis(cfg.parallel, world, batch)
     if "RANK" not in os.environ:  # not under torchrun: one process
         return _main(cfg, args, resolve_device(args.device))
     device = init_distributed(args.device)
     try:
-        mesh = make_mesh(n, devices=device)
+        mesh = make_mesh(n, 1, s, devices=device)
         if mesh.idle:
             return None
         return _main(cfg, args, resolve_device(device), mesh)
@@ -278,7 +283,7 @@ def _main(cfg, args, device, mesh=None):
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else ""))
 
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
     if not lead:  # the first rank writes the data caches, then the rest
         mesh.barrier()
     ds_train, ds_test, ds_val, x, y = preprocess(

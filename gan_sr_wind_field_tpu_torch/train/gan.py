@@ -52,6 +52,25 @@ draw is made at the global batch's shape and cut to the rows, so the step
 is the one-process step on the global batch. The metrics are the
 batch's, the same on every rank. The kernels run on each rank's rows.
 
+On a mesh with a spatial axis every step method still takes this rank's
+rows, whole in x: the step augments them (rot90 mixes x and y, so it
+cannot run on a slab) and then cuts this rank's x slab. G runs on slabs,
+every conv with its x halo (``parallel/halo.py``); D runs on slabs until
+they stop halving evenly and then on the gathered copy
+(``models/discriminator.py``); the physics gradients run on slabs widened
+by one plane (``ops/physics.py:gradient_on_slab``). Every loss share is the
+rank's sum over the local count times the mesh's ranks: per-voxel terms
+then sum to the volume's mean, and the per-sample terms after D's gather,
+which each rank of a data row holds a copy of, to the batch's, each rank
+carrying 1/s of its rows' share (``gather_x``'s backward returns each slab
+the whole cotangent). The relativistic-average means are over the data
+group (the ranks of one slab), the gradients, maxima, batch statistics and
+metrics over the mesh, and instance noise is drawn at the global batch's
+whole shape and cut to the rows and the slab. As JAX's ``dp_only`` rule
+says, the trunk and HR-head kernels stay off there whatever the flags say
+(a halo per conv cannot enter one fused launch); the stencil kernels run
+on the widened slabs.
+
 ``conv_mode = "horizontal_3D"`` (both models, from ``[GAN]``, as in the
 JAX package) runs G on its modules: the trunk and head kernels need "3D"
 (``trunk_fusable``), so ``use_fused_trunk`` and the head flags fall off,
@@ -63,6 +82,7 @@ at all without slicing: ``batch_stats_D`` is then empty.
 from __future__ import annotations
 
 import contextlib
+import logging
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -91,6 +111,7 @@ from gan_sr_wind_field_tpu_torch.ops.physics import (
     divergence_3d,
     divergence_xy,
     gradient_norm_factors,
+    gradient_on_slab,
     wind_field_gradient,
 )
 from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import trunk_fusable
@@ -100,6 +121,7 @@ from gan_sr_wind_field_tpu_torch.parallel.collectives import (
     all_reduce_flat,
     group_mean,
 )
+from gan_sr_wind_field_tpu_torch.parallel.halo import gather_x, x_window
 from gan_sr_wind_field_tpu_torch.train import tricks
 from gan_sr_wind_field_tpu_torch.train.schedule import (
     label_values,
@@ -175,10 +197,11 @@ class WindFieldGAN:
         sr = gan.generate(state, lr, z)
 
     ``x`` and ``y`` are the HR grid's coordinate vectors; lr, hr and z are
-    channels-last (N, X, Y, Zl, C) tensors or arrays. With ``mesh`` (the
-    data axis, ``parallel.make_mesh``; not an idle rank's) they are this
-    rank's rows of the global batch, whose size is the rows times the
-    axis's.
+    channels-last (N, X, Y, Zl, C) tensors or arrays. With ``mesh``
+    (``parallel.make_mesh``; not an idle rank's) they are this rank's rows
+    of the global batch, whose size is the rows times the data axis's,
+    whole in x also on a spatial axis (the step cuts the slab). The LR x
+    extent, ``len(x) / scale``, must divide over a spatial axis.
     """
 
     def __init__(self, cfg, x, y, device=None, mesh=None):
@@ -206,6 +229,12 @@ class WindFieldGAN:
         self.x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         self.y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
         self.niter = float(t.niter)
+        spatial = 1 if mesh is None else mesh.spatial
+        if len(self.x) // cfg.scale % spatial:
+            raise ValueError(
+                f"an LR x extent of {len(self.x) // cfg.scale} does not "
+                f"divide over a spatial axis of {spatial} (GSPMD would pad; "
+                "the port does not)")
 
         self.gan_type = t.gan_type
         self.d_g_train_ratio = t.d_g_train_ratio
@@ -229,8 +258,15 @@ class WindFieldGAN:
         # the trunk kernels need a slope > 0 (the backward reads the sign
         # from the growths) and a geometry the kernels cover
         G = self.G
+        # JAX's dp_only: on a spatial axis the trunk and head kernels stay
+        # off (a halo per conv cannot enter one fused launch)
+        if spatial > 1:
+            logging.getLogger("status").info(
+                f"spatial axis of {spatial}: the trunk kernels and the "
+                "HR-head kernel are off whatever use_fused_trunk and the "
+                "head flags say; the stencil kernels run on haloed slabs")
         self.use_fused_trunk = (
-            getattr(cfg, "use_fused_trunk", False)
+            spatial == 1 and getattr(cfg, "use_fused_trunk", False)
             and G.negative_slope > 0
             and trunk_fusable(G.num_rdb_convs, G.lff_kern_size, g.conv_mode)
         )
@@ -352,10 +388,12 @@ class WindFieldGAN:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
     def _g_apply(self, params: Params, lr, z, **kw) -> torch.Tensor:
-        return functional_call(self.G, params, (lr, z), kw)
+        return functional_call(self.G, params, (lr, z),
+                               dict(kw, slab=self._slab))
 
     def _d_apply(self, params: Params, stats: Params, x, **kw):
-        return functional_call(self.D, {**params, **stats}, (x,), kw)
+        return functional_call(self.D, {**params, **stats}, (x,),
+                               dict(kw, slab=self._slab))
 
     def _g_forward_nograd(self, params_G: Params, lr, z) -> torch.Tensor:
         """Eval-mode G forward, no gradient: the trunk kernel if enabled,
@@ -378,9 +416,12 @@ class WindFieldGAN:
             dropout_mask=dropout_mask, generator=gen)
 
     def generate(self, state: GANTrainState, lr, z) -> torch.Tensor:
-        """SR of an LR batch with the state's G: float32 (N, X, Y, Zl, 3)."""
-        return self._g_forward_nograd(state.params_G, self._as_input(lr),
-                                      self._as_input(z))
+        """SR of an LR batch with the state's G: float32 (N, X, Y, Zl, 3).
+        On a spatial axis G runs on this rank's slab and every rank of the
+        data row gets its rows whole."""
+        lr, z = self._cut(self._as_input(lr), self._as_input(z))
+        sr = self._g_forward_nograd(state.params_G, lr, z)
+        return sr if self._slab is None else gather_x(sr, self._slab)
 
     def generate_quantized(self, params_G: Params, qhead, lr, z,
                            qtrunk=None) -> torch.Tensor:
@@ -400,6 +441,26 @@ class WindFieldGAN:
                                  qhead=qhead, qtrunk=qtrunk)
 
     # ------------------------------------------------------------ mesh
+    @property
+    def _slab(self):
+        """This rank's place on the spatial axis (None without one, and
+        inside ``one_process``)."""
+        return None if self.mesh is None else self.mesh.slab()
+
+    def _cut(self, *ts):
+        """This rank's x slab of each of ``ts`` (the rows whole in x)."""
+        slab = self._slab
+        return ts if slab is None else tuple(slab.cut(t) for t in ts)
+
+    def _gradient(self, uvw, z, z_window):
+        """The 9-channel wind gradient of ``uvw`` on the heights ``z``; on
+        a spatial axis of this rank's slab, with the heights widened by
+        one plane (``z_window``)."""
+        if self._slab is None:
+            return self._wind_gradient(uvw, self.x, self.y, z)
+        return gradient_on_slab(self._wind_gradient, uvw, self.x, self.y,
+                                z_window, self._slab)
+
     @contextlib.contextmanager
     def one_process(self):
         """Inside, the steps run on this process's batch alone, with no
@@ -432,18 +493,22 @@ class WindFieldGAN:
         return self._rows(keep)
 
     def _mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The batch mean of ``t`` (this rank's rows): on a mesh this rank's
-        share of it, the rows' sum over the global count."""
+        """The batch mean of ``t`` (this rank's rows, and slab on a spatial
+        axis): on a mesh this rank's share of it, its sum over the local
+        count times the mesh's ranks. For a per-sample tensor that every
+        rank of a data row holds a copy of (D's logits), each carries 1/s
+        of its rows' share."""
         if self.mesh is None:
             return t.mean()
-        return t.sum() / (t.numel() * self.mesh.size)
+        return t.sum() / (t.numel() * self.mesh.world)
 
     def _batch_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The batch mean of ``t``, the same value on every rank; its
-        gradient reaches every rank's rows."""
+        """The batch mean of a per-sample ``t`` (this rank's rows), the
+        same value on every rank, over the data group; its gradient reaches
+        every rank's rows."""
         if self.mesh is None:
             return t.mean()
-        return group_mean(t, self.mesh.group, self._n(t.shape[0]))
+        return group_mean(t, self.mesh.data_group, self._n(t.shape[0]))
 
     def _reduce(self, shares: dict) -> dict:
         """The ranks' shares summed (no gradient): the batch's values."""
@@ -496,9 +561,12 @@ class WindFieldGAN:
         if not self.use_instance_noise:
             return x
         scale = self._sc["noise_G" if sigma == 2.0 else "noise_D"]
-        shape = (self._n(x.shape[0]),) + tuple(x.shape[1:])
-        return x + self._rows(tricks.instance_noise(
-            scale, shape, device=self.device, generator=gen))
+        slab = self._slab
+        shape = (self._n(x.shape[0]),
+                 x.shape[1] * (1 if slab is None else slab.size),
+                 *x.shape[2:])
+        return x + self._cut(self._rows(tricks.instance_noise(
+            scale, shape, device=self.device, generator=gen)))[0]
 
     def _g_losses(self, params_G: Params, state: GANTrainState, lr, hr, z,
                   it: Optional[int], gen: torch.Generator, train: bool,
@@ -550,8 +618,9 @@ class WindFieldGAN:
         elif self.pixel_criterion == "l2":
             losses["pix"] = mean((hr3 - fake) ** 2) * w["pix"]
 
-        hr_grad = self._wind_gradient(hr3, self.x, self.y, z)
-        sr_grad = self._wind_gradient(fake, self.x, self.y, z)
+        z_window = None if self._slab is None else x_window(z, self._slab)[0]
+        hr_grad = self._gradient(hr3, z, z_window)
+        sr_grad = self._gradient(fake, z, z_window)
         f_xy, f_z, f_div, f_xydiv = gradient_norm_factors(
             hr_grad, sr_grad, None if self.mesh is None else self.mesh.group)
         losses["xy_gradient"] = mean((sr_grad[..., :6] / f_xy
@@ -622,7 +691,7 @@ class WindFieldGAN:
                                       fake_labels, mean)) / 2.0
             # bias when the one-sided-smoothed labels are exactly 0.9 (a
             # share of it on each rank of a mesh)
-            ranks = 1 if self.mesh is None else self.mesh.size
+            ranks = 1 if self.mesh is None else self.mesh.world
             loss = torch.where(torch.all(hr_all == 0.9),
                                loss - 0.1985 / ranks, loss)
         return loss, y_pred, fake_y_pred
@@ -699,8 +768,8 @@ class WindFieldGAN:
         without the update: (total, losses, grads); on a mesh the batch's
         losses and the gradients summed over the group."""
         self._set_iteration(it)
-        return self._g_grads(state, lr, hr, z, generator, weights,
-                             dropout_mask)
+        return self._g_grads(state, *self._cut(lr, hr, z), generator,
+                             weights, dropout_mask)
 
     def _g_grads(self, state, lr, hr, z, generator, weights=None,
                  dropout_mask=None):
@@ -797,6 +866,8 @@ class WindFieldGAN:
             draws = augment_draws(self._n(lr.shape[0]), state.rng, lr.device)
             lr, hr, z = augment_batch_with(lr, hr, z,
                                            *(self._rows(d) for d in draws))
+        # on a spatial axis the slab is cut last, after augmentation
+        lr, hr, z = self._cut(lr, hr, z)
         w = weights or self.default_weights
         if g_step:
             metrics = self._g_branch(state, lr, hr, z, w)
@@ -870,7 +941,7 @@ class WindFieldGAN:
         are written into ``state.batch_stats_D``, which is returned beside
         the metrics. On a mesh, ``lr``, ``hr`` and ``z`` are this rank's
         rows, and the metrics are the batch's."""
-        lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
+        lr, hr, z = self._cut(*(self._as_input(a) for a in (lr, hr, z)))
         gen = state.rng if generator is None else generator
         w = weights or self.default_weights
         hr3 = hr[..., :3]
@@ -888,9 +959,10 @@ class WindFieldGAN:
                               D_pred_HR=self._mean(torch.sigmoid(y_pred)),
                               D_pred_SR=self._mean(torch.sigmoid(
                                   fake_y_pred)))
-            trilinear = upsample_trilinear_xy(lr[..., :3], self.cfg.scale)
+            trilinear = upsample_trilinear_xy(lr[..., :3], self.cfg.scale,
+                                              self._slab)
             voxels = hr3[..., 0].numel() * (1 if self.mesh is None
-                                            else self.mesh.size)
+                                            else self.mesh.world)
             # psnr's MSE: the squared error over the batch's voxels
             shares["val_PSNR"] = ((hr3 - fake) ** 2).sum() / voxels
             shares["Trilinear_PSNR"] = ((hr3 - trilinear) ** 2).sum() / voxels

@@ -28,9 +28,10 @@ Counterpart of ``gan_sr_wind_field_tpu/train/loop.py:train`` and
   seeded from it) and, beside it or alone, a reference ``D_{it}.pth``
   loads D and its statistics, and a port checkpoint loads weights only.
 
-On a data mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the loop
-on its rows of each batch (``DeviceBatcher`` and the host path cut them
-from the same global draw) and holds the same state after every step. Only
+On a mesh (``mesh=``, ``parallel/mesh.py``) every rank runs the loop on
+its rows of each batch (``DeviceBatcher`` and the host path cut them from
+the same global draw, whole in x: on a spatial axis the step augments them
+and then cuts its x slab) and holds the same state after every step. Only
 the first rank writes: logs, TensorBoard, images, profiles and
 checkpoints, with a barrier around each save; every rank resumes from the
 same file. Validation runs on the first rank alone on whole batches, as
@@ -131,13 +132,13 @@ def train(cfg, dataset_train, dataset_validation, x, y,
     """Run training to ``cfg.training.niter`` (at most ``max_steps``, an
     absolute iteration) on ``device`` (the card unless the caller asks for
     the CPU); with ``profile_dir``, trace the first iterations into it;
-    with ``mesh`` (the data axis, this rank not idle) on the group's ranks.
+    with ``mesh`` (this rank not idle) on the mesh's ranks.
     Returns the final state."""
     device = resolve_device(device)
     status = logging.getLogger("status")
     cfg_t = cfg.training
     # the one rank that writes
-    lead = mesh is None or mesh.rank == 0
+    lead = mesh is None or mesh.lead
     run_folder = cfg.env.this_runs_folder or "./runs_root/run"
     if lead:
         os.makedirs(os.path.join(run_folder, "images"), exist_ok=True)
@@ -182,8 +183,11 @@ def train(cfg, dataset_train, dataset_validation, x, y,
     if mesh is not None:
         # every rank read the same files; the first rank's state is kept
         shard_state(state, mesh)
-        status.info(f"data axis of {mesh.size} ranks "
-                    f"({torch.distributed.get_backend(mesh.group)}): rows "
+        slab = mesh.slab()
+        status.info(f"data axis of {mesh.size} ranks"
+                    + ("" if slab is None else
+                       f" x spatial axis of {slab.size}, x slab {slab.index}")
+                    + f" ({torch.distributed.get_backend(mesh.group)}): rows "
                     f"{rows.start}..{rows.stop - 1} of each batch of "
                     f"{batch_size}")
 

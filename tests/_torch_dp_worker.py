@@ -1,9 +1,10 @@
-"""Ranks of a gloo group on the CPU for the port's data-mesh tests.
+"""Ranks of a gloo group on the CPU for the port's mesh tests.
 
 ``spawn(task, world, tmp_path, payload)`` starts ``world`` processes over a
-``file://`` store under ``tmp_path``; each joins the group, builds a data
-mesh and runs ``TASKS[task](mesh, payload)``, and rank 0's return value
-comes back. The workers import torch and the port only: the JAX side of a
+``file://`` store under ``tmp_path``; each joins the group and runs
+``TASKS[task](payload)``, which builds its mesh (``payload["axes"]``, the
+arguments of ``make_mesh``: every rank on the data axis when absent), and
+rank 0's return value comes back. The workers import torch and the port only: the JAX side of a
 comparison runs in the test's own process. ``payload`` is pickled with
 ``torch.save`` (it carries the port's ``Config``).
 """
@@ -20,11 +21,14 @@ import torch.multiprocessing as mp
 
 from gan_sr_wind_field_tpu_torch.parallel import (
     batch_sharding,
+    gather_x,
+    halo_exchange,
     init_distributed,
     make_mesh,
     shard_state,
     volume_sharding,
 )
+from gan_sr_wind_field_tpu_torch.parallel.collectives import gather_rows
 
 
 def spawn(task: str, world: int, tmp_path, payload=None, timeout=240):
@@ -80,7 +84,7 @@ def checksum(state) -> str:
 
 def all_equal(mesh, value) -> bool:
     """Whether ``value`` is the same on every rank of the mesh."""
-    values = [None] * mesh.size
+    values = [None] * mesh.world
     dist.all_gather_object(values, value, group=mesh.control)
     return all(v == values[0] for v in values)
 
@@ -115,6 +119,7 @@ def _d_grads(gan, state, lr, hr, z, it, gen=None):
     params = {k: v.detach().requires_grad_() for k, v in
               state.params_D.items()}
     stats = {k: v.clone() for k, v in state.batch_stats_D.items()}
+    lr, hr, z = gan._cut(lr, hr, z)
     fake = gan._g_forward_nograd(state.params_G, lr, z)
     loss, _, _ = gan._d_loss(params, stats, hr[..., :3], fake, it,
                              state.rng if gen is None else gen, True)
@@ -127,10 +132,26 @@ def _local(gan, where):
     """Make one batch-global place of ``gan``'s step local to each rank's
     rows (a naive data-parallel step there): 'ragan' (the means of D's
     logits), 'physics' (the physics factors' maxima) or 'bn' (D's batch
-    statistics)."""
+    statistics); or, on a spatial axis, get one of its places wrong:
+    'no_halo' (each slab zero-padded as if it were its own volume),
+    'per_sample_once' (D's per-sample terms counted whole on every rank of
+    a data row) or 'bn_data_group' (D's batch statistics over the ranks of
+    one slab only). → the function that undoes it."""
+    import gan_sr_wind_field_tpu_torch.models.blocks as blocks_mod
     import gan_sr_wind_field_tpu_torch.train.gan as gan_mod
 
-    if where == "ragan":
+    mesh = gan.mesh
+    if where == "no_halo":
+        halo = blocks_mod.halo_exchange
+        blocks_mod.halo_exchange = lambda x, w, slab: torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 2) + (w, w))
+        return lambda: setattr(blocks_mod, "halo_exchange", halo)
+    if where == "per_sample_once":
+        gan._mean = lambda t: t.sum() / (
+            t.numel() * (mesh.size if t.dim() == 1 else mesh.world))
+    elif where == "bn_data_group":
+        gan.D.sync_batch_norm(mesh.data_group)
+    elif where == "ragan":
         gan._batch_mean = lambda t: t.mean()
     elif where == "physics":
         full = gan_mod.gradient_norm_factors
@@ -145,20 +166,25 @@ def task_jax_step(p):
     """One G step's gradients, one D step's, val_step, an 8-step
     trajectory and the negative controls on the mesh, from the JAX state;
     → rank 0's results and whether every rank ended bit for bit equal."""
-    mesh = make_mesh(-1)
+    mesh = make_mesh(*p.get("axes", (-1,)))
     cfg = p["cfg"]
     gan, state = _gan(cfg, mesh, p["state"], p["coords"])
     res = {}
+    if "gen_batch" in p:  # G's forward, gathered over x and rows
+        lr, _, z = _rows(mesh, p["gen_batch"])
+        n = p["gen_batch"][0].shape[0]
+        res["generate"] = gather_rows(gan.generate(state, lr, z),
+                                      mesh.data_group, mesh.rows(n), n)
     losses, grads = gan.g_grads(state, *_rows(mesh, p["g_batch"]), 1,
                                 state.rng)[1:]
     res["g"] = ({k: float(v) for k, v in losses.items()},
                 dict(zip(state.params_G, grads)))
     res["d"] = _d_grads(gan, state, *_rows(mesh, p["d_batch"]), 0)
     # the negative controls: one place local at a time
-    for where in ("ragan", "physics", "bn"):
+    for where in p.get("controls", ("ragan", "physics", "bn")):
         g2, s2 = _gan(cfg, mesh, p["state"], p["coords"])
         undo = _local(g2, where)
-        if where == "physics":
+        if where in ("physics", "no_halo"):
             res[f"local_{where}"] = dict(zip(s2.params_G, g2.g_grads(
                 s2, *_rows(mesh, p["g_batch"]), 1, s2.rng)[2]))
         else:
@@ -179,6 +205,26 @@ def task_jax_step(p):
     res["traj"] = (steps, st.params_G, st.params_G_ema,
                    {**st.params_D, **st.batch_stats_D})
     res["same_on_every_rank"] = all_equal(mesh, checksum(st))
+    if "axes2" in p:  # a second mesh of the same ranks: G and D steps
+        mesh2 = make_mesh(*p["axes2"])
+        gan2, state2 = _gan(cfg, mesh2, p["state"], p["coords"])
+        lr, _, z = _rows(mesh2, p["gen_batch"])
+        n = p["gen_batch"][0].shape[0]
+        res["generate2"] = gather_rows(gan2.generate(state2, lr, z),
+                                       mesh2.data_group, mesh2.rows(n), n)
+        losses, grads = gan2.g_grads(state2, *_rows(mesh2, p["g_batch"]), 1,
+                                     state2.rng)[1:]
+        res["g2"] = ({k: float(v) for k, v in losses.items()},
+                     dict(zip(state2.params_G, grads)))
+        res["d2"] = _d_grads(gan2, state2, *_rows(mesh2, p["d_batch"]), 0)
+    if "serve" in p:  # WindFieldSR(mesh=): the whole batch on every rank
+        from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+
+        out = WindFieldSR(cfg, p["serve"][0], device="cpu",
+                          mesh=mesh).upscale(*p["serve"][1:])
+        res["serve"] = out
+        res["serve_same"] = all_equal(mesh, hashlib.sha256(
+            out.tobytes()).hexdigest())
     return res
 
 
@@ -191,7 +237,7 @@ def task_port_vs_port(p):
     ended bit for bit equal."""
     from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 
-    mesh = make_mesh(-1)
+    mesh = make_mesh(*p.get("axes", (-1,)))
     cfg = p["cfg"]
     gan, state = _gan(cfg, mesh, p["state"], p["coords"])
     shard_state(state, mesh)
@@ -344,5 +390,106 @@ def task_serve(p):
                     out.tobytes() + tiled.tobytes()).hexdigest()))
 
 
+def task_spatial_units(p):
+    """On 4 ranks: the meshes with a spatial axis and their groups, the
+    halo exchange, every conv shape on slabs, the plain stencil, the
+    align-corners resize, batch and instance norm and ``gather_x``, each
+    value and gradient on this rank's slab; then ``task_port_vs_port`` on
+    ``p["pvp"]``'s mesh. → every rank's unit results, gathered on rank 0,
+    and rank 0's port-vs-port result."""
+    import torch.nn.functional as F
+
+    from gan_sr_wind_field_tpu_torch.models.blocks import (
+        RDB,
+        BatchNorm,
+        ConvLReLU,
+        instance_norm,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.physics import (
+        gradient_on_slab,
+        wind_field_gradient,
+    )
+    from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
+    from gan_sr_wind_field_tpu_torch.parallel.halo import x_window
+
+    rank = dist.get_rank()
+    res = {"rank": rank}
+
+    def groups(m):
+        return (dist.get_process_group_ranks(m.data_group),
+                dist.get_process_group_ranks(m.spatial_group))
+
+    m22 = make_mesh(2, 1, 2)
+    res["m22"] = (m22.shape, tuple(m22.device_mesh.mesh_dim_names),
+                  m22.rank, m22.spatial_rank, m22.world, m22.lead,
+                  groups(m22), dist.get_process_group_ranks(m22.group),
+                  volume_sharding(m22)(torch.arange(4 * 8).reshape(
+                      4, 8)).tolist())
+    spare = make_mesh(1, 1, 2)
+    res["spare"] = (spare.idle, spare.shape, spare.spatial_rank)
+    mesh = make_mesh(-1, 1, 4)
+    res["m14"] = (mesh.shape, mesh.rank, mesh.spatial_rank, groups(mesh))
+    slab = mesh.slab()
+    cut = slab.cut
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+
+    x = leaf(cut(p["x"]))
+    for width in (1, 2):
+        y = halo_exchange(x, width, slab)
+        (y * torch.from_numpy(p["w_halo"][width][rank])).sum().backward()
+        res[f"halo{width}"] = (y.detach(), x.grad.clone())
+        x.grad = None
+    # every conv shape the models use, on slabs; weights from one seed
+    for name, kw in p["convs"].items():
+        conv = ConvLReLU(**kw, generator=torch.Generator().manual_seed(3))
+        x = leaf(cut(p["conv_x"]))
+        y = conv(x, slab=slab)
+        (y * cut(torch.from_numpy(p["conv_w"][name]))).sum().backward()
+        res[f"conv {name}"] = (y.detach(), x.grad.clone(),
+                               conv.weight.grad.clone())
+    # an RDB of 5 convs on slabs of 4, each conv with its own halo, with a
+    # 1³ LFF and with a 3³ one
+    for lff in (1, 3):
+        rdb = RDB(8, 4, num_convs=5, lff_kern_size=lff,
+                  generator=torch.Generator().manual_seed(5))
+        x = leaf(cut(p["rdb_x"]))
+        y = rdb(x, slab)
+        (y * cut(torch.from_numpy(p["rdb_w"]))).sum().backward()
+        res[f"rdb lff {lff}"] = (y.detach(), x.grad.clone(),
+                                 rdb.convs[1].weight.grad.clone())
+    # the plain stencil on haloed slabs
+    uvw, zz = leaf(cut(p["uvw"])), cut(torch.from_numpy(p["Z"]))
+    g9 = gradient_on_slab(wind_field_gradient, uvw,
+                          torch.from_numpy(p["xc"]),
+                          torch.from_numpy(p["yc"]), x_window(zz, slab)[0],
+                          slab)
+    (g9 * cut(torch.from_numpy(p["w9"]))).sum().backward()
+    res["stencil"] = (g9.detach(), uvw.grad.clone())
+    res["trilinear"] = upsample_trilinear_xy(cut(torch.from_numpy(p["lr"])),
+                                             4, slab)
+    # batch norm over the mesh, instance norm over the slabs
+    bn = BatchNorm(p["bn_x"].shape[-1])
+    bn.group = mesh.group
+    x = leaf(cut(p["bn_x"]))
+    y = bn(x, train=True, update_stats=True)
+    (y * cut(torch.from_numpy(p["bn_w"]))).sum().backward()
+    res["bn"] = (y.detach(), x.grad.clone(), bn.scale.grad.clone(),
+                 bn.mean.clone(), bn.var.clone())
+    x = leaf(cut(p["bn_x"]))
+    y = instance_norm(x, torch.float32, slab)
+    (y * cut(torch.from_numpy(p["bn_w"]))).sum().backward()
+    res["instance"] = (y.detach(), x.grad.clone())
+    x = leaf(cut(p["x"]))
+    y = gather_x(x, slab)
+    (y * torch.from_numpy(p["w_gather"][rank])).sum().backward()
+    res["gather"] = (y.detach(), x.grad.clone())
+    every = [None] * mesh.world
+    dist.all_gather_object(every, res, group=mesh.control)
+    return dict(units=every, pvp=task_port_vs_port(p["pvp"]))
+
+
 TASKS = {"jax_step": task_jax_step, "port_vs_port": task_port_vs_port,
-         "units": task_units, "serve": task_serve}
+         "units": task_units, "serve": task_serve,
+         "spatial_units": task_spatial_units}

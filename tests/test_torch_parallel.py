@@ -75,11 +75,16 @@ def test_spare_ranks_are_idle(ranks):
 
 
 def test_model_and_spatial_axes_raise():
-    """Not ported: they raise naming ROADMAP.md, before any group is
-    needed; the model axis's placement is the identity."""
+    """Only the model axis raises now: it is not ported and says so,
+    naming ROADMAP.md, before any group is needed, with or without a
+    spatial axis beside it; its placement is the identity. A spatial axis
+    is built like the data axis, so without a process group it asks for
+    one (tests/test_torch_spatial_units.py builds it on 4 ranks)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_mesh(4, 2)
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(NotImplementedError, match="model axis"):
+        make_mesh(2, 2, 4)
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(2, 1, 4)
     params = {"a": torch.ones(2)}
     assert shard_params(params, None) is params

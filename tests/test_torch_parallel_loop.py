@@ -2,7 +2,8 @@
 ``run.py --train --device cpu`` under ``torchrun`` with two gloo ranks on a
 copy of the tiny configuration (only rank 0 writes; its checkpoint resumes
 in one process to the mesh's own next checkpoint), ``configs/fullvol.ini``
-refused, the one-process modes refused under ``torchrun``, each rank's rows
+read as data 2 × spatial 4 and refused on fewer ranks, the one-process
+modes refused under ``torchrun``, each rank's rows
 of the host path's batches, and ``WindFieldSR(mesh=)`` against the JAX
 package's serving on ``make_mesh(8, 1)`` (tests/test_serve.py:112).
 """
@@ -23,6 +24,8 @@ from gan_sr_wind_field_tpu.eval.serve import WindFieldSR as JaxSR
 from gan_sr_wind_field_tpu.parallel import make_mesh as jax_make_mesh
 from gan_sr_wind_field_tpu.train.gan import WindFieldGAN as JaxGAN
 from gan_sr_wind_field_tpu_torch import run
+from gan_sr_wind_field_tpu_torch.config import load_config
+from gan_sr_wind_field_tpu_torch.parallel.mesh import data_axis
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
@@ -122,10 +125,18 @@ def test_mesh_checkpoint_resumes_in_one_process(mesh_run, tmp_path):
 
 
 def test_fullvol_config_is_refused():
-    """configs/fullvol.ini asks for data 2 x spatial 4; the spatial axis is
-    not ported, so the port raises before it reads any data instead of
-    training on one card."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """configs/fullvol.ini's [PARALLEL] is data 2 x spatial 4 through
+    data_axis on eight ranks (its batch of 8 divides over the data axis),
+    and fewer ranks are refused: the port raises before it reads any data
+    instead of training on them, under torchrun with 4 ranks as in one
+    process. The eight-rank run is tests/test_torch_spatial.py's mesh and
+    chip_smoke.py's phase 14."""
+    cfg = load_config(os.path.join(REPO, "configs", "fullvol.ini"))
+    assert data_axis(cfg.parallel, 8, cfg.dataset_train.batch_size) == (2, 4)
+    for world in (1, 4, 7):
+        with pytest.raises(ValueError, match="nproc_per_node=8"):
+            data_axis(cfg.parallel, world, cfg.dataset_train.batch_size)
+    with pytest.raises(ValueError, match="nproc_per_node=8"):
         run.main(["--train", "--synthetic", "--cfg",
                   os.path.join(REPO, "configs", "fullvol.ini"), "--device",
                   "cpu"])

@@ -304,8 +304,10 @@ def test_ema_g_step_count_matches_enumeration():
 
 @pytest.mark.parametrize("what", ["mesh", "bfloat16_sr", "horizontal_3D"])
 def test_options_not_ported_raise(what):
-    """A mesh with a model or spatial axis raises (the data axis is
-    ported: tests/test_torch_parallel*.py); bfloat16_sr is ported (its
+    """A mesh with a model axis raises (the data and spatial axes are
+    ported: tests/test_torch_parallel*.py, tests/test_torch_spatial*.py;
+    without a process group a spatial mesh asks for one); bfloat16_sr is
+    ported (its
     moments are bf16,
     tests/test_torch_sr_cast.py trains with it), and so is horizontal_3D
     (tests/test_torch_horizontal.py): it builds 6-D kernels and leaves the
@@ -330,9 +332,10 @@ def test_options_not_ported_raise(what):
         assert state.opt_state_G.mu["feature_conv.weight"].dim() == 6
         assert state.params_D["blocks.0.conv.weight"].dim() == 6
         return
-    for axes in ((1, 2, 1), (1, 1, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_mesh(*axes)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_mesh(1, 2, 1)
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        make_mesh(1, 1, 4)
 
 
 def test_default_device_is_the_card():

@@ -274,7 +274,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (two ranks time-sharing one card: no multi-card figure), the two
      ranks' state checksums equal; (d) WindFieldSR(mesh=).upscale of 8
      fields on those two: equal bit for bit to one process on each rank's
-     rows, within 1e-2 of one process at batch 8, one trunk launch each.
+     rows, within 1e-2 of one process at batch 8, one trunk launch each;
+     (e) the same two as data 1 x model 2, G's output channels over them
+     (parallel/model.py): from phase 5's seeded state one D step (it 50)
+     then one G step (it 49) on milestone9k as committed at a global batch
+     of 16 (bf16) and on its float32 copy at 2, against this process on
+     the same batches and path (kernels 1, 2 and 5 off, as on the mesh),
+     computed alone on the card at phase 13's start: G's gradients
+     gathered whole (bf16 rel L2 <= 1e-2, float32 <= 1e-4), D's (float32
+     <= 1e-4; bf16 printed), the losses (bf16 <= 1e-3) and the physics
+     terms (float32 <= 1e-5); kernels 3 and 4 counted on each rank's G
+     steps, kernels 1, 2 and 5 on none; both ranks' whole states (G
+     gathered) equal; per rank and step its ms and the model axis's
+     collectives (count, bytes, ms); 8 fields served on the model mesh
+     within 1e-2 of one process.
   14. the spatial axis (parallel/halo.py): configs/fullvol.ini at full
      width (nf 128, 16 RRDB, gc 32, hr_kern 5, whole 128x128x10 volumes
      from phase 11's resident volumes, seeded weights) on its own mesh of
@@ -296,9 +309,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      a G step), and on each rank's slab widened by its halo the kernels
      against their plain versions (<= 1e-5); (c)
      WindFieldSR(mesh=).upscale of 8 volumes: within 1e-2 of one process,
-     the whole batch on every rank. Each rank's steps (host clock) with
-     their halo exchanges (count, bytes, ms), gathers and the gradients'
-     all_reduce, the one-process steps, peak memory, the phase's seconds.
+     the whole batch on every rank; (d) the same eight ranks on all three
+     axes, data 2 x model 2 x spatial 2 (each rank at JAX's row-major
+     place): (b)'s float32 steps from (b)'s seeded state against (b)'s
+     one-process references, G (gathered) and D <= 1e-4, physics <= 1e-5,
+     kernels 3 and 4 on every rank's haloed slab, kernels 1, 2 and 5 on
+     none, every rank's whole state equal. Each rank's steps (host clock)
+     with their halo exchanges (count, bytes, ms), model-axis collectives,
+     gathers and the gradients' all_reduce, the one-process steps, peak
+     memory, the phase's seconds.
   Phase 8's four command-line passes read the 6k pack once (PackMemo);
   phase 13 pays with that.
 The line before the last is the kernel table as JSON; the last line is
@@ -4549,6 +4568,338 @@ MESH_RANKS = 2
 MAIN_CARD_SHARE = 0.9
 
 
+# (e) the model axis: the same two ranks as data 1 x model 2 (G's output
+# channels over them), milestone9k as committed at a global batch of 16
+# (bf16) and its float32 copy at 2, one D step (it 50) then one G step (it
+# 49) from phase 5's seeded state, against this process on the same
+# batches (model_reference, alone on the card at phase 13's start)
+MODEL_AXES = (1, 2)
+MODEL_BATCH = 16
+MODEL_F32_BATCH = 2
+MODEL_SEED = 2019        # the steps' generator, on both sides
+MODEL_G_TOL = 1e-2       # bf16 G gradients, gathered whole, rel L2
+MODEL_LOSS_TOL = 1e-3    # bf16 losses, relative
+MODEL_F32_TOL = 1e-4     # float32 G and D gradients, rel L2
+MODEL_PHYS_TOL = 1e-5    # float32 physics terms, relative
+MODEL_SERVE_TOL = 1e-2   # 8 fields served on the mesh vs one process
+STEP_LOSSES = ("total", "pix", "adversarial", "D_train_loss",
+               "xy_gradient", "z_gradient", "divergence", "xy_divergence")
+
+
+def model_batches(batches):
+    """(e)'s batches, cut from (c)'s steps' batches: two of 16 rows for
+    the bf16 steps, two of 2 for the float32 ones (each pair the D step's,
+    then the G step's)."""
+    return dict(a=[tuple(t[:MODEL_BATCH].cpu() for t in b)
+                   for b in batches[1:3]],
+                b=[tuple(t[:MODEL_F32_BATCH].cpu() for t in b)
+                   for b in batches[3:5]])
+
+
+def model_steps(gan, state, batches, dev, spy=None):
+    """One D step (it 50) then one G step (it 49) from ``state``'s weights
+    and MODEL_SEED's draws, each on the host clock with its launches, the
+    model axis's collectives (``spy``) and its losses. → (state, the
+    steps' figures)."""
+    import torch
+
+    state.rng.manual_seed(MODEL_SEED)
+    out = []
+    for it, b in zip(SPATIAL_ITS, batches):
+        state.it = it
+        b = tuple(t.to(dev) for t in b)
+        if spy is not None:
+            spy.calls.clear()
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        state, m = gan.train_step(state, *b)
+        torch.cuda.synchronize()
+        out.append(dict(it=state.it, g_step=bool(m["is_g_step"]),
+                        ms=1e3 * (time.monotonic() - t),
+                        launches=counters(),
+                        collectives=None if spy is None else spy.summary(),
+                        losses={k: float(m[k]) for k in STEP_LOSSES}))
+    return state, out
+
+
+def spy_grads_whole(gan):
+    """Keep every Adam step's gradients on the card; the function returned
+    gathers G's whole over a model axis (a collective: every rank calls
+    it) and gives them flat in float32 on the host, in the parameters'
+    order, as spy_grads keeps them. Gathering after the steps keeps the
+    gather out of the timed steps."""
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.parallel.model import gather_trees
+
+    seen = []
+    real = gan._adam_step
+
+    def step(params, grads, *a, **kw):
+        seen.append((list(params), [g.detach().clone() for g in grads],
+                     kw.get("sharded", frozenset())))
+        return real(params, grads, *a, **kw)
+
+    def whole():
+        out = []
+        for keys, grads, sharded in seen:
+            named = dict(zip(keys, grads))
+            if sharded and gan._channels is not None:
+                named = gather_trees([named], sharded, gan._channels)[0]
+            out.append(torch.cat([g.float().flatten()
+                                  for g in named.values()]).cpu())
+        return out
+
+    gan._adam_step = step
+    return whole
+
+
+def module_path(cfg):
+    """``cfg`` on the path a model or spatial axis takes: the trunk and
+    head kernels off (JAX's dp_only), the stencil kernels as configured."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, use_fused_trunk=False)
+
+
+def model_reference(dev, started, p5):
+    """(e)'s one-process references, at phase 13's start, alone on the
+    card: from phase 5's seeded state (the weights (c)'s ranks draw), on
+    the path the model axis takes (module_path), the D step and the G step
+    on (e)'s batches in bf16 at 16 rows and in float32 at 2 (gradients,
+    losses, host-clock ms, launches)."""
+    import dataclasses
+
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    cfg, coords = module_path(started["cfg"]), started["coords"]
+    ref = {}
+    for key, c in (("a", cfg),
+                   ("b", dataclasses.replace(cfg, compute_dtype="float32"))):
+        gan = WindFieldGAN(c, coords, coords, device=dev)
+        gan.D = gan._build_D(started["shapes"][1])
+        whole = spy_grads_whole(gan)
+        st, ref[key] = model_steps(gan, copy_state(p5["before"], dev),
+                                   started["model"][key], dev)
+        ref[f"{key}_grads"] = whole()
+        if key == "a":
+            ref["names"] = [(k, v.numel()) for tree in (st.params_G,
+                                                         st.params_D)
+                            for k, v in tree.items()]
+            ref["n_G"] = len(st.params_G)
+        del gan, st
+        torch.cuda.empty_cache()
+    return ref
+
+
+def model_checksum(state, mesh):
+    """``tree_digests`` of the state gathered whole over the model axis
+    (``gather_state``: G's parameters, EMA and Adam moments): equal on
+    every rank when the replicated leaves stayed equal bit for bit and
+    every model group holds the same G. A collective of the model
+    group."""
+    from gan_sr_wind_field_tpu_torch.parallel import gather_state
+
+    return tree_digests(gather_state(state, mesh))
+
+
+def model_setup(dev, src, state, params0):
+    """(e)'s untimed set-up on mesh_rank's two processes, before their go:
+    the data 1 x model 2 mesh, a trainer for each leg (bf16 as committed,
+    its float32 copy) with its gradient spy, the seeded ``state`` (whole,
+    on the card, before any step) placed on the mesh once, and the server
+    of ``params0``. → what model_leg takes."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from gan_sr_wind_field_tpu_torch.config import load_config
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.parallel import make_mesh, shard_state
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+
+    mesh = make_mesh(*MODEL_AXES, devices=dev)
+    cfg = load_config(src["ini"])
+    legs = {}
+    for key, c in (("a", cfg),
+                   ("b", dataclasses.replace(cfg, compute_dtype="float32"))):
+        gan = WindFieldGAN(c, src["coords"], src["coords"], device=dev,
+                           mesh=mesh)
+        gan.D = gan._build_D(src["shapes"][1])
+        legs[key] = (gan, spy_grads_whole(gan))
+    # both legs start from the same weights: placed once, copied per leg
+    return dict(mesh=mesh, legs=legs, spy=CollectiveSpy(dist, kind="model"),
+                placed=shard_state(copy_state(state), mesh),
+                sr=WindFieldSR(cfg, params0, device=dev, mesh=mesh))
+
+
+def model_leg(dev, src, prep):
+    """(e) on mesh_rank's two processes, after (d), on model_setup's
+    ``prep``: data 1 x model 2, each rank holding its output channels of
+    G's sharded leaves (its parameters, EMA and Adam moments): (e)'s steps
+    on the whole batches from the seeded state, in bf16 and in float32,
+    then 8 fields served. → (this rank's figures, G's and D's gradients
+    with G's gathered whole, the served fields)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from gan_sr_wind_field_tpu_torch.parallel import model as model_mod
+
+    mesh, spy = prep["mesh"], prep["spy"]
+    model_mod.dist = spy
+    res, grads = {"shape": mesh.shape, "model_rank": mesh.model_rank}, {}
+    for key, (gan, whole) in prep["legs"].items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        st, res[key] = model_steps(gan, copy_state(prep["placed"]),
+                                   src["model"][key], dev, spy)
+        res[f"{key}_peak"] = torch.cuda.max_memory_allocated(dev)
+        grads[key] = whole()
+        res[f"{key}_sum"] = model_checksum(st, mesh)
+        del st
+        torch.cuda.empty_cache()
+    spy.calls.clear()
+    reset_counters()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    served = prep["sr"].upscale(*src["serve"])
+    res["serve_ms"] = 1e3 * (time.monotonic() - t)
+    res["serve_launches"] = counters()
+    res["serve_collectives"] = spy.summary()
+    res["serve_sum"] = hashlib.sha256(served.tobytes()).hexdigest()
+    model_mod.dist = dist
+    return res, grads, served
+
+
+def grad_errs(got, want, names, n_g):
+    """G's and D's relative L2 (the spied gradients come D step first)
+    and their three worst tensors by name."""
+    errs, worst = [], []
+    for i, (g, w) in enumerate(zip(got[::-1], want[::-1])):
+        errs.append(rel_l2(g, w))
+        part = names[:n_g] if i == 0 else names[n_g:]
+        each, at = [], 0
+        for name, n in part:
+            each.append((rel_l2(g[at:at + n], w[at:at + n])
+                         if w[at:at + n].norm() > 0 else 0.0, name))
+            at += n
+        worst.append(sorted(each, reverse=True)[:3])
+    return errs, worst
+
+
+def check_model_steps(label, every, got_grads, ref, key, names, n_g, card,
+                      f32):
+    """Report and hold one leg of model-mesh steps (``every``: each rank's
+    figures under ``key``) against one process (``ref``): per rank and
+    step its ms, the model axis's collectives and launches; G's and D's
+    gradients, the losses (bf16: G <= MODEL_G_TOL, losses <=
+    MODEL_LOSS_TOL) or the physics terms (float32: G and D <=
+    MODEL_F32_TOL, physics <= MODEL_PHYS_TOL); kernels 3 and 4 on every
+    rank's G step and kernels 1, 2 and 5 on none; every rank's whole state
+    equal. Returns each rank's launches summed over its steps."""
+    for st in ref[key]:
+        log(f"  {label}, one process on the same path: "
+            f"{'G' if st['g_step'] else 'D'} step {st['ms']:.1f} ms host "
+            f"clock, launches {LAUNCH_LABELS} {st['launches']} ({card})")
+    for r, v in enumerate(every):
+        for st in v[key]:
+            c = st["collectives"]["model"]
+            log(f"  {label} rank {r} (model index {r % MODEL_AXES[1]}) it "
+                f"{st['it']} ({'G' if st['g_step'] else 'D'} step): "
+                f"{st['ms']:.1f} ms host clock; {c[0]} model-axis "
+                f"collectives (channel gathers, cotangent sums, the norm), "
+                f"{c[1] / 1e6:.1f} MB, {c[2]:.1f} ms; launches "
+                f"{LAUNCH_LABELS} {st['launches']} ({card})")
+            if st["launches"][:2] != (0, 0) or st["launches"][4] != 0 or (
+                    st["g_step"] and not (st["launches"][2] >= 2
+                                          and st["launches"][3] >= 1)):
+                fail(f"{label} rank {r} launched {st['launches']}: kernels "
+                     "3 and 4 on the G step, kernels 1, 2 and 5 off")
+    (g_err, d_err), worst = grad_errs(got_grads, ref[f"{key}_grads"],
+                                      names, n_g)
+    log(f"  {label}: the worst tensors, G: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in worst[0]) + "; D: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in worst[1]))
+    lerr = max(abs(v - w) / max(abs(w), 1e-12)
+               for st, wt in zip(every[0][key], ref[key])
+               for k, w in wt["losses"].items()
+               for v in [st["losses"][k]] if w != 0.0 or v != 0.0)
+    apart = differing_trees([v[f"{key}_sum"] for v in every])
+    log(f"  {label}: G gradients gathered whole vs one process rel L2 "
+        f"{g_err:.3e}, D gradients {d_err:.3e}; losses' largest relative "
+        f"difference {lerr:.3e}; G gathered (with its EMA and moments) and "
+        f"the replicated leaves equal on every rank after the steps: "
+        f"{not apart}")
+    if apart:
+        fail(f"{label}: the ranks' states differ in {apart}")
+    if f32:
+        perr = max(abs(st["losses"][k] - wt["losses"][k])
+                   / max(abs(wt["losses"][k]), 1e-30)
+                   for st, wt in zip(every[0][key], ref[key])
+                   if st["g_step"] for k in PHYSICS_KEYS)
+        log(f"  {label}: the four physics terms' largest relative difference"
+            f" {perr:.3e} (tol {MODEL_PHYS_TOL:.0e}); gradients tol "
+            f"{MODEL_F32_TOL:.0e}")
+        if not (g_err <= MODEL_F32_TOL and d_err <= MODEL_F32_TOL
+                and perr <= MODEL_PHYS_TOL):
+            fail(f"{label}: the float32 model mesh disagrees with one "
+                 "process")
+    elif not (g_err <= MODEL_G_TOL and lerr <= MODEL_LOSS_TOL):
+        fail(f"{label}: the model mesh disagrees with one process (tol "
+             f"{MODEL_G_TOL:.0e} / {MODEL_LOSS_TOL:.0e})")
+    return [tuple(map(sum, zip(*[st["launches"] for st in v[key]])))
+            for v in every]
+
+
+def model_report(card, out, model_ref, served1):
+    """Phase 13 (e) from the two ranks' results ``out`` (mesh_out.pt)
+    against this process's: the bf16 and float32 legs, and 8 fields served
+    on the model mesh against one process at batch 8 (``served1``). →
+    each rank's launches in (e)."""
+    import numpy as np
+    import torch
+
+    every = [v["e"] for v in out["ranks"]]
+    log(f"  (e) the same two processes as data {MODEL_AXES[0]} x model "
+        f"{MODEL_AXES[1]} ({every[0]['shape']}), G's output channels over "
+        f"the two, sharing one {card} over gloo; "
+        f"{[round(v['e_s'], 1) for v in out['ranks']]} s a rank")
+    names = model_ref["names"]
+    launches = [(0,) * 5] * len(every)
+    for key, label, f32 in (
+            ("a", f"(e) bf16, batch {MODEL_BATCH}", False),
+            ("b", f"(e) float32, batch {MODEL_F32_BATCH}", True)):
+        leg = check_model_steps(label, every, out["e_grads"][key],
+                                model_ref, key, names, model_ref["n_G"],
+                                card, f32)
+        launches = [tuple(a + b for a, b in zip(x, y))
+                    for x, y in zip(launches, leg)]
+        log(f"  {label}: peak "
+            f"{[round(v[f'{key}_peak'] / 2**30, 2) for v in every]} GiB a "
+            f"rank ({card})")
+    err = rel_l2(torch.from_numpy(out["e_served"]),
+                 torch.from_numpy(served1))
+    same = len({v["serve_sum"] for v in every}) == 1
+    c = every[0]["serve_collectives"]["model"]
+    log(f"  (e) WindFieldSR(mesh=).upscale of 8 fields on data 1 x model 2: "
+        f"rel L2 {err:.3e} against one process at batch 8 (tol "
+        f"{MODEL_SERVE_TOL:.0e}), the whole batch on both ranks {same}, "
+        f"{[round(v['serve_ms'], 1) for v in every]} ms host clock, "
+        f"{c[0]} model-axis gathers {c[1] / 1e6:.1f} MB {c[2]:.1f} ms, "
+        f"launches {[v['serve_launches'] for v in every]} ({card})")
+    if not (err <= MODEL_SERVE_TOL and same and bool(
+            np.isfinite(out["e_served"]).all())) or any(
+            any(v["serve_launches"]) for v in every):
+        fail("(e) serving on the model mesh disagrees")
+    done("(e) the model axis")
+    return [tuple(a + b for a, b in zip(x, v["serve_launches"]))
+            for x, v in zip(launches, every)]
+
+
 def mesh_leg_start(tmp):
     """Leg (a): ``python -m torch.distributed.run --standalone
     --nproc_per_node=1 -m gan_sr_wind_field_tpu_torch.run --train`` on
@@ -4614,8 +4965,10 @@ def mesh_rank(rank, tmp):
         state = gan.init_state(TRAIN_SEED, *src["shapes"])
         rows = mesh.rows(src["batch"][0].shape[0])
         lr, hr, z = (t[rows].to(dev) for t in src["batch"])
-        wait_for(os.path.join(tmp, "mesh_go"))
         params0 = {k: v.clone() for k, v in state.params_G.items()}
+        # (e) starts from the same state; its set-up is untimed
+        prep = model_setup(dev, src, state, params0)
+        wait_for(os.path.join(tmp, "mesh_go"))
         torch.cuda.reset_peak_memory_stats(dev)
         ar_ms = []
 
@@ -4673,12 +5026,19 @@ def mesh_rank(rank, tmp):
         reset_counters()
         res["served"] = sr.upscale(src["serve"][0], src["serve"][1])
         res["serve_launches"] = counters()
+        del gan, state, sr
+        torch.cuda.empty_cache()
+        # (e) the same two ranks on a model axis
+        t = time.monotonic()
+        res["e"], e_grads, e_served = model_leg(dev, src, prep)
+        res["e_s"] = time.monotonic() - t
         every = [None] * MESH_RANKS
         dist.all_gather_object(every, {k: v for k, v in res.items()
                                        if k != "served"},
                                group=mesh.control)
         if rank == 0:
-            torch.save(dict(ranks=every, served=res["served"]),
+            torch.save(dict(ranks=every, served=res["served"],
+                            e_grads=e_grads, e_served=e_served),
                        os.path.join(tmp, "mesh_out.pt"))
     finally:
         dist.destroy_process_group()
@@ -4693,28 +5053,49 @@ def wait_for(path, timeout=600):
         time.sleep(0.02)
 
 
+def tree_digests(state):
+    """(name, digest) of each tree of a state (its tensors' bytes and
+    names), then of its it and its generator's state: two ranks' states
+    are equal bit for bit where every pair is."""
+    import hashlib
+
+    import torch
+
+    trees = [("params_G", state.params_G), ("params_D", state.params_D),
+             ("batch_stats_D", state.batch_stats_D),
+             ("params_G_ema", state.params_G_ema or {})]
+    for name, opt in (("opt_state_G", state.opt_state_G),
+                      ("opt_state_D", state.opt_state_D)):
+        trees += [(f"{name}.mu", opt.mu), (f"{name}.nu", opt.nu),
+                  (f"{name}.count", {"count": opt.count})]
+    out = []
+    for name, tree in trees:
+        h = hashlib.sha256(" ".join(tree).encode())
+        if tree:
+            # a tree's bytes in one copy to the host (one wait on the card)
+            h.update(torch.cat([v.detach().reshape(-1).view(torch.uint8)
+                                for v in tree.values()]).cpu().numpy()
+                     .tobytes())
+        out.append((name, h.hexdigest()))
+    out.append(("it", str(state.it)))
+    out.append(("rng", hashlib.sha256(
+        state.rng.get_state().numpy().tobytes()).hexdigest()))
+    return tuple(out)
+
+
 def state_checksum(state):
     """A digest of every tensor of a state, its it and its generator's
     state: equal digests on two ranks are equal states, bit for bit."""
     import hashlib
 
-    import torch
+    return hashlib.sha256(repr(tree_digests(state)).encode()).hexdigest()
 
-    h = hashlib.sha256()
-    trees = [state.params_G, state.params_D, state.batch_stats_D,
-             state.params_G_ema or {}]
-    for opt in (state.opt_state_G, state.opt_state_D):
-        trees += [opt.mu, opt.nu, {"count": opt.count}]
-    for tree in trees:
-        # a tree's bytes in one copy to the host (one wait on the card)
-        h.update(" ".join(tree).encode())
-        if tree:
-            h.update(torch.cat([v.detach().reshape(-1).view(torch.uint8)
-                                for v in tree.values()]).cpu().numpy()
-                     .tobytes())
-    h.update(str(state.it).encode())
-    h.update(state.rng.get_state().numpy().tobytes())
-    return h.hexdigest()
+
+def differing_trees(sums):
+    """The names of the trees whose digests (``tree_digests``) differ
+    between the ranks' ``sums``."""
+    return sorted({name for i, (name, d) in enumerate(sums[0])
+                   if any(s[i][1] != d for s in sums[1:])})
 
 
 def float32_twin(gan, hr_shape):
@@ -4786,26 +5167,31 @@ def mesh_start(dev, card, tmp, resident):
                         **kw) for i in range(6)]
     serve_in = sample(np.random.default_rng(MESH_BATCHES), 8, p // cfg.scale,
                       p, zl, cfg.lr_num_channels)
+    model = model_batches(batches)
     torch.save(dict(ini=ini, coords=coords, shapes=shapes,
                     batch=tuple(t.cpu() for t in batches[0]),
                     steps=[tuple(t.cpu() for t in b) for b in batches[1:5]],
-                    serve=serve_in), os.path.join(tmp, "mesh_in.pt"))
+                    serve=serve_in, model=model),
+               os.path.join(tmp, "mesh_in.pt"))
     ctx = mp.start_processes(mesh_rank, args=(tmp,), nprocs=MESH_RANKS,
                              start_method="spawn", join=False)
     CHILDREN.extend(ctx.processes)
     for proc in ctx.processes:
         os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
     return dict(leg=leg, leg_t0=leg_t0, ctx=ctx, cfg=cfg, coords=coords,
-                shapes=shapes, batches=batches, serve_in=serve_in)
+                shapes=shapes, batches=batches, serve_in=serve_in,
+                model=model)
 
 
-def mesh_phase(dev, card, tmp, started, p5, settle=None):
+def mesh_phase(dev, card, tmp, started, p5, model_ref, settle=None):
     """Phase 13: the data mesh (parallel/), from ``mesh_start``. (b) phase
     5's steps 48-51 and val_step again on an NCCL mesh of one, from its
     state and on its batches (``p5``), against phase 5's result; (c) the
     two processes sharing the card over gloo against this one at batch 32;
     (d) serving on those two; (a) the entry point under torchrun at world
-    size 1 (NCCL), resuming phase 7's checkpoint, against phase 7.
+    size 1 (NCCL), resuming phase 7's checkpoint, against phase 7; (e) the
+    two as data 1 x model 2 against this process (``model_ref``,
+    model_reference's, made alone on the card at phase 13's start).
     ``settle`` (phase 14's wait for its eight processes' start-up) runs
     once the torchrun leg has ended, before the two ranks' timed steps get
     their go, so that nothing else works on the card beside them. Returns
@@ -5000,12 +5386,14 @@ def mesh_phase(dev, card, tmp, started, p5, settle=None):
             v["serve_launches"][0] != 1 for v in every):
         fail("(d) serving on two ranks disagrees or skipped the trunk kernel")
     done("(c, d)")
+    model_launches = model_report(card, res, model_ref, served1)
 
     secs = time.monotonic() - t0
     log(f"  phase 13 took {secs:.1f} s")
     g_ms = [[s[2] for s in v["steps"] if s[1]][-1] for v in every]
     d_ms = [[s[2] for s in v["steps"] if not s[1]][-1] for v in every]
-    return dict(launches=on_mesh,
+    return dict(launches=on_mesh, model_launches=model_launches,
+                model_s=[v["e_s"] for v in every],
                 rank_launches=[tuple(map(sum, zip(*[s[4] for s in v["steps"]])))
                                for v in every],
                 g_ms=g_ms, d_ms=d_ms,
@@ -5036,16 +5424,23 @@ SPATIAL_F32_BATCH = 2
 # gradient moves an entry by ±lr either way, and the D step's fake with it)
 SPATIAL_ITS = (49, 48)
 PHYSICS_KEYS = ("xy_gradient", "z_gradient", "divergence", "xy_divergence")
+# (d): the same eight ranks on all three axes, data 2 x model 2 x spatial
+# 2 (the geometry of the JAX package's tests/test_flagship_mesh.py), (b)'s
+# float32 steps with kernels 3 and 4, held to (b)'s one-process references
+# at (b)'s tolerances
+THREE_AXES = (2, 2, 2)
 
 
 class CollectiveSpy:
-    """Stands for ``torch.distributed`` in ``parallel/halo.py``: each
-    all_reduce synchronised on both sides and recorded as (what, bytes,
-    ms), 'halo' for the exchange's (s, 2, ...) buffers and 'gather' for
-    gather_x's."""
+    """Stands for ``torch.distributed`` in ``parallel/halo.py`` (or, with
+    ``kind``, in ``parallel/model.py``): each all_reduce synchronised on
+    both sides and recorded as (what, bytes, ms), 'halo' for the
+    exchange's (s, 2, ...) buffers and 'gather' for gather_x's, or
+    ``kind`` for every one."""
 
-    def __init__(self, real):
+    def __init__(self, real, kind=None):
         self.real = real
+        self.kind = kind
         self.calls = []
 
     def __getattr__(self, name):
@@ -5058,13 +5453,14 @@ class CollectiveSpy:
         t0 = time.monotonic()
         self.real.all_reduce(t, **kw)
         torch.cuda.synchronize()
-        self.calls.append(("halo" if t.dim() == 7 else "gather",
+        self.calls.append((self.kind or ("halo" if t.dim() == 7
+                                         else "gather"),
                            t.numel() * t.element_size(),
                            1e3 * (time.monotonic() - t0)))
 
     def summary(self):
         out = {}
-        for what in ("halo", "gather"):
+        for what in ((self.kind,) if self.kind else ("halo", "gather")):
             c = [x for x in self.calls if x[0] == what]
             out[what] = (len(c), sum(x[1] for x in c), sum(x[2] for x in c))
         return out
@@ -5135,7 +5531,8 @@ def spatial_rank(rank, tmp):
         wind_gradient_adjoint_reference,
     )
     from gan_sr_wind_field_tpu_torch.parallel import halo as halo_mod
-    from gan_sr_wind_field_tpu_torch.parallel import make_mesh
+    from gan_sr_wind_field_tpu_torch.parallel import make_mesh, shard_state
+    from gan_sr_wind_field_tpu_torch.parallel import model as model_mod
     from gan_sr_wind_field_tpu_torch.train import gan as gan_mod
     from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 
@@ -5175,13 +5572,17 @@ def spatial_rank(rank, tmp):
         state = gan.init_state(SPATIAL_SEED, *src["shapes"])
         grads = spy_grads(gan)
 
-        def steps_of(g, st, batches, n):
-            rows = mesh.rows(n)
+        mspy = CollectiveSpy(dist, kind="model")
+        model_mod.dist = mspy
+
+        def steps_of(g, st, batches, n, on=mesh):
+            rows = on.rows(n)
             out = []
             for it, b in zip(SPATIAL_ITS, batches):
                 st.it = it
                 b = tuple(t[rows].to(dev) for t in b)
                 spy.calls.clear()
+                mspy.calls.clear()
                 ar_ms.clear()
                 reset_counters()
                 torch.cuda.synchronize()
@@ -5191,7 +5592,8 @@ def spatial_rank(rank, tmp):
                 out.append(dict(
                     it=st.it, g_step=bool(m["is_g_step"]),
                     ms=1e3 * (time.monotonic() - t),
-                    collectives=spy.summary(), ar_ms=sum(ar_ms),
+                    collectives={**spy.summary(), **mspy.summary()},
+                    ar_ms=sum(ar_ms),
                     launches=counters(),
                     losses={k: float(m[k]) for k in (
                         "total", "pix", "adversarial", "D_train_loss",
@@ -5201,7 +5603,18 @@ def spatial_rank(rank, tmp):
         # (b)'s trainer and (c)'s server are built before the go too
         gan32 = WindFieldGAN(cfg32, src["coords"], src["coords"],
                              device=dev, mesh=mesh)
-        st32 = gan32.init_state(SPATIAL_SEED, *src["shapes32"])
+        # the same seed draws the same float32 weights in either compute
+        # dtype: a copy of (a)'s state spares the host a second draw
+        gan32.D = gan32._build_D(src["shapes32"][1])
+        st32 = copy_state(state)
+        # (d) on all three axes starts from the same state; its mesh,
+        # trainer and placed state are built before the go too
+        m3 = make_mesh(*THREE_AXES, devices=dev)
+        gan3 = WindFieldGAN(cfg32, src["coords"], src["coords"], device=dev,
+                            mesh=m3)
+        gan3.D = gan3._build_D(src["shapes32"][1])
+        whole3 = spy_grads_whole(gan3)
+        st3 = shard_state(copy_state(st32), m3)
         grads32 = spy_grads(gan32)
         sr = WindFieldSR(cfg, state.params_G, device=dev, mesh=mesh)
         res = dict(rank=rank, start_s=time.monotonic() - t_start)
@@ -5251,21 +5664,91 @@ def spatial_rank(rank, tmp):
         res["c_launches"] = counters()
         res["c_sum"] = __import__("hashlib").sha256(
             served.tobytes()).hexdigest()
+        res["c_s"] = time.monotonic() - t
+        del sr
+        torch.cuda.empty_cache()
+        # (d) all three axes on the same ranks: (b)'s steps from (b)'s
+        # seeded state, G's output channels over each model pair
+        t = time.monotonic()
+        st3, res["d"] = steps_of(gan3, st3, src["b"], SPATIAL_F32_BATCH,
+                                 on=m3)
+        d_grads = whole3()
+        res["d_sum"] = model_checksum(st3, m3)
+        res["d_place"] = (m3.rank, m3.model_rank, m3.spatial_rank)
+        res["d_s"] = time.monotonic() - t
+        del gan3, st3
         res["peak"] = torch.cuda.max_memory_allocated(dev)
         res["go_s"] = time.monotonic() - t_go
-        res["c_s"] = res["go_s"] - (t - t_go)
         every = [None] * mesh.world
         dist.all_gather_object(every, res, group=mesh.control)
         if rank == 0:
             t = time.monotonic()
             out = os.path.join(tmp, "spatial_out.pt")
             torch.save(dict(ranks=every, served=served, a_grads=a_grads,
-                            b_grads=grads32), out + ".part")
+                            b_grads=grads32, d_grads=d_grads),
+                       out + ".part")
             os.replace(out + ".part", out)  # the parent reads it whole
             log(f"  phase 14's rank 0 wrote its results in "
                 f"{time.monotonic() - t:.1f} s")
     finally:
         dist.destroy_process_group()
+
+
+def three_axes_report(card, every, out, ref):
+    """Phase 14 (d) from the eight ranks' results: per rank and step its
+    ms, halo exchanges, model-axis collectives and launches; G's
+    (gathered) and D's gradients against (b)'s one-process references (<=
+    SPATIAL_F32_TOL), the physics terms (<= SPATIAL_PHYS_TOL); each rank
+    at JAX's place, kernels 3 and 4 on every rank's G step, kernels 1, 2
+    and 5 on none, every rank's whole state equal. → each rank's launches
+    in (d)."""
+    d, m, s = THREE_AXES
+    for r, v in enumerate(every):
+        if v["d_place"] != (r // (m * s), r // s % m, r % s):
+            fail(f"(d) rank {r} sits at {v['d_place']}: not JAX's row-major "
+                 "place")
+        for st in v["d"]:
+            c = st["collectives"]
+            log(f"  (d) data {d} x model {m} x spatial {s}, float32 + "
+                f"kernels 3, 4, batch {SPATIAL_F32_BATCH}, rank {r} (row "
+                f"{r // (m * s)}, model {r // s % m}, slab {r % s}) it "
+                f"{st['it']} ({'G' if st['g_step'] else 'D'} step): "
+                f"{st['ms']:.1f} ms host clock; {c['halo'][0]} halo "
+                f"exchanges {c['halo'][1] / 1e6:.1f} MB {c['halo'][2]:.1f} "
+                f"ms; {c['model'][0]} model-axis collectives "
+                f"{c['model'][1] / 1e6:.1f} MB {c['model'][2]:.1f} ms; "
+                f"{c['gather'][0]} x gathers; the gradients' all_reduce "
+                f"{st['ar_ms']:.1f} ms; launches {LAUNCH_LABELS} "
+                f"{st['launches']} ({card})")
+            if st["launches"][:2] != (0, 0) or st["launches"][4] != 0 or (
+                    st["g_step"] and not (st["launches"][2] >= 2
+                                          and st["launches"][3] >= 1)):
+                fail(f"(d) rank {r} launched {st['launches']}: kernels 3 "
+                     "and 4 on its haloed slab, kernels 1, 2 and 5 off")
+    (g_err, d_err), worst = grad_errs(out["d_grads"], ref["b_grads"],
+                                      ref["names"], ref["n_G"])
+    log("  (d): the worst tensors, G: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in worst[0]) + "; D: "
+        + ", ".join(f"{n} {e:.2e}" for e, n in worst[1]))
+    perr = max(abs(st["losses"][k] - wt["losses"][k])
+               / max(abs(wt["losses"][k]), 1e-30)
+               for st, wt in zip(every[0]["d"], ref["b"])
+               if st["g_step"] for k in PHYSICS_KEYS)
+    apart = differing_trees([v["d_sum"] for v in every])
+    same = not apart
+    log(f"  (d) summed over the eight vs one process: G gradients (gathered "
+        f"whole) rel L2 {g_err:.3e}, D gradients {d_err:.3e} (tol "
+        f"{SPATIAL_F32_TOL:.0e}); the four physics terms' largest relative "
+        f"difference {perr:.3e} (tol {SPATIAL_PHYS_TOL:.0e}); G gathered "
+        f"(with its EMA and moments) and the replicated leaves equal on "
+        f"every rank after the steps: {same}"
+        + (f" (not {apart})" if apart else "") + "; "
+        f"{[round(v['d_s'], 1) for v in every]} s a rank ({card})")
+    if not (g_err <= SPATIAL_F32_TOL and d_err <= SPATIAL_F32_TOL
+            and perr <= SPATIAL_PHYS_TOL and same):
+        fail("(d) all three axes disagree with one process")
+    return [tuple(map(sum, zip(*[st["launches"] for st in v["d"]])))
+            for v in every]
 
 
 def spatial_inputs(dev, tmp, resident):
@@ -5446,23 +5929,6 @@ def spatial_phase(dev, card, tmp, started, ref):
         f"their go, at this phase's start, to their results, alone on the "
         f"card")
 
-    def grad_errs(key):
-        """G's and D's relative L2, and their three worst tensors (the
-        spied gradients come D step first)."""
-        names, n_g = ref["names"], ref["n_G"]
-        errs, worst = [], []
-        for i, (g, w) in enumerate(zip(out[f"{key}_grads"][::-1],
-                                       ref[f"{key}_grads"][::-1])):
-            errs.append(rel_l2(g, w))
-            part = names[:n_g] if i == 0 else names[n_g:]
-            each, at = [], 0
-            for name, n in part:
-                each.append((rel_l2(g[at:at + n], w[at:at + n])
-                             if w[at:at + n].norm() > 0 else 0.0, name))
-                at += n
-            worst.append(sorted(each, reverse=True)[:3])
-        return errs, worst
-
     for key, label in (("a", "(a) bf16, batch 8"),
                        ("b", "(b) float32 + kernels 3, 4, batch 2")):
         for r, v in enumerate(every):
@@ -5476,7 +5942,9 @@ def spatial_phase(dev, card, tmp, started, ref):
                     f"{c['gather'][1] / 1e6:.1f} MB {c['gather'][2]:.1f} ms; "
                     f"the gradients' all_reduce {st['ar_ms']:.1f} ms; "
                     f"launches {LAUNCH_LABELS} {st['launches']} ({card})")
-        (g_err, d_err), worst = grad_errs(key)
+        (g_err, d_err), worst = grad_errs(out[f"{key}_grads"],
+                                          ref[f"{key}_grads"], ref["names"],
+                                          ref["n_G"])
         log(f"  {label}: the worst tensors, G: "
             + ", ".join(f"{n} {e:.2e}" for e, n in worst[0]) + "; D: "
             + ", ".join(f"{n} {e:.2e}" for e, n in worst[1]))
@@ -5531,16 +5999,18 @@ def spatial_phase(dev, card, tmp, started, ref):
     if not (err <= SPATIAL_SERVE_TOL and same and served.shape == (
             8, 128, 128, 10, 3) and bool(np.isfinite(out["served"]).all())):
         fail("(c) serving on the spatial mesh disagrees")
+    d_launches = three_axes_report(card, every, out, ref)
     log(f"  peak memory a rank {[round(v['peak'] / 2**30, 2) for v in every]}"
-        f" GiB; seconds from the go to the results, (a) to (c), a rank "
+        f" GiB; seconds from the go to the results, (a) to (d), a rank "
         f"{[round(v['go_s'], 1) for v in every]}, of them (c) "
-        f"{[round(v['c_s'], 1) for v in every]} ({card})")
+        f"{[round(v['c_s'], 1) for v in every]} and (d) "
+        f"{[round(v['d_s'], 1) for v in every]} ({card})")
     # the ranks end on their own (main's cleanup stops any that has not)
     secs = time.monotonic() - t0
     log(f"  phase 14 took {secs:.1f} s")
     return dict(launches_spatial=[
         [sum(st["launches"][i] for st in v["b"]) for v in every]
-        for i in (2, 3)], seconds=secs,
+        for i in (2, 3)], launches_model=d_launches, seconds=secs,
         g_ms=[[st["ms"] for st in v["a"] if st["g_step"]][0] for v in every],
         d_ms=[[st["ms"] for st in v["a"] if not st["g_step"]][0]
               for v in every])
@@ -5855,8 +6325,10 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # the eight to be ready
     ref_sp = spatial_reference(dev, started_sp)
     done("phase 14's one-process references")
+    ref_model = model_reference(dev, started, p5_steps)
+    done("phase 13 (e)'s one-process references")
     open(os.path.join(tmp, "mesh_card"), "w").close()
-    mp_ = mesh_phase(dev, card, tmp, started, p5_steps,
+    mp_ = mesh_phase(dev, card, tmp, started, p5_steps, ref_model,
                      settle=lambda: spatial_ready(started_sp))
     del resident, started
     # --------------------------------------- 14. the spatial axis, fullvol
@@ -5888,8 +6360,12 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     ml = mp_["launches"]
 
     def mesh_keys(i):
+        # launches_model: the model-mesh ranks' own counts, phase 13 (e)'s
+        # two and phase 14 (d)'s eight (kernels 1, 2 and 5 off there)
         return dict(launches_mesh=ml[i], launches_mesh_ranks=[
-            r[i] for r in mp_["rank_launches"]])
+            r[i] for r in mp_["rank_launches"]], launches_model={
+                "phase13e_ranks": [r[i] for r in mp_["model_launches"]],
+                "phase14d_ranks": [r[i] for r in sp["launches_model"]]})
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
             serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0]

@@ -30,10 +30,14 @@ which pads it to a multiple of the data axis (``pad_batch_to``), runs this
 rank's rows through the same forward and kernels, and gathers the rows
 from every rank. On a spatial axis each rank runs its x slab of its rows,
 every conv with its x halo, so that one forward spans the data row's
-cards; the output is gathered along x, then over rows. There, as JAX's
-``dp_only`` rule says, the trunk and head kernels stay off, and int8
-serving raises (JAX ``eval/serve.py:133-136``). ``upscale_tiled`` on a
-mesh takes the host loop through ``upscale``, as JAX's does.
+cards; the output is gathered along x, then over rows. On a model axis
+each rank holds its output channels of every leaf JAX shards
+(``parallel/model.py``) and every sharded conv gathers its output over the
+model group, so each model rank's rows come out whole. On a model or
+spatial axis, as JAX's ``dp_only`` rule says, the trunk and head kernels
+stay off, and int8 serving raises (JAX ``eval/serve.py:133-136, 150-156``).
+``upscale_tiled`` on a mesh takes the host loop through ``upscale``, as
+JAX's does.
 
 ``quantize`` and ``quantize_trunk`` calibrate the int8 serving paths
 (``ops/quant.py``, ``ops/quant_trunk.py``, through the port's int8 conv
@@ -80,6 +84,7 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
 from gan_sr_wind_field_tpu_torch.parallel.collectives import gather_rows
 from gan_sr_wind_field_tpu_torch.parallel.halo import gather_x
 from gan_sr_wind_field_tpu_torch.parallel.mesh import pad_batch_to
+from gan_sr_wind_field_tpu_torch.parallel.model import sharded_keys
 from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
@@ -100,7 +105,9 @@ class WindFieldSR:
         ``norm_stats``: the training data's normalization factors (a
         ``NormStats``-like object or dict), needed by ``upscale_physical``.
         ``mesh``: a mesh to shard each batch over, its rows over the data
-        axis and its x over a spatial axis (not an idle rank's).
+        axis, its x over a spatial axis and G's output channels over a
+        model axis (not an idle rank's); ``params`` are whole on every
+        rank, each takes its channels.
         """
         if mesh is not None and mesh.idle:
             raise ValueError("an idle rank of the mesh serves nothing")
@@ -118,13 +125,23 @@ class WindFieldSR:
         self.G.load_state_dict(params, strict=True)
         G = self.G
         self.slab = None if mesh is None else mesh.slab()
-        if self.slab is not None:
+        channels = None if mesh is None else mesh.channels()
+        if channels is not None:
+            # this rank's output channels of each leaf JAX shards
+            keys = sharded_keys(params, mesh.model)
+            with torch.no_grad():
+                for k, p in G.named_parameters():
+                    if k in keys:
+                        p.data = channels.cut(p.data)
+            G.shard_channels(channels, keys)
+        if self.slab is not None or channels is not None:
             logging.getLogger("status").info(
-                f"spatial axis of {self.slab.size}: serving runs the "
-                "modules on x slabs; the trunk and HR-head kernels are off")
+                f"mesh {mesh.shape}: serving runs the modules (on x slabs "
+                "over a spatial axis, on output-channel shares over a model "
+                "axis); the trunk and HR-head kernels are off")
         self.packed = None
-        if self.slab is None and trunk_fusable(G.num_rdb_convs,
-                                               G.lff_kern_size, G.conv_mode):
+        if self.slab is None and channels is None and trunk_fusable(
+                G.num_rdb_convs, G.lff_kern_size, G.conv_mode):
             self.packed = pack_trunk_weights(G.rrdbs, G.dtype, self.device)
         self.head_packed = None
         if (self.packed is not None and head_kernel_flags(cfg)[1]
@@ -177,11 +194,11 @@ class WindFieldSR:
     def _check_quantizable(self) -> None:
         """The precondition JAX ``_generate_q`` raises on: the trunk-kernel
         path (``use_fused_trunk`` and a geometry the kernel takes), and no
-        spatial axis."""
-        if self.slab is not None:
+        model or spatial axis."""
+        if self.slab is not None or self.G.channels is not None:
             raise ValueError(
                 "quantized serving is a single-device path; use tiling "
-                "instead of a spatial mesh")
+                "instead of a model/spatial mesh")
         if not (getattr(self.cfg, "use_fused_trunk", False)
                 and self.packed is not None):
             raise ValueError(

@@ -19,6 +19,12 @@ takes ``padding_x`` planes from the neighbours (the halo exchange) and
 then convolves with no x padding, in either conv mode (a horizontal
 conv's windows lie along z, so its x halo is the same); the 1×1×1 LFF
 takes none. ``instance_norm`` sums each sample's moments over the slabs.
+
+On the model axis of a mesh (``parallel/model.py``) a ``ConvLReLU`` whose
+``channels`` is set (``Generator3D.shard_channels``) is given this rank's
+output channels of its weight and bias: it convolves the whole input
+(after its x halo) with them and gathers the whole output over the model
+group, the Megatron pair around the conv.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ from torch import nn
 
 from gan_sr_wind_field_tpu_torch.parallel.collectives import group_sum
 from gan_sr_wind_field_tpu_torch.parallel.halo import halo_exchange
+from gan_sr_wind_field_tpu_torch.parallel.model import (
+    gather_channels,
+    to_model,
+)
 
 
 def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
@@ -245,20 +255,29 @@ class ConvLReLU(nn.Module):
         self.lrelu = lrelu
         self.negative_slope = negative_slope
         self.dtype = dtype
+        # this rank's place on a model axis when its output channels are
+        # sharded (parallel/model.py), else None
+        self.channels = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 update_stats: bool = False, slab=None) -> torch.Tensor:
         """``slab``: x is this rank's x slab on a spatial axis
         (``parallel/halo.py``): the conv takes its x halo first and runs
-        with no x padding."""
+        with no x padding. With ``channels`` set the weight and bias hold
+        this rank's output channels, and the output is gathered whole;
+        the input's cotangent is summed over the model group."""
         conv = horizontal_conv3d_cl if self.horizontal else conv3d_cl
         x, pad = x.to(self.dtype), self.padding
         if slab is not None:
             x = halo_exchange(x, pad[0], slab)
             pad = (0,) + pad[1:]
+        if self.channels is not None:
+            x = to_model(x, self.channels)
         y = conv(x, self.weight.to(self.dtype), pad, self.strides)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
+        if self.channels is not None:
+            y = gather_channels(y, self.channels)
         if self.bn is not None:
             y = self.bn(y, train, update_stats)
         elif self.instance:

@@ -22,7 +22,10 @@ lrelu(hr_conv0) acts only with ``train=True``. Parameters are float32;
 ``dtype`` is the compute dtype. The output is float32. On the spatial axis
 of a mesh (``forward(slab=)``) the inputs and the output are this rank's x
 slabs and every conv takes its x halo (``models/blocks.py``); the kernels
-and int8 do not apply there, as JAX's ``dp_only`` rule keeps them off.
+and int8 do not apply there, as JAX's ``dp_only`` rule keeps them off. On
+the model axis (``shard_channels``) each conv whose leaves JAX shards
+computes this rank's output channels and gathers the rest; the forward is
+the modules', and its inputs and output are whole on every model rank.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ class Generator3D(nn.Module):
         self.dropout_probability = dropout_probability
         self.conv_mode = conv_mode
         self.dtype = dtype
+        self.channels = None  # set by shard_channels
 
         # every conv here keeps the z extent, so one z_in serves them all
         kw = dict(init_scale=init_scale, dtype=dtype, conv_mode=conv_mode,
@@ -106,6 +110,17 @@ class Generator3D(nn.Module):
         self.hr_conv1 = ConvLReLU(hr_feats, out_channels, use_bias=True,
                                   **hr_kw)
 
+    def shard_channels(self, channels, keys=frozenset()) -> None:
+        """Run each conv whose weight's key is in ``keys`` on this rank's
+        output channels (``channels``, ``parallel/model.py``), given as
+        its weight and bias, and gather its output; ``None`` turns every
+        conv back to whole weights."""
+        self.channels = channels if keys else None
+        for name, m in self.named_modules():
+            if isinstance(m, ConvLReLU):
+                m.channels = (channels if f"{name}.weight" in keys
+                              else None)
+
     def trunk(self, x: torch.Tensor, slab=None) -> torch.Tensor:
         """The RRDB chain, module by module (the plain path); on a
         ``slab`` each conv takes its x halo."""
@@ -133,7 +148,8 @@ class Generator3D(nn.Module):
         (``qhead``, which turns the head kernel off). In horizontal mode
         the kernels and int8 raise ValueError, as JAX's ``trunk_fusable``
         needs "3D", and so do they on a ``slab`` (this rank's x slab on a
-        spatial axis, ``parallel/halo.py``), where the modules run."""
+        spatial axis, ``parallel/halo.py``) and with ``shard_channels``
+        set, where the modules run."""
         if trunk not in ("modules", "kernel"):
             raise ValueError(f"unknown trunk {trunk!r}")
         if head not in ("modules", "kernel"):
@@ -144,11 +160,12 @@ class Generator3D(nn.Module):
             raise ValueError(f"conv_mode={self.conv_mode!r} runs the "
                              "modules only: the trunk and head kernels and "
                              "int8 need '3D'")
-        if slab is not None and (trunk != "modules" or head != "modules"
-                                 or qhead is not None or qtrunk is not None):
-            raise ValueError("a slab of the spatial axis runs the modules "
-                             "only: the kernels and int8 take whole "
-                             "volumes")
+        if (slab is not None or self.channels is not None) and (
+                trunk != "modules" or head != "modules"
+                or qhead is not None or qtrunk is not None):
+            raise ValueError("a slab of the spatial axis or a share of the "
+                             "model axis runs the modules only: the kernels "
+                             "and int8 take whole volumes and weights")
         if qtrunk is not None:
             trunk_fn = int8_trunk_fn(self, qtrunk)
         elif trunk == "modules":

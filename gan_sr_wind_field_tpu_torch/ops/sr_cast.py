@@ -31,12 +31,14 @@ import torch
 _HIGH_HALF = -(1 << 16)  # 0xFFFF0000 as an int32
 
 
-def draw_bits16(x: torch.Tensor, generator: torch.Generator
-                ) -> torch.Tensor:
+def draw_bits16(x: torch.Tensor, generator: torch.Generator,
+                shape=None) -> torch.Tensor:
     """Uniform 16-bit draws, one per element of ``x`` (int32 in
-    [0, 65536)), on ``x``'s device from ``generator``."""
-    return torch.randint(0, 1 << 16, x.shape, generator=generator,
-                         dtype=torch.int32, device=x.device)
+    [0, 65536)), or of ``shape`` where given, on ``x``'s device from
+    ``generator``."""
+    return torch.randint(0, 1 << 16, x.shape if shape is None else shape,
+                         generator=generator, dtype=torch.int32,
+                         device=x.device)
 
 
 def stochastic_round_bf16_with(x: torch.Tensor, bits16: torch.Tensor

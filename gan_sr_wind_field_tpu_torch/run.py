@@ -39,15 +39,14 @@ or that flag it raises. ``--download`` is accepted and raises
 ``NotImplementedError``: there is no network (``ROADMAP.md``).
 
 ``--train`` reads ``[PARALLEL]``: under ``torchrun`` it trains on a mesh
-of ``data_parallel`` rows (-1: every rank the spatial axis leaves) ×
+of ``data_parallel`` rows (-1: every rank the model and spatial axes
+leave) × ``tensor_parallel`` shares of G's output channels ×
 ``spatial_parallel`` x slabs (``parallel/mesh.py``), one card each
 (``cuda:LOCAL_RANK``; with ``--device cpu`` CPU processes over gloo), and
 shrinks the data axis to the largest divisor of the batch, as the JAX
-package does; ranks past the mesh are idle. ``tensor_parallel`` above 1
-raises ``NotImplementedError`` (not ported), and a mesh larger than the
-ranks started raises ``ValueError``. The other modes run in one process,
-as in the JAX package, and raise under ``torchrun`` with more than one
-rank::
+package does; ranks past the mesh are idle. A mesh larger than the ranks
+started raises ``ValueError``. The other modes run in one process, as in
+the JAX package, and raise under ``torchrun`` with more than one rank::
 
     torchrun --standalone --nproc_per_node=8 \
         -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
@@ -56,6 +55,11 @@ rank::
     torchrun --standalone --nproc_per_node=8 \
         -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
         --cfg configs/fullvol.ini
+    # [PARALLEL] tensor_parallel = 2 in a copy of the config: data 4 x
+    # model 2, G's output channels over the model axis
+    torchrun --standalone --nproc_per_node=8 \
+        -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
+        --cfg my_tp2.ini
 """
 
 from __future__ import annotations
@@ -258,13 +262,13 @@ def _train_main(cfg, args):
     an idle rank)."""
     batch = cfg.dataset_train.batch_size if cfg.dataset_train else 1
     world = world_size_from_env()
-    # raises for the model axis, and for more ranks than run
-    n, s = data_axis(cfg.parallel, world, batch)
+    # raises for more ranks than run
+    n, tp, s = data_axis(cfg.parallel, world, batch)
     if "RANK" not in os.environ:  # not under torchrun: one process
         return _main(cfg, args, resolve_device(args.device))
     device = init_distributed(args.device)
     try:
-        mesh = make_mesh(n, 1, s, devices=device)
+        mesh = make_mesh(n, tp, s, devices=device)
         if mesh.idle:
             return None
         return _main(cfg, args, resolve_device(device), mesh)

@@ -49,12 +49,22 @@ def _adam_to_dict(opt: AdamState) -> dict:
     return {"count": int(opt.count), "mu": opt.mu, "nu": opt.nu}
 
 
+def _whole(state) -> None:
+    """Raise for a state whose G holds one rank's channels only."""
+    if getattr(state, "sharded", None):
+        raise ValueError("the state's G is sharded over a model axis: "
+                         "gather_state(state, mesh) first")
+
+
 def save_checkpoint(run_folder: str, state: GANTrainState,
                     keep_last: int = 0) -> str:
     """Write a checkpoint for the state's current iteration; → its folder.
 
     ``keep_last`` > 0 prunes older ``ckpt_*`` folders down to that many
-    (0 keeps all, as the reference does)."""
+    (0 keeps all, as the reference does). The state must be whole: on a
+    model axis, ``parallel.gather_state`` first, so that a checkpoint is
+    the one-process format whatever mesh wrote it."""
+    _whole(state)
     it = int(state.it)
     path = os.path.abspath(os.path.join(run_folder, f"ckpt_{it}"))
     os.makedirs(path, exist_ok=True)

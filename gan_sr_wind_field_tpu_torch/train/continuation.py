@@ -138,7 +138,11 @@ def pack_from_state(path: str, state, it: Optional[int] = None,
                     extra_meta: Optional[Dict[str, Any]] = None) -> str:
     """Pack a port ``GANTrainState``'s weights (G, D, D's statistics and
     the EMA) in the JAX package's tree layout; → ``path``. Empty D
-    statistics are left out rather than stored as no keys."""
+    statistics are left out rather than stored as no keys. The state must
+    be whole (``parallel.gather_state`` on a model axis)."""
+    if getattr(state, "sharded", None):
+        raise ValueError("the state's G is sharded over a model axis: "
+                         "gather_state(state, mesh) first")
     params_D, stats = d_params_to_jax({**state.params_D,
                                        **state.batch_stats_D})
     ema = state.params_G_ema if include_ema else None

@@ -71,6 +71,24 @@ says, the trunk and HR-head kernels stay off there whatever the flags say
 (a halo per conv cannot enter one fused launch); the stencil kernels run
 on the widened slabs.
 
+On a mesh with a model axis (``parallel/model.py``) the state's G
+parameters, EMA and Adam moments hold this rank's output channels of each
+leaf JAX shards (``shard_state``; ``state.sharded`` names them), and every
+sharded conv gathers its output over the model group, so D, the physics
+and the loss run whole and replicated on every model rank: a model rank
+is a replica of its model index's loss, not a share of it. The sharded
+leaves' gradients are summed over the model index's ranks (data ×
+spatial); the replicated leaves' (D, hr_conv1) over the whole mesh and
+divided by the model axis's size, so that they stay equal bit for bit on
+every rank (each model rank computes them from the same bits, but cuDNN's
+float32 backward of D is not reproducible from one process to another
+on the card). The global gradient norm (clipping, ``G_grad_norm``) sums
+the sharded leaves' squares over the model group and counts the others once,
+and a stochastically rounded moment draws its bits at the whole leaf's
+shape and keeps its channels, so the step is the one-process step. The
+trunk and HR-head kernels stay off there too, as ``dp_only`` says; the
+stencil kernels run on every model rank.
+
 ``conv_mode = "horizontal_3D"`` (both models, from ``[GAN]``, as in the
 JAX package) runs G on its modules: the trunk and head kernels need "3D"
 (``trunk_fusable``), so ``use_fused_trunk`` and the head flags fall off,
@@ -122,6 +140,10 @@ from gan_sr_wind_field_tpu_torch.parallel.collectives import (
     group_mean,
 )
 from gan_sr_wind_field_tpu_torch.parallel.halo import gather_x, x_window
+from gan_sr_wind_field_tpu_torch.parallel.model import (
+    sharded_keys,
+    sharded_sq_norm,
+)
 from gan_sr_wind_field_tpu_torch.train import tricks
 from gan_sr_wind_field_tpu_torch.train.schedule import (
     label_values,
@@ -166,6 +188,9 @@ class GANTrainState:
     it: int  # completed iterations
     rng: torch.Generator
     params_G_ema: Optional[Params] = None
+    # the keys of params_G whose leaves (and EMA and Adam moments) hold
+    # this rank's output channels only (shard_state on a model axis)
+    sharded: frozenset = frozenset()
 
 
 def _clone(params: Params) -> Params:
@@ -185,6 +210,19 @@ def _adam_init(params: Params, dtype: torch.dtype = torch.float32
 
 def _global_norm(grads) -> torch.Tensor:
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+def _round_bf16(m: torch.Tensor, gen, channels=None) -> torch.Tensor:
+    """``m`` stochastically rounded to bf16 with draws from ``gen``; with
+    ``channels`` (m holds this rank's output channels of a leaf) the bits
+    are drawn at the whole leaf's shape and cut, as one process draws
+    them."""
+    if channels is None:
+        return sr_cast.stochastic_round_bf16(m, gen)
+    shape = list(m.shape)
+    shape[0] *= channels.size
+    bits = sr_cast.draw_bits16(m, gen, shape=shape)
+    return sr_cast.stochastic_round_bf16_with(m, channels.cut(bits))
 
 
 class WindFieldGAN:
@@ -230,6 +268,7 @@ class WindFieldGAN:
         self.y = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
         self.niter = float(t.niter)
         spatial = 1 if mesh is None else mesh.spatial
+        model = 1 if mesh is None else mesh.model
         if len(self.x) // cfg.scale % spatial:
             raise ValueError(
                 f"an LR x extent of {len(self.x) // cfg.scale} does not "
@@ -258,15 +297,25 @@ class WindFieldGAN:
         # the trunk kernels need a slope > 0 (the backward reads the sign
         # from the growths) and a geometry the kernels cover
         G = self.G
-        # JAX's dp_only: on a spatial axis the trunk and head kernels stay
-        # off (a halo per conv cannot enter one fused launch)
-        if spatial > 1:
+        # on a model axis the convs whose leaves JAX shards run on this
+        # rank's output channels and gather the rest
+        self._sharded = (sharded_keys(dict(G.named_parameters()), model)
+                         if model > 1 else frozenset())
+        G.shard_channels(None if mesh is None else mesh.channels(),
+                         self._sharded)
+        # JAX's dp_only: on a model or spatial axis the trunk and head
+        # kernels stay off (a halo or a channel gather per conv cannot
+        # enter one fused launch)
+        if spatial > 1 or model > 1:
             logging.getLogger("status").info(
-                f"spatial axis of {spatial}: the trunk kernels and the "
-                "HR-head kernel are off whatever use_fused_trunk and the "
-                "head flags say; the stencil kernels run on haloed slabs")
+                f"model axis of {model}, spatial axis of {spatial}: the "
+                "trunk kernels and the HR-head kernel are off whatever "
+                "use_fused_trunk and the head flags say; the stencil "
+                "kernels run on every rank"
+                + (" on haloed slabs" if spatial > 1 else ""))
         self.use_fused_trunk = (
-            spatial == 1 and getattr(cfg, "use_fused_trunk", False)
+            spatial == 1 and model == 1
+            and getattr(cfg, "use_fused_trunk", False)
             and G.negative_slope > 0
             and trunk_fusable(G.num_rdb_convs, G.lff_kern_size, g.conv_mode)
         )
@@ -418,7 +467,9 @@ class WindFieldGAN:
     def generate(self, state: GANTrainState, lr, z) -> torch.Tensor:
         """SR of an LR batch with the state's G: float32 (N, X, Y, Zl, 3).
         On a spatial axis G runs on this rank's slab and every rank of the
-        data row gets its rows whole."""
+        data row gets its rows whole; on a model axis every model rank gets
+        them whole."""
+        self._placed(state)
         lr, z = self._cut(self._as_input(lr), self._as_input(z))
         sr = self._g_forward_nograd(state.params_G, lr, z)
         return sr if self._slab is None else gather_x(sr, self._slab)
@@ -447,6 +498,25 @@ class WindFieldGAN:
         inside ``one_process``)."""
         return None if self.mesh is None else self.mesh.slab()
 
+    @property
+    def _channels(self):
+        """This rank's place on the model axis (None without one, and
+        inside ``one_process``)."""
+        return None if self.mesh is None else self.mesh.channels()
+
+    def _placed(self, state: GANTrainState) -> None:
+        """Raise unless ``state``'s G is cut as this trainer's mesh cuts
+        it: whole without a model axis, ``shard_state``'s on one."""
+        want = self._sharded if self._channels is not None else frozenset()
+        if state.sharded != want:
+            raise ValueError(
+                "the state's G is " + ("sharded" if state.sharded else
+                                       "whole")
+                + " and this trainer's "
+                + ("model axis shards it: shard_state(state, mesh) first"
+                   if want else "G is whole: gather_state(state, mesh) "
+                   "first"))
+
     def _cut(self, *ts):
         """This rank's x slab of each of ``ts`` (the rows whole in x)."""
         slab = self._slab
@@ -465,16 +535,19 @@ class WindFieldGAN:
     def one_process(self):
         """Inside, the steps run on this process's batch alone, with no
         collective, as without a mesh (the loop's validation on the first
-        rank)."""
+        rank), on a whole state (``gather_state``'s on a model axis)."""
         mesh, self.mesh = self.mesh, None
         if mesh is not None and self.D is not None:
             self.D.sync_batch_norm(None)
+        self.G.shard_channels(None)
         try:
             yield self
         finally:
             self.mesh = mesh
-            if mesh is not None and self.D is not None:
-                self.D.sync_batch_norm(mesh.group)
+            if mesh is not None:
+                self.G.shard_channels(mesh.channels(), self._sharded)
+                if self.D is not None:
+                    self.D.sync_batch_norm(mesh.group)
 
     def _n(self, rows: int) -> int:
         """The global batch of ``rows`` rows on each rank."""
@@ -699,7 +772,8 @@ class WindFieldGAN:
     # -------------------------------------------------------- optimizer
     def _adam_step(self, params: Params, grads, opt: AdamState, lr_t,
                    beta1: float, wd: float, finite=None,
-                   gen: Optional[torch.Generator] = None):
+                   gen: Optional[torch.Generator] = None,
+                   sharded: frozenset = frozenset()):
         """optax chain (clip_by_global_norm, add_decayed_weights,
         scale_by_adam(b2=0.999, eps=1e-8), scale(-1)), then p += u · lr_t
         (a float or a 0-d tensor), in place, Adam's count included. With
@@ -708,9 +782,17 @@ class WindFieldGAN:
         (``bfloat16_sr``) are updated in float32, as JAX
         ``bf16_sr_optimizer_state`` upcasts them, and stored back by
         stochastic rounding with draws from ``gen``, first moments then
-        second, each in the parameters' order. Returns the pre-clip global
+        second, each in the parameters' order. ``sharded`` names the
+        parameters that hold this rank's output channels on a model axis:
+        the norm sums their squares over the model group, and their
+        rounding bits are drawn whole and cut. Returns the pre-clip global
         gradient norm. No host sync."""
-        norm = _global_norm(grads)
+        channels = self._channels if sharded else None
+        if channels is None:
+            norm = _global_norm(grads)
+        else:
+            norm = torch.sqrt(sharded_sq_norm(
+                grads, [k in sharded for k in params], channels))
         if self.clip_norm is not None:
             grads = [torch.where(norm < self.clip_norm, g,
                                  g / norm * self.clip_norm) for g in grads]
@@ -738,10 +820,11 @@ class WindFieldGAN:
             torch._foreach_mul_(u, lr_t)
             new_p = torch._foreach_sub(ps, u)
             if sr:
-                new_mu = [sr_cast.stochastic_round_bf16(m, gen)
-                          for m in new_mu]
-                new_nu = [sr_cast.stochastic_round_bf16(m, gen)
-                          for m in new_nu]
+                cuts = [channels if k in sharded else None for k in params]
+                new_mu = [_round_bf16(m, gen, c)
+                          for m, c in zip(new_mu, cuts)]
+                new_nu = [_round_bf16(m, gen, c)
+                          for m, c in zip(new_nu, cuts)]
             olds = [*ps, *mu, *nu, opt.count]
             news = [*new_p, *new_mu, *new_nu, count]
             if finite is not None:
@@ -749,15 +832,26 @@ class WindFieldGAN:
             torch._foreach_copy_(olds, news)
         return norm
 
-    def _grads(self, loss, params: Params):
+    def _grads(self, loss, params: Params, sharded: frozenset = frozenset()):
         """The gradients of ``loss`` w.r.t. ``params``; on a mesh summed
-        over the group (one flat all_reduce), the global loss's."""
+        over the group (one flat all_reduce), the global loss's. On a model
+        axis only the ``sharded`` leaves (this rank's channels) are summed
+        so; the others, whole and computed on every model rank, are
+        averaged over the whole mesh (a sum over its ranks over the model
+        axis's size), so that they stay equal bit for bit."""
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params.values())]
-        if self.mesh is not None:
-            all_reduce_flat(grads, self.mesh.group)
+        mesh = self.mesh
+        if mesh is not None and mesh.model > 1:
+            all_reduce_flat([g for k, g in zip(params, grads)
+                             if k in sharded], mesh.group)
+            whole = [g for k, g in zip(params, grads) if k not in sharded]
+            all_reduce_flat(whole, mesh.world_group)
+            torch._foreach_div_(whole, float(mesh.model))
+        elif mesh is not None:
+            all_reduce_flat(grads, mesh.group)
         return grads
 
     # ----------------------------------------------------------- steps
@@ -767,6 +861,7 @@ class WindFieldGAN:
         its total w.r.t. ``state.params_G`` (a list in the dict's order),
         without the update: (total, losses, grads); on a mesh the batch's
         losses and the gradients summed over the group."""
+        self._placed(state)
         self._set_iteration(it)
         return self._g_grads(state, *self._cut(lr, hr, z), generator,
                              weights, dropout_mask)
@@ -778,7 +873,7 @@ class WindFieldGAN:
         loss, (losses, _) = self._g_losses(params, state, lr, hr, z, None,
                                            generator, True, weights,
                                            dropout_mask)
-        grads = self._grads(loss, params)
+        grads = self._grads(loss, params, state.sharded)
         return (losses["total"].detach(),
                 {k: v.detach() for k, v in losses.items()}, grads)
 
@@ -788,7 +883,8 @@ class WindFieldGAN:
         # included
         norm = self._adam_step(state.params_G, grads, state.opt_state_G,
                                self._sc["lr_G"], *self.opt_G,
-                               finite=torch.isfinite(loss), gen=state.rng)
+                               finite=torch.isfinite(loss), gen=state.rng,
+                               sharded=state.sharded)
         metrics["D_train_loss"] = torch.zeros((), device=self.device)
         if self.clip_norm is not None:
             metrics["G_grad_norm"] = norm
@@ -844,6 +940,7 @@ class WindFieldGAN:
         """The host's part of iteration ``state.it + 1``, before its device
         work: the schedules' values, and the frozen feature extractor's
         refresh (copied in place). Returns the iteration."""
+        self._placed(state)
         it = state.it + 1
         self._set_iteration(it)
         if self.use_feature_D:
@@ -941,6 +1038,7 @@ class WindFieldGAN:
         are written into ``state.batch_stats_D``, which is returned beside
         the metrics. On a mesh, ``lr``, ``hr`` and ``z`` are this rank's
         rows, and the metrics are the batch's."""
+        self._placed(state)
         lr, hr, z = self._cut(*(self._as_input(a) for a in (lr, hr, z)))
         gen = state.rng if generator is None else generator
         w = weights or self.default_weights

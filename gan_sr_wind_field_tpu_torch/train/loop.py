@@ -36,8 +36,11 @@ the first rank writes: logs, TensorBoard, images, profiles and
 checkpoints, with a barrier around each save; every rank resumes from the
 same file. Validation runs on the first rank alone on whole batches, as
 the one-process loop does, and D's running statistics it moves are then
-broadcast to the others. A stop (SIGTERM, the watchdog's) is agreed by
-every rank at each iteration.
+broadcast to the others. On a model axis every rank first gathers G's
+parameters, EMA and Adam moments whole (``gather_state``), so that the
+first rank validates and saves the one-process state: a checkpoint written
+on a model mesh is the one-process format. A stop (SIGTERM, the
+watchdog's) is agreed by every rank at each iteration.
 
 Where a save and a validation fall on one iteration, the port validates
 first: validation moves D's running statistics (as the reference does), so
@@ -61,7 +64,11 @@ from gan_sr_wind_field_tpu_torch.data.device_data import DeviceBatcher
 from gan_sr_wind_field_tpu_torch.data.pipeline import prefetch_to_device
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_trilinear_xy
-from gan_sr_wind_field_tpu_torch.parallel.mesh import replicate, shard_state
+from gan_sr_wind_field_tpu_torch.parallel.mesh import (
+    gather_state,
+    replicate,
+    shard_state,
+)
 from gan_sr_wind_field_tpu_torch.train import checkpoint as ckpt
 from gan_sr_wind_field_tpu_torch.train.gan import GANTrainState, WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.watchdog import StallWatchdog
@@ -185,6 +192,8 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         shard_state(state, mesh)
         slab = mesh.slab()
         status.info(f"data axis of {mesh.size} ranks"
+                    + ("" if mesh.model == 1 else
+                       f" x model axis of {mesh.model}")
                     + ("" if slab is None else
                        f" x spatial axis of {slab.size}, x slab {slab.index}")
                     + f" ({torch.distributed.get_backend(mesh.group)}): rows "
@@ -276,8 +285,10 @@ def train(cfg, dataset_train, dataset_validation, x, y,
             watchdog.grace(max(2 * cfg_t.stall_watchdog_s, 600))
         if mesh is not None:
             mesh.barrier()
+        # on a model axis every rank takes part in the gather
+        whole = state if mesh is None else gather_state(state, mesh)
         if lead:
-            path = ckpt.save_checkpoint(run_folder, state,
+            path = ckpt.save_checkpoint(run_folder, whole,
                                         keep_last=cfg_t.keep_checkpoints)
             status.info(f"saved checkpoint {path}")
         if mesh is not None:
@@ -316,11 +327,13 @@ def train(cfg, dataset_train, dataset_validation, x, y,
         if dataset_validation is not None and it % cfg_t.val_period == 0:
             if watchdog is not None:
                 watchdog.grace(max(6 * cfg_t.stall_watchdog_s, 1800))
+            # the whole state (a gather on a model axis: every rank); its
+            # D statistics are the state's own tensors, moved in place
+            whole = state if mesh is None else gather_state(state, mesh)
             if lead:
                 with gan.one_process():
-                    state = run_validation(cfg, gan, state,
-                                           dataset_validation, tb,
-                                           run_folder, it)
+                    run_validation(cfg, gan, whole, dataset_validation, tb,
+                                   run_folder, it)
             if mesh is not None:
                 # the statistics validation moved, on every rank
                 replicate(mesh, state.batch_stats_D)

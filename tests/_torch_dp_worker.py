@@ -21,6 +21,7 @@ import torch.multiprocessing as mp
 
 from gan_sr_wind_field_tpu_torch.parallel import (
     batch_sharding,
+    gather_state,
     gather_x,
     halo_exchange,
     init_distributed,
@@ -84,13 +85,26 @@ def checksum(state) -> str:
 
 def all_equal(mesh, value) -> bool:
     """Whether ``value`` is the same on every rank of the mesh."""
-    values = [None] * mesh.world
+    values = [None] * mesh.ranks
     dist.all_gather_object(values, value, group=mesh.control)
     return all(v == values[0] for v in values)
 
 
+def whole_grads(gan, state, grads) -> dict:
+    """G's gradients by name, gathered whole over a model axis."""
+    grads = dict(zip(state.params_G, grads))
+    channels = gan._channels
+    if channels is None:
+        return grads
+    from gan_sr_wind_field_tpu_torch.parallel.model import gather_trees
+
+    return gather_trees([grads], state.sharded, channels)[0]
+
+
 # ----------------------------------------------------------------- tasks
 def _gan(cfg, mesh, state0, coords):
+    """A trainer on ``mesh`` and ``state0`` placed on it (G cut over a
+    model axis)."""
     from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 
     gan = WindFieldGAN(cfg, coords, coords, device="cpu", mesh=mesh)
@@ -103,7 +117,7 @@ def _gan(cfg, mesh, state0, coords):
             for k, v in state.params_G_ema.items():
                 v.copy_(state0["params_G"][k])
     state.it = state0["it"]
-    return gan, state
+    return gan, shard_state(state, mesh)
 
 
 def _rows(mesh, batch):
@@ -128,6 +142,26 @@ def _d_grads(gan, state, lr, hr, z, it, gen=None):
     return float(value), grads, stats
 
 
+class _SummedGather(torch.autograd.Function):
+    """The model axis's gather with the wrong backward: the gathered
+    cotangent summed over the model group, then this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, y, channels):
+        from gan_sr_wind_field_tpu_torch.parallel.model import gather_channels
+
+        ctx.channels, ctx.c = channels, y.shape[-1]
+        with torch.no_grad():
+            return gather_channels(y, channels)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.channels.group)
+        i, c = ctx.channels.index, ctx.c
+        return g[..., i * c:(i + 1) * c], None
+
+
 def _local(gan, where):
     """Make one batch-global place of ``gan``'s step local to each rank's
     rows (a naive data-parallel step there): 'ragan' (the means of D's
@@ -136,7 +170,11 @@ def _local(gan, where):
     'no_halo' (each slab zero-padded as if it were its own volume),
     'per_sample_once' (D's per-sample terms counted whole on every rank of
     a data row) or 'bn_data_group' (D's batch statistics over the ranks of
-    one slab only). → the function that undoes it."""
+    one slab only); or, on a model axis: 'no_pair' (no identity before a
+    sharded conv, the gathered cotangent summed over the model group
+    instead), 'local_norm' (the clipping norm over this rank's slices
+    only) or 'grads_over_model' (G's sharded gradients summed over a group
+    that spans the model axis). → the function that undoes it."""
     import gan_sr_wind_field_tpu_torch.models.blocks as blocks_mod
     import gan_sr_wind_field_tpu_torch.train.gan as gan_mod
 
@@ -146,6 +184,24 @@ def _local(gan, where):
         blocks_mod.halo_exchange = lambda x, w, slab: torch.nn.functional.pad(
             x, (0, 0) * (x.dim() - 2) + (w, w))
         return lambda: setattr(blocks_mod, "halo_exchange", halo)
+    if where == "no_pair":
+        pair = blocks_mod.to_model, blocks_mod.gather_channels
+        blocks_mod.to_model = lambda x, channels: x
+        blocks_mod.gather_channels = _SummedGather.apply
+
+        def undo():
+            blocks_mod.to_model, blocks_mod.gather_channels = pair
+        return undo
+    if where == "local_norm":
+        norm = gan_mod.sharded_sq_norm
+        gan_mod.sharded_sq_norm = lambda grads, sharded, channels: sum(
+            (g.float() ** 2).sum() for g in grads)
+        return lambda: setattr(gan_mod, "sharded_sq_norm", norm)
+    if where == "grads_over_model":
+        real = gan_mod.all_reduce_flat
+        gan_mod.all_reduce_flat = lambda tensors, group: real(
+            tensors, mesh.world_group)
+        return lambda: setattr(gan_mod, "all_reduce_flat", real)
     if where == "per_sample_once":
         gan._mean = lambda t: t.sum() / (
             t.numel() * (mesh.size if t.dim() == 1 else mesh.world))
@@ -162,10 +218,53 @@ def _local(gan, where):
     return lambda: None
 
 
+def _grad_norm(gan, state, batch):
+    """The global norm of one G step's gradients, as the step clips them
+    (``_adam_step`` at learning rate 0 on this throwaway state)."""
+    grads = gan.g_grads(state, *batch, 1, state.rng)[2]
+    return float(gan._adam_step(state.params_G, grads, state.opt_state_G,
+                                0.0, 0.9, 0.0, sharded=state.sharded))
+
+
+def _feed_augmentation(draws):
+    """Make the step's augmentation take ``draws`` (per step: k, fx, fy
+    for the global batch, numpy) in turn: JAX's, so that a trajectory with
+    ``augment=True`` can be held against JAX's. → the undo."""
+    import gan_sr_wind_field_tpu_torch.train.gan as gan_mod
+
+    real, left = gan_mod.augment_draws, list(draws)
+
+    def fed(n, generator, device=None):
+        k, fx, fy = (torch.from_numpy(np.asarray(a)) for a in left.pop(0))
+        assert k.shape == (n,)
+        return k.long(), fx.bool(), fy.bool()
+
+    gan_mod.augment_draws = fed
+    return lambda: setattr(gan_mod, "augment_draws", real)
+
+
+def _mesh_run(mesh, cfg, p, key):
+    """G's forward (gathered over x and rows), one G step's losses and
+    whole gradients and one D step's on ``mesh``, from ``p``'s state and
+    batches; → them under ``key`` + 'generate', 'g', 'd'."""
+    gan, state = _gan(cfg, mesh, p["state"], p["coords"])
+    lr, _, z = _rows(mesh, p["gen_batch"])
+    n = p["gen_batch"][0].shape[0]
+    res = {f"generate{key}": gather_rows(gan.generate(state, lr, z),
+                                         mesh.data_group, mesh.rows(n), n)}
+    losses, grads = gan.g_grads(state, *_rows(mesh, p["g_batch"]), 1,
+                                state.rng)[1:]
+    res[f"g{key}"] = ({k: float(v) for k, v in losses.items()},
+                      whole_grads(gan, state, grads))
+    res[f"d{key}"] = _d_grads(gan, state, *_rows(mesh, p["d_batch"]), 0)
+    return res
+
+
 def task_jax_step(p):
-    """One G step's gradients, one D step's, val_step, an 8-step
-    trajectory and the negative controls on the mesh, from the JAX state;
-    → rank 0's results and whether every rank ended bit for bit equal."""
+    """One G step's gradients, one D step's, val_step, a trajectory (fed
+    JAX's augmentation draws with ``aug``) and the negative controls on the
+    mesh, from the JAX state; → rank 0's results and whether every rank
+    ended bit for bit equal (G gathered whole over a model axis)."""
     mesh = make_mesh(*p.get("axes", (-1,)))
     cfg = p["cfg"]
     gan, state = _gan(cfg, mesh, p["state"], p["coords"])
@@ -178,19 +277,29 @@ def task_jax_step(p):
     losses, grads = gan.g_grads(state, *_rows(mesh, p["g_batch"]), 1,
                                 state.rng)[1:]
     res["g"] = ({k: float(v) for k, v in losses.items()},
-                dict(zip(state.params_G, grads)))
+                whole_grads(gan, state, grads))
     res["d"] = _d_grads(gan, state, *_rows(mesh, p["d_batch"]), 0)
-    # the negative controls: one place local at a time
+    if cfg.training.use_grad_clipping:
+        res["g_norm"] = _grad_norm(*_gan(cfg, mesh, p["state"], p["coords"]),
+                                   _rows(mesh, p["g_batch"]))
+    # the negative controls: one place local (or wrong) at a time
     for where in p.get("controls", ("ragan", "physics", "bn")):
         g2, s2 = _gan(cfg, mesh, p["state"], p["coords"])
         undo = _local(g2, where)
-        if where in ("physics", "no_halo"):
-            res[f"local_{where}"] = dict(zip(s2.params_G, g2.g_grads(
-                s2, *_rows(mesh, p["g_batch"]), 1, s2.rng)[2]))
-        else:
-            res[f"local_{where}"] = _d_grads(g2, s2,
-                                             *_rows(mesh, p["d_batch"]), 0)
-        undo()
+        try:
+            if where == "local_norm":
+                res[f"local_{where}"] = _grad_norm(
+                    g2, s2, _rows(mesh, p["g_batch"]))
+            elif where in ("physics", "no_halo", "no_pair",
+                           "grads_over_model"):
+                res[f"local_{where}"] = whole_grads(g2, s2, g2.g_grads(
+                    s2, *_rows(mesh, p["g_batch"]), 1, s2.rng)[2])
+            else:
+                res[f"local_{where}"] = _d_grads(g2, s2,
+                                                 *_rows(mesh, p["d_batch"]),
+                                                 0)
+        finally:
+            undo()
     metrics, stats = gan.val_step(state, *_rows(mesh, p["val_batch"]))
     res["val"] = ({k: float(v) for k, v in metrics.items()},
                   {k: v.clone() for k, v in stats.items()})
@@ -198,25 +307,29 @@ def task_jax_step(p):
     cfg8 = dataclasses.replace(cfg)
     cfg8.training = dataclasses.replace(cfg.training, g_ema_decay=0.999)
     gan8, st = _gan(cfg8, mesh, p["state"], p["coords"])
+    undo = _feed_augmentation(p["aug"]) if "aug" in p else (lambda: None)
     steps = []
-    for batch in p["traj"]:
-        st, m = gan8.train_step(st, *_rows(mesh, batch))
-        steps.append({k: float(v) for k, v in m.items()})
-    res["traj"] = (steps, st.params_G, st.params_G_ema,
+    try:
+        for batch in p["traj"]:
+            st, m = gan8.train_step(st, *_rows(mesh, batch),
+                                    augment="aug" in p)
+            steps.append({k: float(v) for k, v in m.items()})
+    finally:
+        undo()
+    whole = gather_state(st, mesh)
+    res["traj"] = (steps, whole.params_G, whole.params_G_ema,
                    {**st.params_D, **st.batch_stats_D})
-    res["same_on_every_rank"] = all_equal(mesh, checksum(st))
-    if "axes2" in p:  # a second mesh of the same ranks: G and D steps
-        mesh2 = make_mesh(*p["axes2"])
-        gan2, state2 = _gan(cfg, mesh2, p["state"], p["coords"])
-        lr, _, z = _rows(mesh2, p["gen_batch"])
-        n = p["gen_batch"][0].shape[0]
-        res["generate2"] = gather_rows(gan2.generate(state2, lr, z),
-                                       mesh2.data_group, mesh2.rows(n), n)
-        losses, grads = gan2.g_grads(state2, *_rows(mesh2, p["g_batch"]), 1,
-                                     state2.rng)[1:]
-        res["g2"] = ({k: float(v) for k, v in losses.items()},
-                     dict(zip(state2.params_G, grads)))
-        res["d2"] = _d_grads(gan2, state2, *_rows(mesh2, p["d_batch"]), 0)
+    res["same_on_every_rank"] = all_equal(mesh, checksum(whole))
+    for key in ("2", "3"):  # other meshes of the same ranks
+        if f"axes{key}" in p:
+            res.update(_mesh_run(make_mesh(*p[f"axes{key}"]), cfg, p, key))
+    if "axes3" in p:  # each rank's place: JAX's device order
+        m3 = make_mesh(*p["axes3"])
+        where = [None] * m3.ranks
+        dist.all_gather_object(where, (dist.get_rank(), m3.rank,
+                                       m3.model_rank, m3.spatial_rank),
+                               group=m3.control)
+        res["coords3"] = where
     if "serve" in p:  # WindFieldSR(mesh=): the whole batch on every rank
         from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
 
@@ -240,13 +353,13 @@ def task_port_vs_port(p):
     mesh = make_mesh(*p.get("axes", (-1,)))
     cfg = p["cfg"]
     gan, state = _gan(cfg, mesh, p["state"], p["coords"])
-    shard_state(state, mesh)
     one = WindFieldGAN(cfg, p["coords"], p["coords"], device="cpu")
     ref = one.init_state(0, p["state"]["lr_shape"], p["state"]["hr_shape"])
     for tree in ("params_G", "params_D", "batch_stats_D", "params_G_ema"):
         with torch.no_grad():
             for k, v in getattr(ref, tree).items():
-                v.copy_(getattr(state, tree)[k])
+                v.copy_(p["state"]["params_G" if tree == "params_G_ema"
+                                   else tree][k])
     ref.it = state.it
     ref.rng.set_state(state.rng.get_state())
     errs = {}
@@ -277,7 +390,7 @@ def task_port_vs_port(p):
                              g2)
     for k, b in lr_.items():
         errs[f"G loss {k}"] = rel(lm[k], b)
-    rel_trees("G grad", dict(zip(state.params_G, gm)),
+    rel_trees("G grad", whole_grads(gan, state, gm),
               dict(zip(ref.params_G, gr)))
     g1, g2 = gens()
     dm = _d_grads(gan, state, *_rows(mesh, batch), 2, g1)
@@ -292,14 +405,15 @@ def task_port_vs_port(p):
         ref, mr = one.train_step(ref, *batch, augment=True)
         for k in ("total", "pix", "xy_gradient", "D_train_loss"):
             errs[f"step {state.it} {k}"] = rel(m[k], mr[k])
+    whole = gather_state(state, mesh)
     for tree in ("params_G", "params_G_ema", "batch_stats_D"):
-        rel_trees(tree, getattr(state, tree), getattr(ref, tree))
+        rel_trees(tree, getattr(whole, tree), getattr(ref, tree))
     biases = [k for k in ref.params_D if k.endswith(".bias")]
     rel_trees("params_D", state.params_D, ref.params_D, skip=biases)
     bias_diff = max(float((state.params_D[k] - ref.params_D[k]).abs().max())
                     for k in biases)
     return dict(errs=errs, bias_diff=bias_diff,
-                same_on_every_rank=all_equal(mesh, checksum(state)),
+                same_on_every_rank=all_equal(mesh, checksum(whole)),
                 same_rng=bool(torch.equal(state.rng.get_state(),
                                           ref.rng.get_state())))
 
@@ -490,6 +604,123 @@ def task_spatial_units(p):
     return dict(units=every, pvp=task_port_vs_port(p["pvp"]))
 
 
+def task_model_units(p):
+    """On 4 ranks: the model meshes and their groups, the Megatron pair
+    and its backward, every conv shape with its output channels over the
+    model axis, shard_state → gather_state, the rounding draws of a
+    sharded bf16 moment; then ``task_port_vs_port`` on ``p["pvp"]``'s
+    mesh. → every rank's unit results, gathered on rank 0, and rank 0's
+    port-vs-port result."""
+    from gan_sr_wind_field_tpu_torch.models.blocks import ConvLReLU
+    from gan_sr_wind_field_tpu_torch.ops import sr_cast
+    from gan_sr_wind_field_tpu_torch.parallel.model import (
+        gather_channels,
+        gather_trees,
+        to_model,
+    )
+    from gan_sr_wind_field_tpu_torch.train.gan import (
+        WindFieldGAN,
+        _round_bf16,
+    )
+
+    rank = dist.get_rank()
+    res = {"rank": rank}
+
+    def ranks(group):
+        return dist.get_process_group_ranks(group)
+
+    mesh = make_mesh(2, 2)
+    res["m22"] = (mesh.shape, tuple(mesh.device_mesh.mesh_dim_names),
+                  mesh.rank, mesh.model_rank, mesh.world, mesh.ranks,
+                  mesh.lead, ranks(mesh.group), ranks(mesh.data_group),
+                  ranks(mesh.model_group), ranks(mesh.world_group))
+    res["m-1x2"] = make_mesh(-1, 2).shape
+    spare = make_mesh(1, 2)
+    res["spare"] = (spare.idle, spare.shape, spare.model_rank)
+    channels = mesh.channels()
+
+    def leaf(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_()
+
+    # the pair around a channel map x @ W: this rank's columns, gathered
+    x = leaf(p["pair_x"])
+    w = torch.from_numpy(p["pair_w"])
+    w_m = channels.cut(w.T).T.clone().requires_grad_()
+    y = gather_channels(to_model(x, channels) @ w_m, channels)
+    (y * torch.from_numpy(p["pair_c"])).sum().backward()
+    res["pair"] = (y.detach(), x.grad.clone(), w_m.grad.clone())
+    # every conv shape of G on this rank's output channels
+    for name, kw in p["convs"].items():
+        conv = ConvLReLU(**kw, generator=torch.Generator().manual_seed(3))
+        # a horizontal kernel is (W, O, I, k…): its output channels are
+        # dimension 1 (the rule never shards it; the conv takes it all
+        # the same), moved to 0 for the cut and the gather
+        out = 1 if conv.weight.dim() == 6 else 0
+        with torch.no_grad():
+            conv.weight.data = channels.cut(
+                conv.weight.data.transpose(0, out)).transpose(
+                    0, out).contiguous()
+            if conv.bias is not None:
+                conv.bias.data = channels.cut(conv.bias.data)
+        conv.channels = channels
+        x = leaf(p["conv_x"][name])
+        y = conv(x)
+        (y * torch.from_numpy(p["conv_w"][name])).sum().backward()
+        grads = {"weight": conv.weight.grad.transpose(0, out)}
+        if conv.bias is not None:
+            grads["bias"] = conv.bias.grad
+        grads = gather_trees([grads], set(grads), channels)[0]
+        grads["weight"] = grads["weight"].transpose(0, out)
+        res[f"conv {name}"] = (y.detach(), x.grad.clone(), grads)
+    # shard_state then gather_state: the whole state back, bit for bit,
+    # with bf16 moments (a second dtype in the gather)
+    gan = WindFieldGAN(p["cfg_sr"], p["coords"], p["coords"], device="cpu",
+                       mesh=mesh)
+    whole = gan.init_state(5, p["lr_shape"], p["hr_shape"])
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for tree in (whole.opt_state_G.mu, whole.opt_state_G.nu):
+            for v in tree.values():
+                v.copy_(torch.randn(v.shape, generator=gen))
+    whole_g = {k: v.clone() for k, v in whole.params_G.items()}
+    before = {f"{name} {k}": v.clone() for name, tree in (
+        ("G", whole.params_G), ("EMA", whole.params_G_ema),
+        ("mu", whole.opt_state_G.mu), ("nu", whole.opt_state_G.nu))
+        for k, v in tree.items()}
+    state = shard_state(whole, mesh)
+    res["sharded"] = (sorted(state.sharded),
+                      tuple(state.params_G["feature_conv.weight"].shape),
+                      tuple(state.opt_state_G.mu["hr_conv1.weight"].shape))
+    back = gather_state(state, mesh)
+    after = {f"{name} {k}": v for name, tree in (
+        ("G", back.params_G), ("EMA", back.params_G_ema),
+        ("mu", back.opt_state_G.mu), ("nu", back.opt_state_G.nu))
+        for k, v in tree.items()}
+    res["round_trip"] = (not back.sharded,
+                         sorted(k for k in before
+                                if not torch.equal(before[k], after[k])))
+    # a sharded moment's rounding bits: drawn whole and cut
+    m = torch.from_numpy(p["moment"])
+    g1, g2 = (torch.Generator().manual_seed(11) for _ in range(2))
+    res["sr"] = torch.equal(_round_bf16(channels.cut(m), g1, channels),
+                            channels.cut(sr_cast.stochastic_round_bf16(m,
+                                                                       g2)))
+    # int8 serving on a model mesh raises, as JAX's does
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+
+    sr = WindFieldSR(p["cfg_sr"], whole_g, device="cpu", mesh=mesh)
+    for name in ("quantize", "quantize_trunk"):
+        try:
+            getattr(sr, name)(p["calib_lr"])
+            res[name] = None
+        except ValueError as e:
+            res[name] = str(e)
+    every = [None] * mesh.ranks
+    dist.all_gather_object(every, res, group=mesh.control)
+    return dict(units=every, pvp=task_port_vs_port(p["pvp"]))
+
+
 TASKS = {"jax_step": task_jax_step, "port_vs_port": task_port_vs_port,
          "units": task_units, "serve": task_serve,
-         "spatial_units": task_spatial_units}
+         "spatial_units": task_spatial_units,
+         "model_units": task_model_units}

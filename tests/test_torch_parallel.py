@@ -10,6 +10,8 @@ group's loss is that value times the ranks, and each gradient is checked
 against that: the factor is the trap ``parallel/collectives.py`` names.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch.distributed as dist
 
 from _torch_dp_worker import spawn
 from _torch_tiny import COORDS, HR_SHAPE, LR_SHAPE, tiny_cfg
+from gan_sr_wind_field_tpu_torch.config import Config
 from gan_sr_wind_field_tpu_torch.models.blocks import BatchNorm
 from gan_sr_wind_field_tpu_torch.ops.physics import gradient_norm_factors
 from gan_sr_wind_field_tpu_torch.parallel import (
@@ -25,6 +28,7 @@ from gan_sr_wind_field_tpu_torch.parallel import (
     pad_batch_to,
     shard_params,
 )
+from gan_sr_wind_field_tpu_torch.parallel.mesh import data_axis
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.step_graphs import capturable
 
@@ -75,17 +79,22 @@ def test_spare_ranks_are_idle(ranks):
 
 
 def test_model_and_spatial_axes_raise():
-    """Only the model axis raises now: it is not ported and says so,
-    naming ROADMAP.md, before any group is needed, with or without a
-    spatial axis beside it; its placement is the identity. A spatial axis
-    is built like the data axis, so without a process group it asks for
-    one (tests/test_torch_spatial_units.py builds it on 4 ranks)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_mesh(4, 2)
-    with pytest.raises(NotImplementedError, match="model axis"):
-        make_mesh(2, 2, 4)
-    with pytest.raises(RuntimeError, match="init_distributed"):
-        make_mesh(2, 1, 4)
+    """The model axis is ported (tests/test_torch_model_*.py) and is built
+    like the data and spatial axes: without a process group a mesh with a
+    model axis, with or without a spatial axis beside it, asks for one;
+    data_axis takes world // (tp·s) rows for data_parallel = -1 and names
+    --nproc_per_node for a mesh of more ranks than run; without a model
+    axis the placement of G's parameters is the identity. make_mesh(-1, 2)
+    takes world // 2 rows on 4 ranks in test_model_meshes_and_their_groups
+    (tests/test_torch_model_units.py)."""
+    for axes in ((4, 2), (2, 2, 4), (2, 1, 4)):
+        with pytest.raises(RuntimeError, match="init_distributed"):
+            make_mesh(*axes)
+    par = dataclasses.replace(Config().parallel, data_parallel=-1,
+                              tensor_parallel=2)
+    assert data_axis(par, 8, 8) == (4, 2, 1)
+    with pytest.raises(ValueError, match="nproc_per_node=2"):
+        data_axis(par, 1, 8)
     params = {"a": torch.ones(2)}
     assert shard_params(params, None) is params
 

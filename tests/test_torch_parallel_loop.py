@@ -132,7 +132,8 @@ def test_fullvol_config_is_refused():
     process. The eight-rank run is tests/test_torch_spatial.py's mesh and
     chip_smoke.py's phase 14."""
     cfg = load_config(os.path.join(REPO, "configs", "fullvol.ini"))
-    assert data_axis(cfg.parallel, 8, cfg.dataset_train.batch_size) == (2, 4)
+    assert data_axis(cfg.parallel, 8, cfg.dataset_train.batch_size) == (
+        2, 1, 4)
     for world in (1, 4, 7):
         with pytest.raises(ValueError, match="nproc_per_node=8"):
             data_axis(cfg.parallel, world, cfg.dataset_train.batch_size)

@@ -8,7 +8,13 @@ at its third block). The same eight ranks then build a second mesh, data
 4 × spatial 2, against JAX's ``make_mesh(4, 1, 2)``: there each LR slab
 holds two planes, each reading its neighbour's, and D runs on slabs to
 the flatten (HR slabs of 8 planes halve to one, the head's convs take
-their halo on one-plane slabs), as at fullvol.
+their halo on one-plane slabs), as at fullvol. Last, the same ranks build
+all three axes at once, data 2 × model 2 × spatial 2, against JAX's
+``make_mesh(2, 2, 2)`` (tests/test_spatial.py:test_dp_tp_sp_step_runs; the
+geometry of tests/test_flagship_mesh.py): G's forward, a G step and a D
+step, each conv's halo taken on the whole-channel slab and its output
+channels gathered over the model pair, with the ranks in JAX's device
+order.
 
 Checked: G's forward (JAX's own spatial bound, rtol 2e-4 / atol 1e-5),
 one G step's losses and gradients, one D step's, ``val_step``, a 3-step
@@ -53,11 +59,54 @@ from test_torch_parallel_step import (
 N = 4
 AXES = (2, 1, 4)
 AXES2 = (4, 1, 2)
+AXES3 = (2, 2, 2)
 CONTROLS = ("no_halo", "per_sample_once", "bn_data_group")
 
 
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _jax_mesh_run(jmesh, jstate0, batches, key):
+    """JAX's G forward, one G step's losses and gradients and one D
+    step's on ``jmesh``, under ``key`` + 'generate', 'g', 'd'."""
+    vs = volume_sharding(jmesh)
+    jgan = JaxGAN(tiny_cfg(False), COORDS, COORDS, mesh=jmesh)
+    jst = shard_state(jax.tree.map(jnp.copy, jstate0), jmesh)
+
+    def put(batch):
+        return tuple(jax.device_put(a, vs) for a in batch)
+
+    want = {}
+    lr, _, z = put(batches["gen_batch"])
+    want[f"generate{key}"] = np.asarray(jgan.generate(jst.params_G, lr, z))
+    keys = jgan._split_keys(jst.rng)
+    (_, (losses, _)), grads = jax.jit(jax.value_and_grad(
+        lambda p: jgan._g_losses(p, jst, *put(batches["g_batch"]),
+                                 jnp.int32(1), keys, True),
+        has_aux=True))(jst.params_G)
+    want[f"g{key}"] = ({k: float(v) for k, v in losses.items()},
+                       params_from_jax(_np(grads)))
+    lr, hr, z = put(batches["d_batch"])
+
+    def loss_d(p):
+        fake = jgan._g_forward_nograd(jst.params_G, lr, z)
+        return jgan._d_loss(p, jst.batch_stats_D, hr[..., :3], fake,
+                            jnp.int32(0), keys, True)
+
+    (loss, (bs, _, _)), g = jax.jit(jax.value_and_grad(
+        loss_d, has_aux=True))(jst.params_D)
+    want[f"d{key}"] = (float(loss), d_params_from_jax(_np(g)),
+                       d_params_from_jax({}, _np(bs)))
+    if key == "3":  # the device at each (data, model, spatial) place
+        want["devices3"] = np.vectorize(lambda d: d.id)(jmesh.devices)
+        # G's forward on one device: JAX's own generate on this mesh is
+        # not its forward (test_all_three_axes_match_jax)
+        lr, _, z = batches["gen_batch"]
+        one = JaxGAN(tiny_cfg(False), COORDS, COORDS)
+        want["generate_one"] = np.asarray(one.generate(jstate0.params_G, lr,
+                                                       z))
+    return want
 
 
 @pytest.fixture(scope="module")
@@ -118,42 +167,17 @@ def both(tmp_path_factory):
                      params_from_jax(_np(j.params_G_ema)),
                      d_params_from_jax(_np(j.params_D),
                                        _np(j.batch_stats_D)))
-    # the second mesh: G's forward, one G step's and one D step's gradients
-    jmesh2 = make_mesh(*AXES2)
-    vs2 = volume_sharding(jmesh2)
-    jgan2 = JaxGAN(tiny_cfg(False), COORDS, COORDS, mesh=jmesh2)
-    jst2 = shard_state(jax.tree.map(jnp.copy, jstate0), jmesh2)
-
-    def put2(batch):
-        return tuple(jax.device_put(a, vs2) for a in batch)
-
-    lr, _, z = put2(batches["gen_batch"])
-    want["generate2"] = np.asarray(jgan2.generate(jst2.params_G, lr, z))
-    keys2 = jgan2._split_keys(jst2.rng)
-    (_, (losses, _)), grads = jax.jit(jax.value_and_grad(
-        lambda p: jgan2._g_losses(p, jst2, *put2(batches["g_batch"]),
-                                  jnp.int32(1), keys2, True),
-        has_aux=True))(jst2.params_G)
-    want["g2"] = ({k: float(v) for k, v in losses.items()},
-                  params_from_jax(_np(grads)))
-    lr, hr, z = put2(batches["d_batch"])
-
-    def loss_d2(p):
-        fake = jgan2._g_forward_nograd(jst2.params_G, lr, z)
-        return jgan2._d_loss(p, jst2.batch_stats_D, hr[..., :3], fake,
-                             jnp.int32(0), keys2, True)
-
-    (loss, (bs, _, _)), g = jax.jit(jax.value_and_grad(
-        loss_d2, has_aux=True))(jst2.params_D)
-    want["d2"] = (float(loss), d_params_from_jax(_np(g)),
-                  d_params_from_jax({}, _np(bs)))
+    # the second and third meshes: G's forward, one G step's and one D
+    # step's gradients
+    for key, axes in (("2", AXES2), ("3", AXES3)):
+        want.update(_jax_mesh_run(make_mesh(*axes), jstate0, batches, key))
     serve_lr, _, serve_z = make_batch(6, n=N)
     want["serve"] = JaxSR(jgan, jstate0.params_G, mesh=jmesh).upscale(
         serve_lr, serve_z)
     got = spawn("jax_step", AXES[0] * AXES[2],
                 tmp_path_factory.mktemp("sp8"),
                 dict(cfg=tiny_cfg(True), coords=COORDS, axes=AXES,
-                     axes2=AXES2,
+                     axes2=AXES2, axes3=AXES3,
                      controls=CONTROLS, state=_port_state(jstate0),
                      serve=(params_from_jax(_np(jstate0.params_G)),
                             serve_lr, serve_z), **batches))
@@ -291,3 +315,46 @@ def test_slabs_to_the_flatten_match_jax(both, what):
         np.testing.assert_allclose(gl, wl, rtol=1e-5)
         _assert_params(gg, wg, D_TOL)
         _assert_params(gs, ws, STATS_TOL)
+
+
+@pytest.mark.parametrize("what", ["generate", "g", "d"])
+def test_all_three_axes_match_jax(both, what):
+    """On data 2 × model 2 × spatial 2 against JAX's make_mesh(2, 2, 2):
+    one G step's losses and gradients gathered whole, and one D step's
+    loss, gradients and moved statistics, at the spatial mesh's
+    tolerances. G's forward (each conv's halo on the whole-channel slab,
+    then its output channels over the model pair) is held to JAX's forward
+    on one device, at the same bound: JAX's own ``generate`` on
+    make_mesh(2, 2, 2) lies 2.1e-2 from it (and 6.4e-2 on make_mesh(1, 4,
+    2); within 1e-8 on meshes with only one of the model and spatial
+    axes: scripts/check_jax_mesh_forward.py), while its G and D steps on
+    that mesh, whose fakes the same G makes, agree with the port's
+    (ROADMAP.md §3)."""
+    want, got = both
+    if what == "generate":
+        assert got["generate3"].shape == (N, 16, 16, 4, 3)
+        np.testing.assert_allclose(got["generate3"].numpy(),
+                                   want["generate_one"], rtol=2e-4,
+                                   atol=1e-5)
+    elif what == "g":
+        (wl, wg), (gl, gg) = want["g3"], got["g3"]
+        for k, v in wl.items():
+            np.testing.assert_allclose(gl[k], v, rtol=1e-5, atol=1e-9,
+                                       err_msg=k)
+        _assert_params(gg, wg, G_TOL)
+    else:
+        (wl, wg, ws), (gl, gg, gs) = want["d3"], got["d3"]
+        np.testing.assert_allclose(gl, wl, rtol=1e-5)
+        _assert_params(gg, wg, D_TOL)
+        _assert_params(gs, ws, STATS_TOL)
+
+
+def test_three_axes_take_jaxs_device_order(both):
+    """Rank r of make_mesh(2, 2, 2) is at (data, model, spatial) where
+    JAX's make_mesh(2, 2, 2) puts device r: r = ((d·tp) + m)·s + x."""
+    want, got = both
+    devices = want["devices3"]
+    assert sorted(r for r, *_ in got["coords3"]) == list(range(8))
+    for r, d, m, x in got["coords3"]:
+        assert devices[d, m, x] == r == (d * 2 + m) * 2 + x
+

@@ -304,10 +304,10 @@ def test_ema_g_step_count_matches_enumeration():
 
 @pytest.mark.parametrize("what", ["mesh", "bfloat16_sr", "horizontal_3D"])
 def test_options_not_ported_raise(what):
-    """A mesh with a model axis raises (the data and spatial axes are
-    ported: tests/test_torch_parallel*.py, tests/test_torch_spatial*.py;
-    without a process group a spatial mesh asks for one); bfloat16_sr is
-    ported (its
+    """A mesh of any axes is ported (tests/test_torch_parallel*.py,
+    tests/test_torch_spatial*.py, tests/test_torch_model_*.py): without a
+    process group a mesh with a model or a spatial axis asks for one;
+    bfloat16_sr is ported (its
     moments are bf16,
     tests/test_torch_sr_cast.py trains with it), and so is horizontal_3D
     (tests/test_torch_horizontal.py): it builds 6-D kernels and leaves the
@@ -332,7 +332,7 @@ def test_options_not_ported_raise(what):
         assert state.opt_state_G.mu["feature_conv.weight"].dim() == 6
         assert state.params_D["blocks.0.conv.weight"].dim() == 6
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(1, 2, 1)
     with pytest.raises(RuntimeError, match="init_distributed"):
         make_mesh(1, 1, 4)

@@ -9,7 +9,8 @@ conv_mode = horizontal_3D and D's instance norm; then the data mesh
 (parallel/): training under torchrun, phase 5's steps on a mesh of one,
 two processes sharing the card over gloo, and serving on them; then the
 spatial axis: configs/fullvol.ini on data 2 x spatial 4, eight processes
-sharing the card.
+sharing the card; then milestone9k trained and tested from raw
+HARMONIE-SIMRA files instead of --synthetic.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
@@ -318,8 +319,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with their halo exchanges (count, bytes, ms), model-axis collectives,
      gathers and the gradients' all_reduce, the one-process steps, peak
      memory, the phase's seconds.
-  Phase 8's four command-line passes read the 6k pack once (PackMemo);
-  phase 13 pays with that.
+  15. the real-data path, once phase 14's ranks have ended, alone on the
+     card, in phase 7's temporary directory: (a) raw HARMONIE-SIMRA files
+     written with the port's analytic fields (netCDF3 classic through
+     scipy) for 2018-03-01 to 03, T00Z and T12Z, 13 timesteps at the raw
+     extent x 136 x y 135 whose crop is 128 x 128, 12 raw levels (the crop
+     keeps 1..10), x_wind_ml as int16 with scale_factor, add_offset and
+     _FillValue, one file (03-02 T12Z) left out and one hour (03-01 05)
+     with a fill voxel; (b) run.py --download (its main, in process) on a
+     copy of milestone9k with those dates, urllib.request.urlretrieve
+     replaced by a counter that raises: exactly one fetch attempt, for
+     the absent file, which invalid_files.txt names; the filled hour in
+     filtered_samples.txt and not cached; every cached hour and the
+     static file equal bit for bit to the raw files re-read with numpy
+     (unpacked, cropped, transposed, z reversed, float64); a second
+     --download fetches nothing and rewrites no file; (c) run.py --train
+     without --synthetic on that copy (bf16, batch 32, device-resident
+     data, on-card augmentation, the warm start from the 6k pack), 6000 ->
+     6004 with one validation and the save at 6004: finite logged losses,
+     the resident volumes equal to the cached hours after
+     reformat_sample, each of kernels 1 to 4 launched as the leg's G and
+     D steps, validation batches and generate calls predict, kernel 5 and
+     conv_int8 not at all; (d) run.py --test from its ckpt_6004 on the
+     held-out hours: one CSV row each and the averages row, finite PSNRs,
+     one kernel-1 launch per generate. Each part's seconds; the phase's
+     launches in the kernel line (launches_real_data).
+  The 6k pack is read from disk once, at phase 7's warm start, and every
+  later reader in this process (phases 8 to 10 and 15) takes its arrays
+  (PackMemo).
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -373,6 +400,8 @@ VERY_LONG_CALL_S = 0.2
 STENCIL_KERNELS = {"gradient": "grad_fwd", "adjoint": "grad_adj"}
 # the scratch read before a cold-L2 launch: 128 MiB, over twice the L2
 FLUSH_BYTES = 128 << 20
+# profiler windows device_ms tries before it fails
+PROFILE_WINDOWS = 4
 # limits set from measurements, reasons in PERF.md (section 6): the trainable
 # trunk end to end, float32 (5.5e-4 measured, from LeakyReLU sign flips of
 # pre-activations within rounding of 0), and one G step's bf16 gradients,
@@ -547,13 +576,14 @@ def device_ms(fn, kernel, flush=None, reps=5):
     warm-up); ``flush`` runs before each call, outside the kernel's time.
     The mean over the launches the trace holds (it may miss one). A window
     whose trace holds none of them (seen now and then, with the launch
-    counters showing the launches) is profiled once more, and said so."""
+    counters showing the launches; twice in a row once) is profiled again,
+    up to PROFILE_WINDOWS windows, and said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for window in range(2):
+    for window in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
@@ -566,8 +596,9 @@ def device_ms(fn, kernel, flush=None, reps=5):
         if 0 < n <= reps:
             return sum(e.self_device_time_total for e in hits) / n / 1e3
         log(f"  the profiler saw {n} launches of {kernel} in {reps} calls "
-            f"(window {window + 1} of 2)")
-    fail(f"the profiler saw {n} launches of {kernel} in {reps} calls, twice")
+            f"(window {window + 1} of {PROFILE_WINDOWS})")
+    fail(f"the profiler saw {n} launches of {kernel} in {reps} calls in "
+         f"each of {PROFILE_WINDOWS} windows")
 
 
 def ptxas_reports(log_text):
@@ -2264,14 +2295,17 @@ def test_copy(tmp, root, **flags):
 
 
 class PackMemo(Patches):
-    """Reads each continuation pack once through
-    ``checkpoint.load_continuation`` (every reader of weights in a
-    command-line pass goes through it) and hands later reads the same
-    arrays, which the readers copy onto the card; so phase 8's four passes
-    pay the pack's zlib once. ``reads`` holds the real reads' (path,
-    seconds)."""
+    """Reads the 6k pack (``PACK_6K``, committed, never rewritten) from
+    disk once for the whole smoke: its readers go through
+    ``checkpoint.load_continuation`` (the loop's warm start, every reader
+    of weights in a command-line pass) or ``eval.serve``'s
+    (``WindFieldSR.from_continuation``), and later reads get the first
+    read's arrays, which the readers copy onto the card; so phases 7 to
+    10 and 15 pay the pack's zlib once. Other packs are read as they are.
+    ``reads`` holds the real reads' (path, seconds)."""
 
     def __init__(self):
+        from gan_sr_wind_field_tpu_torch.eval import serve
         from gan_sr_wind_field_tpu_torch.train import checkpoint
 
         super().__init__()
@@ -2280,14 +2314,17 @@ class PackMemo(Patches):
 
         def wrap(real):
             def load(path):
-                if path not in cache:
+                if os.path.abspath(path) != PACK_6K:
+                    return real(path)
+                if not cache:
                     t = time.monotonic()
-                    cache[path] = real(path)
+                    cache[PACK_6K] = real(path)
                     reads.append((path, time.monotonic() - t))
-                return cache[path]
+                return cache[PACK_6K]
             return load
 
         self.patch(checkpoint, "load_continuation", wrap)
+        self.patch(serve, "load_continuation", wrap)
 
 
 def cli_pass(label, cwd, *argv):
@@ -2401,12 +2438,13 @@ def check_trunk_on_field(ini, probe, dev):
     torch.cuda.empty_cache()
 
 
-def eval_phase(dev, card, tmp, state, ckpt_path):
+def eval_phase(dev, card, tmp, state, ckpt_path, packs):
     """Phase 8: pack the live state of phase 7 and read it back, serve its
     ckpt_6008 (from_checkpoint and the server's --checkpoint), then the
     held-out test chain, --test_ema, a pass through the HR-head kernel and
-    --use, as a user runs them (run.main in process). Returns the trunk
-    and head kernels' launches and times."""
+    --use, as a user runs them (run.main in process), on the 6k pack that
+    ``packs`` (a PackMemo) read at phase 7. Returns the trunk and head
+    kernels' launches and times."""
     import dataclasses
     import pickle
 
@@ -2516,9 +2554,8 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     del captured
     torch.cuda.empty_cache()
 
-    # 3. the held-out test chain as a user runs it; the four passes read
-    # the 6k pack once
-    memo = PackMemo()
+    # 3. the held-out test chain as a user runs it, on the 6k pack that
+    # phase 7 read (PackMemo)
     avgs_jax, fields_jax = jax_test_result()
     jax_raw, jax_ema = avgs_jax["milestone6k"], avgs_jax["milestone6k_ema"]
     copy_ini = test_copy(tmp, "test")
@@ -2587,13 +2624,12 @@ def eval_phase(dev, card, tmp, state, ckpt_path):
     # 5. --use: the SR field dumps of the test split
     _, _, use_launches, use_s = cli_pass("--use", cwd, "--cfg", copy_ini,
                                          "--use")
-    memo.close()
-    log(f"  the four passes read {len(memo.reads)} pack(s) from disk: "
+    log(f"  the 6k pack read from disk {len(packs.reads)} time(s) so far: "
         + ", ".join(f"{os.path.basename(path)} in {secs:.3f} s"
-                    for path, secs in memo.reads)
-        + "; the later passes took the first read's arrays")
-    if len(memo.reads) != 1:
-        fail("phase 8's passes did not read the 6k pack exactly once")
+                    for path, secs in packs.reads)
+        + " (phase 7's warm start); the four passes took its arrays")
+    if len(packs.reads) != 1:
+        fail("the 6k pack was read from disk more than once")
     runs = os.path.join(tmp, "test", "runs")
     fields = os.path.join(runs, sorted(os.listdir(runs))[-1], "fields")
     dumps = sorted(os.listdir(fields))
@@ -6016,6 +6052,342 @@ def spatial_phase(dev, card, tmp, started, ref):
               for v in every])
 
 
+# phase 15: milestone9k as committed fed from raw HARMONIE-SIMRA files
+# instead of --synthetic. The files are written here (netCDF3 classic, the
+# port's analytic fields): three days from REAL_START, T00Z and T12Z, 13
+# timesteps, the raw extent whose crop is 128 x 128 and 12 raw levels (the
+# crop keeps levels 1..10; the real files hold over 40: a cut in depth of
+# the raw file only); x_wind_ml packed as int16; one file left out and one
+# hour with a fill voxel. The leg is 6000 -> 6004 from the 6k pack.
+REAL_START = (2018, 3, 1)
+REAL_DAYS = 3
+REAL_RAW = (136, 135, 12)          # raw x, y, levels
+REAL_PACKED = "x_wind_ml"
+REAL_ABSENT = (1, "T12Z.nc")       # (day, simulation) not on disk
+REAL_FILL = (0, "T00Z.nc", 5)      # (day, simulation, timestep) filled
+REAL_RAW_VARS = ("geopotential_height_ml", "x_wind_ml", "y_wind_ml",
+                 "upward_air_velocity_ml", "air_pressure_ml")
+
+
+class Fetches(Patches):
+    """``urllib.request.urlretrieve`` replaced by a counter that raises:
+    ``urls`` holds the URLs it was asked for."""
+
+    def __init__(self):
+        import urllib.request
+
+        super().__init__()
+        self.urls = []
+        urls = self.urls
+
+        def refuse(real):
+            def refused(url, *a, **kw):
+                urls.append(url)
+                raise OSError(f"no network in the smoke: {url}")
+            return refused
+
+        self.patch(urllib.request, "urlretrieve", refuse)
+
+
+def plain_raw_hours(path, nz):
+    """A raw file by hand, with scipy's reader and no masking or scaling:
+    the packed variable's int16 × scale_factor + add_offset in float64,
+    its _FillValue as NaN, the others as float64; (t, z, x, y) → (t, x,
+    y, z), z reversed, the last timestep dropped, the crop x 4:-4, y 4:-3,
+    z 1:1+nz. → ({variable: (12, X, Y, nz)}, (terrain, x, y) cropped)."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    f = netcdf_file(path, "r", mmap=False, maskandscale=False)
+    try:
+        out = {}
+        for name in REAL_RAW_VARS:
+            var = f.variables[name]
+            a = var.data.astype(np.float64)
+            if name == REAL_PACKED:
+                a = a * var.scale_factor + var.add_offset
+                a[var.data == var._FillValue] = np.nan
+            out[name] = np.transpose(a, (0, 2, 3, 1))[:-1, :, :, ::-1][
+                :, 4:-4, 4:-3, 1:1 + nz]
+        static = (f.variables["surface_altitude"].data.astype(
+            np.float64)[4:-4, 4:-3],
+            1e5 * f.variables["x"].data.astype(np.float64)[4:-4],
+            1e5 * f.variables["y"].data.astype(np.float64)[4:-3])
+    finally:
+        f.close()
+    return out, static
+
+
+def real_config(tmp, **env):
+    """Phase 7's copy of milestone9k (folders in ``tmp``/real, the 6k pack,
+    the leg's schedule with the validation at LEG_MID) with the phase's
+    own data root, its dates cut to REAL_DAYS days, and ``env``."""
+    from datetime import date, timedelta
+
+    cfg, path = leg_config(tmp, "real", val_period=LEG_MID - LEG_FROM)
+    cfg.env.data_root = os.path.join(tmp, "real", "data")
+    start = date(*REAL_START)
+    end = start + timedelta(days=REAL_DAYS - 1)
+    cfg.gan_config.start_date = [start.year, start.month, start.day]
+    cfg.gan_config.end_date = [end.year, end.month, end.day]
+    for k, v in env.items():
+        setattr(cfg.env, k, v)
+    cfg.save(path)
+    return cfg, path
+
+
+def files_mtimes(root):
+    return {os.path.join(d, n): os.stat(os.path.join(d, n)).st_mtime_ns
+            for d, _, names in os.walk(root) for n in names}
+
+
+def real_data_phase(dev, card, tmp):
+    """Phase 15: (a) the raw files; (b) run.py --download, then again; (c)
+    run.py --train without --synthetic, 6000 -> 6004; (d) run.py --test
+    from its ckpt_6004. Returns the launches of (c) and (d) and the
+    seconds."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from datetime import date, timedelta
+
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch import run
+    from gan_sr_wind_field_tpu_torch.data import downloader
+    from gan_sr_wind_field_tpu_torch.data import files as dfiles
+    from gan_sr_wind_field_tpu_torch.data import preprocess
+    from gan_sr_wind_field_tpu_torch.data.device_data import DeviceBatcher
+    from gan_sr_wind_field_tpu_torch.data.synthetic import (
+        write_raw_simulation,
+    )
+    from gan_sr_wind_field_tpu_torch.data.transform import reformat_sample
+
+    t = [time.monotonic()]
+
+    def took(part):
+        t.append(time.monotonic())
+        log(f"  ({part}) took {t[-1] - t[-2]:.1f} s")
+
+    cfg, ini = real_config(tmp)
+    g = cfg.gan_config
+    nz = g.number_of_z_layers
+    root = cfg.env.data_root
+    raw_dir = os.path.join(root, "downloaded_raw_bessaker_data")
+    os.makedirs(raw_dir)
+    days = [date(*REAL_START) + timedelta(days=d) for d in range(REAL_DAYS)]
+    sims = [(d, s) for d in range(REAL_DAYS) for s in downloader.SIM_TIMES]
+    on_disk = [(d, s) for d, s in sims if (d, s) != REAL_ABSENT]
+    nx, ny, nz_raw = REAL_RAW
+    log(f"real-data path: {os.path.basename(CFG)} copy, {days[0]} to "
+        f"{days[-1]}, raw files {nx}x{ny}x{nz_raw} x 13 timesteps "
+        f"(netCDF3, {REAL_PACKED} int16), {len(on_disk)} of {len(sims)} on "
+        f"disk, hour {REAL_FILL[2]} of day {REAL_FILL[0]} {REAL_FILL[1]} "
+        f"with a fill")
+
+    # (a) the raw files, one thread each
+    def write(sim):
+        d, s = sim
+        fill = ((REAL_FILL[2], REAL_PACKED) if (d, s) == REAL_FILL[:2]
+                else None)
+        write_raw_simulation(
+            os.path.join(raw_dir, downloader.raw_filename(days[d], s)),
+            nx, ny, nz_raw, seed=sims.index(sim), packed=(REAL_PACKED,),
+            fill=fill)
+
+    with ThreadPoolExecutor(max_workers=len(on_disk)) as pool:
+        list(pool.map(write, on_disk))
+    raw_mb = sum(os.path.getsize(os.path.join(raw_dir, n))
+                 for n in os.listdir(raw_dir)) / 1e6
+    log(f"  (a) wrote {len(on_disk)} raw files, {raw_mb:.1f} MB")
+    took("a")
+
+    # (b) run.py --download with the network refused, then once more
+    absent = downloader.raw_filename(days[REAL_ABSENT[0]], REAL_ABSENT[1])
+    filled = downloader._hour_names(days[REAL_FILL[0]], REAL_FILL[1])[
+        REAL_FILL[2]]
+    gone = {filled, *downloader._hour_names(days[REAL_ABSENT[0]],
+                                            REAL_ABSENT[1])}
+    want = [n for n in dfiles.filenames_from_dates(days[0], days[-1])
+            if n not in gone]
+    fetches = Fetches()
+    try:
+        names = run.main(["--download", "--cfg", ini])
+        first_urls = list(fetches.urls)
+        folder = dfiles.dataset_folder(root, f"bessaker_z{nz}")
+        mtimes = files_mtimes(root)
+        again = run.main(["--download", "--cfg", ini])
+    finally:
+        fetches.close()
+    with open(os.path.join(raw_dir, "invalid_files.txt")) as f:
+        invalid = f.read().splitlines()
+    with open(os.path.join(folder, "filtered_samples.txt")) as f:
+        filtered = f.read().splitlines()
+    log(f"  (b) --download: {len(names)} hours cached of "
+        f"{len(dfiles.filenames_from_dates(days[0], days[-1]))}; fetch "
+        f"attempts {first_urls}; invalid_files.txt {invalid}; "
+        f"filtered_samples.txt {filtered}")
+    if not (names == want and first_urls == [
+            downloader.nc_url(days[REAL_ABSENT[0]], REAL_ABSENT[1])]
+            and invalid == [absent] and filtered == [filled]
+            and not os.path.exists(dfiles.sample_path(folder, filled))):
+        fail("(b) the download's hours, fetches or bookkeeping are not "
+             "the raw files'")
+    terrain = None
+    for d, s in on_disk:
+        hours, static = plain_raw_hours(
+            os.path.join(raw_dir, downloader.raw_filename(days[d], s)), nz)
+        if terrain is None:  # the first file that opens
+            terrain = static[0]
+            got = dfiles.read_static(os.path.join(root,
+                                                  "full_dataset_files"))
+            if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                       for a, b in zip(got, static)):
+                fail("(b) the static file is not the first raw file's")
+        for h, name in enumerate(downloader._hour_names(days[d], s)):
+            if name == filled:
+                continue
+            z = hours["geopotential_height_ml"][h]
+            plain = (z, z - terrain[:, :, None],
+                     *(hours[v][h] for v in REAL_RAW_VARS[1:]))
+            cached = dfiles.read_sample(folder, name)
+            if not all(a.dtype == np.float64 and np.array_equal(a, b)
+                       for a, b in zip(cached, plain)):
+                fail(f"(b) cached hour {name} is not its raw file's")
+    log(f"  (b) every cached hour equal bit for bit to its raw file "
+        f"re-read with numpy (unpacked, cropped, transposed, z reversed, "
+        f"float64): True; the static file too: True")
+    rewritten = [p for p, m in files_mtimes(root).items()
+                 if mtimes.get(p) != m]
+    log(f"  (b) a second --download: {len(again)} hours, fetch attempts "
+        f"{fetches.urls[len(first_urls):]}, files rewritten {rewritten}")
+    if again != names or fetches.urls != first_urls or rewritten:
+        fail("(b) the second download did work again")
+    took("b")
+
+    # (c) the leg through the command line, without --synthetic
+    batchers = []
+
+    def keep(real):
+        def init(self, *a, **kw):
+            real(self, *a, **kw)
+            batchers.append(self)
+        return init
+
+    probe = LegProbe()
+    probe.patch(DeviceBatcher, "__init__", keep)
+    reset_counters()
+    fetches = Fetches()
+    try:
+        state = run.main(["--cfg", ini, "--train", "--max_steps",
+                          str(LEG_MID)])
+    finally:
+        fetches.close()
+        probe.close()
+    torch.cuda.synchronize()
+    launches = counters() + (int8_launches(),)
+    ds_train, ds_test, ds_val, _, _ = preprocess(cfg, synthetic=False)
+    its = range(LEG_FROM + 1, LEG_MID + 1)
+    period = cfg.training.d_g_train_period
+    g_steps = [(it // period) % (cfg.training.d_g_train_ratio + 1) == 0
+               for it in its]
+    n_g, n_d = sum(g_steps), len(g_steps) - sum(g_steps)
+    val_batches = math.ceil(len(ds_val) / cfg.dataset_val.batch_size)
+    predicted = tuple(
+        n_g * a + n_d * b + val_batches * c + e
+        for a, b, c, e in zip(G_STEP_LAUNCHES, D_STEP_LAUNCHES,
+                              VAL_LAUNCHES, GENERATE_LAUNCHES)) + (0,)
+    log(f"  (c) --train {LEG_FROM} -> {LEG_MID} on {len(ds_train)} train / "
+        f"{len(ds_val)} val / {len(ds_test)} test hours: {n_g} G steps, "
+        f"{n_d} D steps, {val_batches} validation batches, "
+        f"{probe.calls['generate']} generate calls; launches "
+        f"{LAUNCH_LABELS}/conv_int8 {launches}, predicted {predicted}")
+    if (not probe.steps or probe.steps[0][3] != LEG_FROM
+            or state.it != LEG_MID or fetches.urls
+            or [s[1] for s in probe.steps] != g_steps
+            or probe.calls != {"val_step": val_batches, "generate": 1}):
+        fail(f"(c) the leg ran {[s[0] for s in probe.steps]} to {state.it} "
+             f"with calls {probe.calls} and fetches {fetches.urls}")
+    if launches != predicted:
+        fail(f"(c) the leg launched {launches}, predicted {predicted}")
+    with open(os.path.join(tmp, "real", "log", "status.log")) as f:
+        status = f.read()
+    logged = re.findall(rf"it {LEG_MID} G_total (\S+) D (\S+)", status)
+    vals = re.findall(rf"validation it {LEG_MID}: PSNR (\S+) \(trilinear "
+                      r"(\S+)\) G_total (\S+)", status)
+    log(f"  (c) logged it {LEG_MID} (G_total, D) {logged}; validation "
+        f"(PSNR, trilinear, G_total) {vals}")
+    if not (len(logged) == len(vals) == 1 and all(
+            math.isfinite(float(v)) for v in (*logged[0], *vals[0]))):
+        fail("(c) the leg's logged losses are not finite")
+    (batcher,) = batchers
+    full, zraw = batcher.full.cpu().numpy(), batcher.zraw.cpu().numpy()
+    same = full.shape[0] == zraw.shape[0] == len(ds_train)
+    for i, name in enumerate(ds_train.filenames if same else ()):
+        # the cached hour as the loop's float32 memmap (npcache) holds it
+        lr1, _, zt = reformat_sample(
+            *(a.astype(np.float32) for a in dfiles.read_sample(folder, name)),
+            ds_train.stats,
+            coarseness_factor=1, include_pressure=g.include_pressure,
+            include_z_channel=g.include_z_channel,
+            include_above_ground_channel=g.include_above_ground_channel)
+        same = same and np.array_equal(full[i], lr1) and np.array_equal(
+            zraw[i], zt)
+    log(f"  (c) the resident volumes {full.shape} equal to the cached "
+        f"hours (as float32, the npcache's) after reformat_sample: {same}")
+    if not same:
+        fail("(c) the resident volumes are not the cached hours")
+    del batcher, batchers, full, zraw, state
+    torch.cuda.empty_cache()
+    (ckpt_path,) = [os.path.join(d, f"ckpt_{LEG_MID}") for d, _, _ in
+                    os.walk(os.path.join(tmp, "real", "runs"))
+                    if os.path.isdir(os.path.join(d, f"ckpt_{LEG_MID}"))]
+    took("c")
+
+    # (d) --test from ckpt_6004 on the held-out split
+    _, test_ini = real_config(tmp, generator_load_path=ckpt_path)
+    cwd = os.path.join(tmp, "real", "cwd")
+    os.makedirs(cwd)
+    old = os.getcwd()
+    gen_probe = GenerateProbe()
+    reset_counters()
+    try:
+        os.chdir(cwd)
+        avgs = run.main(["--cfg", test_ini, "--test"])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(old)
+        gen_probe.close()
+    test_launches = counters() + (int8_launches(),)
+    out = os.path.join(cwd, "test_output")
+    header, psnr = read_metrics(os.path.join(out,
+                                             f"{cfg.name}____metrics.csv"))
+    with open(os.path.join(out, "averages.csv")) as f:
+        avg_rows = f.read().splitlines()[1:]
+    n_test = len(ds_test)
+    log(f"  (d) --test from ckpt_{LEG_MID}: {len(psnr)} rows for "
+        f"{n_test} test hours, PSNR {min(psnr.values()):.3f} to "
+        f"{max(psnr.values()):.3f} dB, average {avgs['PSNR']:.3f} "
+        f"(trilinear {avgs['PSNR_trilinear']:.3f}); averages rows "
+        f"{[r.split(',')[0] for r in avg_rows]}; {len(gen_probe.outputs)} "
+        f"generate calls, launches {LAUNCH_LABELS}/conv_int8 "
+        f"{test_launches}")
+    if not (sorted(psnr) == sorted(n[:-4] for n in ds_test.filenames)
+            and len(avg_rows) == 1 and all(math.isfinite(v) for v in
+                                           psnr.values())
+            and math.isfinite(avgs["PSNR"])
+            and len(gen_probe.outputs) == n_test
+            and test_launches == (n_test, 0, 0, 0, 0, 0)):
+        fail("(d) the test pass's rows, PSNRs or launches are off")
+    took("d")
+    shutil.rmtree(os.path.join(tmp, "real"))
+    secs = t[-1] - t[0]
+    log(f"  phase 15 took {secs:.1f} s ({card})")
+    return dict(launches=tuple(a + b for a, b in zip(launches,
+                                                       test_launches)),
+                seconds=secs, parts=[b - a for a, b in zip(t, t[1:])])
+
+
 def main():
     import torch
 
@@ -6287,11 +6659,12 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     leg_data.result()
     waited = time.monotonic() - t
     procs = start_clis(tmp)
+    packs = PackMemo()
     ll, state, ckpt_path, leg_ms = loop_phase(dev, card, tt, tmp, leg_data,
                                               waited)
     # ----------------------------------------------------- 8. test, use, serve
     phase_start(8)
-    ev = eval_phase(dev, card, tmp, state, ckpt_path)
+    ev = eval_phase(dev, card, tmp, state, ckpt_path, packs)
     del state
     torch.cuda.empty_cache()
     # ------------------------------------- 9. chunks, host path, tiled SR
@@ -6334,7 +6707,20 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # --------------------------------------- 14. the spatial axis, fullvol
     phase_start(14)
     sp = spatial_phase(dev, card, tmp, started_sp, ref_sp)
+    # ------------------------- 15. raw HARMONIE-SIMRA files, no --synthetic
+    # once phase 14's ranks have ended, alone on the card
+    for proc in started_sp["ctx"].processes:
+        proc.join(120)
+        if proc.exitcode != 0:
+            fail(f"a rank of phase 14 ended {proc.exitcode}")
     del started_sp, ref_sp
+    phase_start(15)
+    rd = real_data_phase(dev, card, tmp)
+    packs.close()
+    log(f"the 6k pack read from disk {len(packs.reads)} time(s) in phases 7 "
+        f"to 15")
+    if len(packs.reads) != 1:
+        fail("the 6k pack was read from disk more than once")
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -6358,6 +6744,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # mesh of one; (a)'s torchrun process and (c)'s two ranks count their
     # own
     ml = mp_["launches"]
+    # phase 15's launches: the leg on the raw files' cache and its --test
+    # (kernels 1 to 5, then conv_int8's, which stays 0)
+    fl = rd["launches"]
 
     def mesh_keys(i):
         # launches_model: the model-mesh ranks' own counts, phase 13 (e)'s
@@ -6369,7 +6758,8 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     table = {"kernels": [
         row("rrdb_trunk", "rdb_trunk.cu", "rdb_trunk.py:178",
             serve_launches + tl[0] + ll[0] + ev["trunk"] + cl[0] + rl[0]
-            + ml[0], max_abs16, (ms, plain_ms, b1), lib_ms, **mesh_keys(0),
+            + ml[0] + fl[0], max_abs16, (ms, plain_ms, b1), lib_ms,
+            **mesh_keys(0), launches_real_data=fl[0],
             launches_serve=serve_launches, launches_reference=rl[0],
             max_abs_err_reference=rf["max_abs_err"][0],
             serving_8x_b8_ms=rf["fwd_ms"][8],
@@ -6386,8 +6776,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             residual_library_ms=tt["k1r_lib"], mma=TC_MMA["rdb_trunk"],
             sass_mma_count=mma_counts["rdb_trunk"]),
         row("rrdb_trunk_bwd", "rdb_trunk_bwd.cu", "rdb_trunk.py:429",
-            tl[1] + ll[1] + cl[1] + rl[1] + ml[1], max_abs_bwd, tt["k2"][:3],
-            tt["k2"][3], **mesh_keys(1), launches_train=tl[1],
+            tl[1] + ll[1] + cl[1] + rl[1] + ml[1] + fl[1], max_abs_bwd,
+            tt["k2"][:3], tt["k2"][3], **mesh_keys(1),
+            launches_real_data=fl[1], launches_train=tl[1],
             launches_loop=ll[1],
             launches_reference=rl[1],
             max_abs_err_reference=rf["max_abs_err"][1],
@@ -6395,8 +6786,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             mma=TC_MMA["rdb_trunk_bwd"],
             sass_mma_count=mma_counts["rdb_trunk_bwd"]),
         *(row(name, "stencil.cu", replaces,
-              tl[i] + ll[i] + cl[i] + rl[i] + hl[i] + ml[i],
+              tl[i] + ll[i] + cl[i] + rl[i] + hl[i] + ml[i] + fl[i],
               err, (k["ms"], k["plain_ms"], k["bound"]), None, **mesh_keys(i),
+              launches_real_data=fl[i],
               launches_train=tl[i], launches_loop=ll[i],
               launches_reference=rl[i], launches_horizontal=hl[i],
               horizontal_g_step_ms=hz["g_ms"],
@@ -6412,7 +6804,8 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
             head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4]
-            + rl[4] + ml[4], err_head, th[8][:3], th[8][3], **mesh_keys(4),
+            + rl[4] + ml[4] + fl[4], err_head, th[8][:3], th[8][3],
+            **mesh_keys(4), launches_real_data=fl[4],
             launches_serve=head_serve[4], launches_reference=rl[4],
             launches_train=head_train[4], launches_loop=ll[4],
             launches_test=ev["head"], launches_tiled=ch["tiled"][4],
@@ -6427,7 +6820,8 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             backward_library_ms_b32=th["vjp"], mma=TC_MMA["hr_head"],
             sass_mma_count=mma_counts["hr_head"]),
         # the port's own kernels: the JAX package's int8 convs are XLA
-        *(int8_row(name, dp, replaces, **extra) for name, replaces, extra in (
+        *(int8_row(name, dp, replaces, launches_real_data=fl[5], **extra)
+          for name, replaces, extra in (
             ("conv_int8_head_pair", "quant.py:87", dict(
                 library="bf16 cuDNN hr_conv0_x, the conv the pair replaces",
                 ms_b32=dp["kernels"]["pair_b32"][0],

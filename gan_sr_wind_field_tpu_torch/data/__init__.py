@@ -2,20 +2,22 @@
 
 The port's own copy of ``gan_sr_wind_field_tpu/data/``: the hourly-sample
 cache (``files.py``), the synthetic analytic source (``synthetic.py``),
+the HARMONIE-SIMRA raw files into that cache (``downloader.py``),
 normalization stats and the chronological split, ``WindDataset`` (patch
 slicing and equivariant augmentation), the float32 memmap cache
 (``npcache.py``), the host→device prefetch (``pipeline.py``) and the
-device-resident batcher (``device_data.py``). The downloader
-(``data/downloader.py``) is not ported: there is no network, and training
-data comes from ``--synthetic``.
+device-resident batcher (``device_data.py``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
+from datetime import date
 
 import numpy as np
 
+from gan_sr_wind_field_tpu_torch.data import downloader
 from gan_sr_wind_field_tpu_torch.data import files as dfiles
 from gan_sr_wind_field_tpu_torch.data.dataset import (
     WindDataset,
@@ -48,23 +50,24 @@ def preprocess(cfg, synthetic: bool = False, synthetic_hours: int = 48,
                synthetic_size: int = 64):
     """Build the three split datasets and the coordinate axes from config:
     → (dataset_train, dataset_test, dataset_validation, x, y), as
-    ``gan_sr_wind_field_tpu.data.preprocess`` does. Only the synthetic
-    source is ported; without ``synthetic`` this raises."""
-    if not synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported: data/downloader.py (the "
-            "HARMONIE-SIMRA download) is not ported (see ROADMAP.md)")
+    ``gan_sr_wind_field_tpu.data.preprocess`` does. With ``synthetic`` the
+    cache is generated analytically; without it, it is the cache of the
+    config's dates, which ``downloader.download_dataset`` fills from the
+    raw files (fetching only those absent) when it is empty."""
     g = cfg.gan_config
     root = cfg.env.data_root
     ratio = cfg.training.train_eval_test_ratio
 
-    names, sub = generate_synthetic_cache(
-        root,
-        num_hours=synthetic_hours,
-        nx=synthetic_size,
-        ny=synthetic_size,
-        nz=g.number_of_z_layers,
-    )
+    if synthetic:
+        names, sub = generate_synthetic_cache(
+            root,
+            num_hours=synthetic_hours,
+            nx=synthetic_size,
+            ny=synthetic_size,
+            nz=g.number_of_z_layers,
+        )
+    else:
+        names, sub = _harmonie_cache(root, g)
     folder = dfiles.dataset_folder(root, sub)
     terrain, x, y = dfiles.read_static(
         folder, os.path.join(root, "full_dataset_files")
@@ -126,3 +129,26 @@ def preprocess(cfg, synthetic: bool = False, synthetic_hours: int = 48,
         np.asarray(x, np.float32),
         np.asarray(y, np.float32),
     )
+
+
+def _harmonie_cache(root: str, g):
+    """The cached hours of the config's dates under ``bessaker_z{nz}``,
+    filled by the download only when none is cached; → (names,
+    subfolder). Raises ``RuntimeError`` when both come up empty."""
+    sub = f"bessaker_z{g.number_of_z_layers}"
+    start, end = date(*g.start_date), date(*g.end_date)
+    names = dfiles.existing(dfiles.dataset_folder(root, sub),
+                            dfiles.filenames_from_dates(start, end))
+    if not names:
+        logging.getLogger("status").info(
+            "sample cache empty — reading the HARMONIE-SIMRA raw files "
+            "(downloading those absent)")
+        names = downloader.download_dataset(
+            root, start, end, number_of_z_layers=g.number_of_z_layers,
+            subfolder=sub)
+    if not names:
+        raise RuntimeError(
+            "no valid samples in cache and download produced none; run "
+            "`python -m gan_sr_wind_field_tpu_torch.run --download` or use "
+            "--synthetic")
+    return names, sub

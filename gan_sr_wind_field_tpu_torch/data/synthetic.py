@@ -10,13 +10,17 @@ z-levels) and writes them in exactly the reference cache layout
 (files.py) so every downstream consumer is agnostic to the source.
 
 Deterministic per sample name — regeneration is idempotent.
+
+``write_raw_simulation`` lays the same fields out as one raw HARMONIE-SIMRA
+simulation file (netCDF3 classic), so that the downloader's path
+(``downloader.py``) runs without the network.
 """
 
 from __future__ import annotations
 
 import os
 from datetime import date
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -121,3 +125,62 @@ def generate_synthetic_cache(
         dfiles.write_sample(folder, name, z, zag, u, v, w, p)
         dfiles.write_max_stats(folder, name, z, zag, u, v, w, p)
     return names, sub
+
+
+# the raw file's variables, by the cache's order (z, u, v, w, p)
+RAW_FIELDS = {"geopotential_height_ml": 0, "x_wind_ml": 2, "y_wind_ml": 3,
+              "upward_air_velocity_ml": 4, "air_pressure_ml": 5}
+# int16 packing of a variable named in ``packed``: value = int16 * scale +
+# offset, the fill value masked
+PACK_SCALE, PACK_OFFSET, PACK_FILL = 1e-3, 0.5, -32767
+
+
+def write_raw_simulation(path: str, nx: int, ny: int, nz: int, nt: int = 13,
+                         seed: int = 0, packed: Sequence[str] = (),
+                         fill: Optional[Tuple[int, str]] = None) -> None:
+    """One raw simulation file as the downloader reads it: ``nt``
+    timesteps of the analytic fields over ``_terrain(nx, ny)`` on ``nz``
+    levels, each variable of ``RAW_FIELDS`` laid out (time, z, x, y) with
+    z from the top down, float32; ``x`` and ``y`` (the axes over 1e5) and
+    ``surface_altitude`` (x, y). Variables named in ``packed`` are int16
+    with ``scale_factor``, ``add_offset`` and ``_FillValue``. ``fill`` =
+    (timestep, variable) makes one voxel of that timestep a fill (the
+    ``_FillValue`` where packed, else NaN) on the first level above the
+    ground (the lowest that the downloader's crop keeps), inside its x/y
+    crop."""
+    from scipy.io import netcdf_file
+
+    terrain = _terrain(nx, ny)
+    steps = [_sample_fields(seed * 1000 + t, nx, ny, nz, terrain)
+             for t in range(nt)]
+    f = netcdf_file(path, "w")
+    try:
+        for name, n in (("time", nt), ("z", nz), ("x", nx), ("y", ny)):
+            f.createDimension(name, n)
+        for name, k in RAW_FIELDS.items():
+            # (nx, ny, nz) ground first → (z, x, y) top first
+            arr = np.stack([np.transpose(s[k][:, :, ::-1], (2, 0, 1))
+                            for s in steps])
+            if name in packed:
+                q = np.round((arr - PACK_OFFSET) / PACK_SCALE)
+                arr = np.clip(q, -32766, 32767).astype(np.int16)
+            else:
+                arr = arr.astype(np.float32)
+            if fill is not None and fill[1] == name:
+                arr[fill[0], nz - 2, nx // 2, ny // 2] = (
+                    PACK_FILL if name in packed else np.nan)
+            v = f.createVariable(name, arr.dtype.char, ("time", "z", "x",
+                                                        "y"))
+            v[:] = arr
+            if name in packed:
+                # numpy scalars: scipy stores a python float as float32
+                v.scale_factor = np.float64(PACK_SCALE)
+                v.add_offset = np.float64(PACK_OFFSET)
+                v._FillValue = np.int16(PACK_FILL)
+        for name, n in (("x", nx), ("y", ny)):
+            v = f.createVariable(name, "d", (name,))
+            v[:] = np.arange(n, dtype=np.float64) * GRID_SPACING / 1e5
+        v = f.createVariable("surface_altitude", "d", ("x", "y"))
+        v[:] = terrain
+    finally:
+        f.close()

@@ -1,9 +1,14 @@
 """Command line of the port: ``python -m gan_sr_wind_field_tpu_torch.run``.
 
-Counterpart of the root ``run.py`` for the modes the port has: argv →
-``Config``, the run folders, the config snapshot and the loggers, the
-``--synthetic`` data, then one of
+Counterpart of the root ``run.py``: argv → ``Config``, the run folders,
+the config snapshot and the loggers, the data (``--synthetic``: analytic
+fields; without it the hourly cache of the config's dates, filled from the
+HARMONIE-SIMRA raw files when it is empty), then one of
 
+- ``--download``: the config's dates from the raw files under
+  ``<data_root>/downloaded_raw_bessaker_data/`` into the hourly cache
+  (``data/downloader.py``), fetching only the files absent there; alone it
+  ends there and needs no card, beside another mode it goes on to it;
 - ``--train [--profile]``: the training loop (``train/loop.py``), with
   ``--profile`` a ``torch.profiler`` trace of its first iterations in the
   run's TensorBoard log folder;
@@ -22,6 +27,10 @@ Counterpart of the root ``run.py`` for the modes the port has: argv →
 
 ::
 
+    python -m gan_sr_wind_field_tpu_torch.run --download \\
+        --cfg configs/milestone9k.ini
+    python -m gan_sr_wind_field_tpu_torch.run --train \\
+        --cfg configs/milestone9k.ini
     python -m gan_sr_wind_field_tpu_torch.run --train --synthetic \\
         --synthetic_hours 240 --synthetic_size 128 \\
         --cfg configs/milestone9k.ini
@@ -35,8 +44,7 @@ training run warm-starts from the same (and from a reference
 ``D_{it}.pth`` in ``env.discriminator_load_path``) under
 ``load_model_from_save``. Each mode runs on the card; ``--device cpu``
 runs the plain PyTorch path on the CPU instead, and without either a card
-or that flag it raises. ``--download`` is accepted and raises
-``NotImplementedError``: there is no network (``ROADMAP.md``).
+or that flag it raises.
 
 ``--train`` reads ``[PARALLEL]``: under ``torchrun`` it trains on a mesh
 of ``data_parallel`` rows (-1: every rank the model and spatial axes
@@ -44,9 +52,11 @@ leave) × ``tensor_parallel`` shares of G's output channels ×
 ``spatial_parallel`` x slabs (``parallel/mesh.py``), one card each
 (``cuda:LOCAL_RANK``; with ``--device cpu`` CPU processes over gloo), and
 shrinks the data axis to the largest divisor of the batch, as the JAX
-package does; ranks past the mesh are idle. A mesh larger than the ranks
-started raises ``ValueError``. The other modes run in one process, as in
-the JAX package, and raise under ``torchrun`` with more than one rank::
+package does; ranks past the mesh are idle; with ``--download`` the first
+rank fills the cache before the others read it. A mesh larger than the
+ranks started raises ``ValueError``. The other modes run in one process,
+as in the JAX package, and raise under ``torchrun`` with more than one
+rank::
 
     torchrun --standalone --nproc_per_node=8 \
         -m gan_sr_wind_field_tpu_torch.run --train --synthetic \
@@ -69,12 +79,14 @@ import dataclasses
 import logging
 import os
 import time
+from datetime import date
 
 import numpy as np
 import torch
 
 from gan_sr_wind_field_tpu_torch.config import Config
 from gan_sr_wind_field_tpu_torch.data import preprocess
+from gan_sr_wind_field_tpu_torch.data.downloader import download_dataset
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.eval.export import export_generator
 from gan_sr_wind_field_tpu_torch.eval.test_loop import run_test, run_use
@@ -90,11 +102,6 @@ from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 from gan_sr_wind_field_tpu_torch.train.loop import train
 from gan_sr_wind_field_tpu_torch.utils.logging import setup_loggers
 
-# run.py's other flags: their defaults and what they need
-_NOT_PORTED = {
-    "download": (False, "data/downloader.py (no network: use --synthetic)"),
-}
-
 
 def argv_to_cfg(argv=None):
     p = argparse.ArgumentParser(
@@ -108,6 +115,10 @@ def argv_to_cfg(argv=None):
                         "generator slot instead of the raw generator; "
                         "outputs get an _ema suffix")
     p.add_argument("--use", action="store_true")
+    p.add_argument("--download", action="store_true",
+                   help="fill the hourly cache of the config's dates from "
+                        "the HARMONIE-SIMRA raw files, fetching those "
+                        "absent; with another mode, go on to it")
     p.add_argument("--no_ema", action="store_true",
                    help="with --use/--serve: deploy the raw generator "
                         "weights even when the checkpoint has an EMA slot "
@@ -134,8 +145,8 @@ def argv_to_cfg(argv=None):
                         "torch.export artifact at PATH (eval/export.py); "
                         "loads weights like --use")
     p.add_argument("--synthetic", action="store_true",
-                   help="use analytic synthetic data (the only source "
-                        "the port has)")
+                   help="use analytic synthetic data instead of the "
+                        "HARMONIE-SIMRA cache")
     p.add_argument("--synthetic_hours", type=int, default=48,
                    help="number of hourly synthetic samples to generate")
     p.add_argument("--synthetic_size", type=int, default=64,
@@ -164,31 +175,25 @@ def argv_to_cfg(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; default the CUDA card, 'cpu' only "
                         "when asked")
-    for flag, (default, _) in _NOT_PORTED.items():
-        if isinstance(default, bool):
-            p.add_argument(f"--{flag}", action="store_true",
-                           help=argparse.SUPPRESS)
-        else:
-            p.add_argument(f"--{flag}", default=default,
-                           type=type(default) if default is not None
-                           else str, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    for flag, (default, needs) in _NOT_PORTED.items():
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported: it needs {needs} (see ROADMAP.md)")
-    if not (args.train or args.test or args.use or args.export
-            or args.serve is not None or args.param_search):
+    if not (args.download or _runs_a_model(args)):
         p.error("nothing to do: pass --train, --test, --use, --export, "
-                "--serve or --param_search")
+                "--serve, --param_search or --download")
 
     cfg = Config.from_ini(args.cfg)
     cfg.is_train = args.train or args.param_search
     cfg.is_test = args.test
     cfg.is_use = args.use
+    cfg.is_download = args.download
     cfg.is_param_search = args.param_search
     cfg.slurm_array_id = args.slurm_array_id
     return cfg, args
+
+
+def _runs_a_model(args) -> bool:
+    """Whether the command line asks for more than ``--download``."""
+    return bool(args.train or args.test or args.use or args.export
+                or args.serve is not None or args.param_search)
 
 
 def setup_env_and_cfg(cfg, mesh=None):
@@ -242,17 +247,18 @@ def main(argv=None):
     """Run the mode the command line asks for; → the trials' records
     (``--param_search``), the final training state (``--train``), the test
     averages (``--test``), the state whose G was run (``--use``), the
-    artifact's header (``--export`` alone) or the stopped server
-    (``--serve``)."""
+    artifact's header (``--export`` alone), the stopped server
+    (``--serve``) or the cached hours' names (``--download`` alone)."""
     cfg, args = argv_to_cfg(argv)
     if args.train and not args.param_search:
         return _train_main(cfg, args)
     if world_size_from_env() > 1:
         raise ValueError(
-            "--test, --use, --serve, --export and --param_search run in one "
-            f"process; this is one of {world_size_from_env()} (start it "
-            "without torchrun)")
-    device = resolve_device(args.device)
+            "--test, --use, --serve, --export, --param_search and "
+            "--download alone run in one process; this is one of "
+            f"{world_size_from_env()} (start it without torchrun)")
+    # a download alone reads and writes files only
+    device = resolve_device(args.device) if _runs_a_model(args) else None
     return _main(cfg, args, device)
 
 
@@ -283,13 +289,22 @@ def _main(cfg, args, device, mesh=None):
         log_dir, also_log_to_terminal=cfg.also_log_to_terminal, level=level
     )
     status.info(f"run folder: {cfg.env.this_runs_folder}")
-    status.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})"
-                   if device.type == "cuda" else ""))
+    if device is not None:
+        status.info(f"device: {device}"
+                    + (f" ({torch.cuda.get_device_name(device)})"
+                       if device.type == "cuda" else ""))
 
     lead = mesh is None or mesh.lead
     if not lead:  # the first rank writes the data caches, then the rest
         mesh.barrier()
+    if args.download and lead:
+        g = cfg.gan_config
+        names = download_dataset(
+            cfg.env.data_root, date(*g.start_date), date(*g.end_date),
+            number_of_z_layers=g.number_of_z_layers)
+        status.info(f"download finished: {len(names)} hours cached")
+        if device is None:
+            return names
     ds_train, ds_test, ds_val, x, y = preprocess(
         cfg, synthetic=args.synthetic,
         synthetic_hours=args.synthetic_hours,

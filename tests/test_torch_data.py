@@ -334,6 +334,44 @@ def test_prefetch_close_stops_the_producer():
         next(it)
 
 
-def test_download_branch_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="downloader"):
-        preprocess(_cfg(True, tmp_path), synthetic=False)
+def test_download_branch_is_not_ported(tmp_path, monkeypatch):
+    """The branch without ``synthetic``, which the port refused before
+    ``data/downloader.py`` was ported: on the hourly cache the JAX
+    package's downloader wrote from raw files (one day at 24 × 23, 12
+    raw levels), ``preprocess`` reads that cache, calls no download, and
+    gives JAX's splits, stats, axes and items exactly."""
+    import urllib.request
+    from datetime import date
+
+    from gan_sr_wind_field_tpu.data.downloader import download_dataset
+    from gan_sr_wind_field_tpu_torch.data import downloader
+    from gan_sr_wind_field_tpu_torch.data.synthetic import (
+        write_raw_simulation,
+    )
+
+    def refused(*a, **kw):
+        raise AssertionError("no fetch or download over a cache")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refused)
+    monkeypatch.setattr(downloader, "download_dataset", refused)
+    raw = tmp_path / "downloaded_raw_bessaker_data"
+    raw.mkdir()
+    day = date(2018, 3, 1)
+    for s, stamp in enumerate(downloader.SIM_TIMES):
+        write_raw_simulation(str(raw / downloader.raw_filename(day, stamp)),
+                             24, 23, ZL + 2, seed=s, packed=("y_wind_ml",))
+    assert len(download_dataset(str(tmp_path), day, day, ZL)) == 24
+    cfgs = [_cfg(port, tmp_path) for port in (False, True)]
+    for cfg in cfgs:
+        cfg.gan_config.start_date = cfg.gan_config.end_date = [2018, 3, 1]
+    want = jax_preprocess(cfgs[0], synthetic=False)
+    got = preprocess(cfgs[1], synthetic=False)
+    assert np.array_equal(got[3], want[3]) and np.array_equal(got[4],
+                                                              want[4])
+    for a, b in zip(got[:3], want[:3]):
+        assert a.filenames == b.filenames and len(a) > 0
+        assert vars(a.stats) == vars(b.stats)
+        for i in range(len(a)):
+            for u, v in zip(a.get(i, np.random.default_rng(i)),
+                            b.get(i, np.random.default_rng(i))):
+                assert np.array_equal(u, v)

@@ -483,11 +483,12 @@ def test_cli_profile_writes_a_trace(tmp_path, steps, chunk, end):
                                   ["--download"], ["--param_search"],
                                   ["--slurm_array_id", "2"]])
 def test_cli_flags_not_ported_raise(flag, tmp_path, monkeypatch):
-    """--download raises (no network); the search's flags reach
-    param_search with their values (tests/test_torch_search.py runs it)."""
+    """--download beside --train fills the cache from the raw files and
+    goes on to train on it (tests/test_torch_real_pipeline.py holds both
+    against JAX); the search's flags reach param_search with their values
+    (tests/test_torch_search.py runs it)."""
     if flag == ["--download"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run.main(["--train", "--synthetic", "--device", "cpu"] + flag)
+        _download_then_train(tmp_path, monkeypatch)
         return
     cfg = loop_cfg(True, tmp_path, niter=2)
     cfg.also_log_to_terminal = False
@@ -514,3 +515,41 @@ def test_cli_flags_not_ported_raise(flag, tmp_path, monkeypatch):
         want[name] = int(flag[1]) % 3 if name == "shard_index" \
             else int(flag[1])
     assert {k: seen[k] for k in want} == want
+
+
+def _download_then_train(tmp_path, monkeypatch):
+    """``--train --download`` without ``--synthetic`` on one day of raw
+    files at the tiny geometry (24 × 23, 6 raw levels), the network
+    refused: the download caches the 24 hours, then the loop trains 2
+    steps on them."""
+    import urllib.request
+
+    from gan_sr_wind_field_tpu_torch.data import downloader
+    from gan_sr_wind_field_tpu_torch.data import files as dfiles
+    from gan_sr_wind_field_tpu_torch.data.synthetic import (
+        write_raw_simulation,
+    )
+
+    def refused(url, local):
+        raise AssertionError(f"tried the network: {url}")
+
+    monkeypatch.setattr(urllib.request, "urlretrieve", refused)
+    cfg = loop_cfg(True, tmp_path, niter=2)
+    cfg.also_log_to_terminal = False
+    cfg.gan_config.start_date = cfg.gan_config.end_date = [2018, 3, 1]
+    raw = os.path.join(cfg.env.data_root, "downloaded_raw_bessaker_data")
+    os.makedirs(raw)
+    for s, stamp in enumerate(downloader.SIM_TIMES):
+        write_raw_simulation(os.path.join(raw, downloader.raw_filename(
+            downloader.date(2018, 3, 1), stamp)), 24, 23, 6, seed=s)
+    ini = str(tmp_path / "tiny.ini")
+    cfg.save(ini)
+    state = run.main(["--cfg", ini, "--train", "--download", "--device",
+                      "cpu"])
+    assert state.it == 2
+    folder = dfiles.dataset_folder(cfg.env.data_root, "bessaker_z4")
+    assert len(dfiles.existing(folder, dfiles.filenames_from_dates(
+        downloader.date(2018, 3, 1), downloader.date(2018, 3, 1)))) == 24
+    status = (tmp_path / "log" / "status.log").read_text()
+    assert status.index("download finished: 24 hours cached") < \
+        status.index("beginning run at it=0")

@@ -10,10 +10,13 @@ conv_mode = horizontal_3D and D's instance norm; then the data mesh
 two processes sharing the card over gloo, and serving on them; then the
 spatial axis: configs/fullvol.ini on data 2 x spatial 4, eight processes
 sharing the card; then milestone9k trained and tested from raw
-HARMONIE-SIMRA files instead of --synthetic.
+HARMONIE-SIMRA files instead of --synthetic; then milestone9k under the
+port's supervisor, stopped and resumed, exported and summarized.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
     python3 chip_smoke.py --stencils-of ROOT   # kernels 3 and 4 of ROOT only
+    python3 chip_smoke.py --supervised-leg OUT --cfg INI ...  # phase 16 runner
+    python3 chip_smoke.py --warm OUT NAME    # one of phase 16 processes
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -90,7 +93,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   7. train as a user does: python -m gan_sr_wind_field_tpu_torch.run
      --train --synthetic --synthetic_hours 240 --synthetic_size 128 (its
      main, in process) on a copy of configs/milestone9k.ini in a temporary
-     directory, with log_period 4, val_period 8, save_model_period 8,
+     directory, with niter 6008 (the label and noise schedules end
+     there), log_period 4, val_period 8, save_model_period 4,
      keep_checkpoints 2 and d_g_train_period 4 and all else as committed
      (bf16, batch 32, device-resident data, on-card augmentation, the warm
      start from the 6k pack), to --max_steps 6008: the data feed's host
@@ -104,10 +108,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (CUDA events from one step's start to the next, iterations without
      boundary work) beside phase 6's bare train_step, a validation sweep
      and a checkpoint save with its bytes; restore_checkpoint(ckpt_6008)
-     equals the live state bit for bit, the generator's state included;
-     a second leg resumed from a copy of ckpt_6004 to 6008, each tree's
-     largest difference from the first leg printed (bit-exact, or within
-     1e-3 relative L2 where the card's step is not deterministic);
+     equals the live state bit for bit, the generator's state included
+     (phase 16 resumes a leg against this ckpt_6008);
   8. evaluate, use and serve what the port trains, in phase 7's temporary
      directory on its data: pack_from_state of the live state at 6008 in
      float32 and bf16 (in two threads, beside the rest of phase 8), read
@@ -344,9 +346,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
      held-out hours: one CSV row each and the averages row, finite PSNRs,
      one kernel-1 launch per generate. Each part's seconds; the phase's
      launches in the kernel line (launches_real_data).
+  16. the long run as the configs' headers say to run it, alone on the
+     card in phase 7's temporary directory on its data: (a) the port's
+     supervisor (gan_sr_wind_field_tpu_torch/scripts/supervise_train.py,
+     its supervise() with max_restarts 2 and backoff_s 0) on a copy of
+     milestone9k with niter 6008 and phase 7's schedule (saves at 6004
+     and 6008), use_tensorboard_logger as committed; each leg a process
+     of its own running run.main(["--train", "--synthetic", ...]) with the
+     launch counters from 0, its counts written at its end. Its three
+     processes (leg 0, leg 1, the export) start at phase 15's start and
+     import torch and the port and create their CUDA context beside it,
+     then wait for their request: the supervisor's runner (this script's
+     --supervised-leg mode) hands its leg to the next one and exits with
+     its code; (b) once leg 0 has written ckpt_6004/state.pt
+     it gets SIGTERM, the watchdog's signal: it exits 0 with a checkpoint
+     at k, 6004 <= k < 6008 (a signal after its end fails), the
+     supervisor writes ..._resume_leg1.ini with state_load_path at
+     ckpt_k, leg 1 resumes at k, validates at 6008 and exits 0: two legs,
+     the last at 6008; (c) each leg's launches as its own G and D steps,
+     validation batches and generate calls predict, kernel 5 and
+     conv_int8 none; leg 1's ckpt_6008 against phase 7's uninterrupted
+     one tree by tree (G, EMA, D, D's statistics, both Adam states) and
+     the generator state: bit-exact, or within 1e-3 relative L2, each
+     tree's largest difference printed; (d) python -m
+     gan_sr_wind_field_tpu_torch.scripts.export_continuation on leg 1's
+     run folder (runpy, as python -m runs it), in a process of its own on
+     the card, beside (c) and (e):
+     its pack's arrays against phase 8's bf16 pack of phase 7's live state
+     (bit for bit where (c) is bit-exact, else within (c)'s tolerance),
+     its bytes and seconds; (e) summarize() of leg 1's run folder:
+     last_it 6008, its ckpt_6008, finite tails. Each leg's wall seconds
+     and its start-up to its first step; the phase's seconds.
   The 6k pack is read from disk once, at phase 7's warm start, and every
   later reader in this process (phases 8 to 10 and 15) takes its arrays
-  (PackMemo).
+  (PackMemo); phase 16's leg 0 reads it in its own process.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
@@ -1828,8 +1861,11 @@ def time_head(sr, sr_h, gan_h, state_h, batch, lr_d, z_d, dims, dev, card):
 # 6k pack), its schedule cut so that 8 steps cross a G and a D block, one
 # validation and two checkpoints (one periodic at LEG_MID, the final one)
 LEG_FROM, LEG_MID, LEG_TO = 6000, 6004, 6008
-LEG_SCHEDULE = dict(log_period=4, val_period=8, save_model_period=4,
-                    keep_checkpoints=2, d_g_train_period=4)
+# niter is the leg's end: the label and noise schedules run to it, and phase
+# 16's supervisor stops at it
+LEG_SCHEDULE = dict(niter=LEG_TO, log_period=4, val_period=8,
+                    save_model_period=4, keep_checkpoints=2,
+                    d_g_train_period=4)
 LEG_DATA = ("--synthetic_hours", "240", "--synthetic_size", "128")
 VAL_LAUNCHES = (1, 0, 2, 0, 0)       # one validation batch (val_step)
 GENERATE_LAUNCHES = (1, 0, 0, 0, 0)  # one generate call (the image dump)
@@ -1858,9 +1894,9 @@ class Patches:
 
 class LegProbe(Patches):
     """Counts and times what the loop calls during a leg, from the outside:
-    a CUDA event at the start of each train_step (with its it), each
-    val_step and generate call, and each validation sweep and checkpoint
-    save, synchronized and timed."""
+    a CUDA event and the wall clock at the start of each train_step (with
+    its it), each val_step and generate call, and each validation sweep
+    and checkpoint save, synchronized and timed."""
 
     def __init__(self):
         import torch
@@ -1879,7 +1915,7 @@ class LegProbe(Patches):
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 probe.steps.append((state.it + 1, gan.is_g_step(state.it + 1),
-                                    ev, state.it))
+                                    ev, state.it, time.time()))
                 return real(gan, state, *a, **kw)
             return step
 
@@ -1922,11 +1958,13 @@ class LegProbe(Patches):
         return out
 
 
-def leg_config(tmp, root, **training):
+def leg_config(tmp, root, logger=False, **training):
     """A copy of milestone9k with its folders in ``tmp`` (runs under
     ``root``), the pack's path made absolute, the schedule of a short leg
     and ``training`` overrides. Width, depth, batch, dtype, augmentation,
-    device_resident_data and the warm start stay as committed."""
+    device_resident_data and the warm start stay as committed; so does
+    use_tensorboard_logger with ``logger``, else it is off (the scalars go
+    to events.jsonl either way)."""
     from gan_sr_wind_field_tpu_torch.config import load_config
 
     cfg = load_config(CFG)
@@ -1936,7 +1974,8 @@ def leg_config(tmp, root, **training):
                                                cfg.env.generator_load_path)
     for k, v in {**LEG_SCHEDULE, **training}.items():
         setattr(cfg.training, k, v)
-    cfg.use_tensorboard_logger = False
+    if not logger:
+        cfg.use_tensorboard_logger = False
     path = os.path.join(tmp, f"{root}.ini")
     cfg.save(path)
     return cfg, path
@@ -2006,12 +2045,10 @@ def prepare_leg_data(tmp):
 def loop_phase(dev, card, bare, tmp, data, waited):
     """Phase 7: python -m gan_sr_wind_field_tpu_torch.run --train on a copy
     of milestone9k in ``tmp``, from the 6k pack, 8 steps; then the
-    checkpoint round trip and a resumed leg. ``data`` is the done future
-    of ``prepare_leg_data``, which phase 7 waited ``waited`` seconds for.
-    Returns the leg's launches, its live state at the end and the path of
-    its last checkpoint."""
-    import shutil
-
+    checkpoint round trip (phase 16 resumes a leg against its ckpt_6008).
+    ``data`` is the done future of ``prepare_leg_data``, which phase 7
+    waited ``waited`` seconds for. Returns the leg's launches, its live
+    state at the end and the path of its last checkpoint."""
     import torch
 
     from gan_sr_wind_field_tpu_torch import run
@@ -2171,32 +2208,6 @@ def loop_phase(dev, card, bare, tmp, data, waited):
     del restored
 
     done("the leg and its checks")
-    # a resumed leg from ckpt_6004, in a copy of the run folder
-    copy = os.path.join(tmp, "resume_from")
-    shutil.copytree(run_folder, copy,
-                    ignore=shutil.ignore_patterns(f"ckpt_{LEG_TO}"))
-    cfg2, ini2 = leg_config(
-        tmp, "resumed", resume_training_from_save=True)
-    cfg2.env.state_load_path = os.path.join(copy, f"ckpt_{LEG_MID}")
-    cfg2.save(ini2)
-    probe = LegProbe()
-    try:
-        resumed = run.main(["--cfg", ini2, "--train", "--synthetic",
-                            *LEG_DATA, "--max_steps", str(LEG_TO)])
-    finally:
-        probe.close()
-    if probe.steps[0][3] != LEG_MID or resumed.it != LEG_TO:
-        fail(f"the resumed leg ran {probe.steps[0][3]} -> {resumed.it}")
-    diffs = tree_diffs(resumed, state)
-    exact = all(v[2] for v in diffs.values()) and torch.equal(
-        resumed.rng.get_state(), state.rng.get_state())
-    for name, (mx, rel, bits) in diffs.items():
-        log(f"  resumed vs uninterrupted {name:<18} max abs {mx:.3e}, "
-            f"rel L2 {rel:.3e}, bit-exact {bits}")
-    log(f"  resumed leg from ckpt_{LEG_MID}: bit-exact {exact}")
-    if not exact and not all(v[1] <= RESUME_TOL for v in diffs.values()):
-        fail(f"the resumed leg is off by more than {RESUME_TOL:.0e}")
-    del resumed
     return launches, state, os.path.join(run_folder, f"ckpt_{LEG_TO}"), per
 
 
@@ -6387,6 +6398,416 @@ def real_data_phase(dev, card, tmp):
                                                        test_launches)),
                 seconds=secs, parts=[b - a for a, b in zip(t, t[1:])])
 
+# phase 16: milestone9k's leg under the port's supervisor, leg 0 stopped
+# with SIGTERM once it has saved ckpt_6004, leg 1 resumed by the supervisor.
+# Its three processes (the two legs and the export) start at phase 15's
+# start and import torch and the port beside it on the host; each then
+# waits for its request (OUT/NAME.go)
+SUPERVISED_RESTARTS = 2
+WARM = ("leg0", "leg1", "export")
+WARM_TIMEOUT_S = 900.0
+
+
+def _put(path, obj):
+    """Writes ``obj`` as JSON to ``path`` whole (a reader never sees a
+    part)."""
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".part", path)
+
+
+def _alive(pid):
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] not in "ZX"
+    except OSError:
+        return False
+
+
+def _wait_json(path, pid=None, timeout=WARM_TIMEOUT_S):
+    """The JSON in ``path`` once it is written; None if process ``pid``
+    ended first or ``timeout`` passed."""
+    t = time.monotonic()
+    while not os.path.exists(path):
+        if (pid is not None and not _alive(pid)
+                or time.monotonic() - t > timeout):
+            return None
+        time.sleep(0.01)
+    with open(path) as f:
+        return json.load(f)
+
+
+def start_warm(out):
+    """Starts phase 16's three processes (``chip_smoke.py --warm OUT
+    NAME``) with ``out`` their folder."""
+    os.makedirs(out)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO, *filter(None, [env.get("PYTHONPATH")])])
+    for name in WARM:
+        CHILDREN.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--warm", out, name],
+            cwd=REPO, env=env))
+
+
+def warm_process(out, name):
+    """One of phase 16's processes: imports torch and the port, creates
+    its CUDA context (and does no other card work), writes OUT/NAME.ready,
+    waits for OUT/NAME.go and runs what it asks: a leg
+    (supervised_leg), or a module as ``python -m`` runs it (runpy, as
+    __main__, its output into OUT/NAME.log); exits with its code, written
+    to OUT/NAME.rc first."""
+    import runpy
+    import traceback
+
+    t0 = time.time()
+    import torch
+
+    sys.path.insert(0, REPO)
+    from gan_sr_wind_field_tpu_torch import run  # noqa: F401
+
+    torch.zeros(1, device="cuda")  # the process's CUDA context
+    _put(os.path.join(out, f"{name}.ready"),
+         {"pid": os.getpid(), "start": t0, "ready": time.time()})
+    req = _wait_json(os.path.join(out, f"{name}.go"))
+    rc = 1
+    try:
+        if req is None:
+            raise RuntimeError(f"{name}: no request in {WARM_TIMEOUT_S} s")
+        if req["mode"] == "leg":
+            supervised_leg(out, req["argv"])
+        else:
+            with open(os.path.join(out, f"{name}.log"), "w") as f:
+                os.dup2(f.fileno(), 1)
+                os.dup2(f.fileno(), 2)
+            sys.argv = [req["module"], *req["argv"]]
+            runpy.run_module(req["module"], run_name="__main__",
+                             alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else int(e.code is not None)
+    except Exception:
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    _put(os.path.join(out, f"{name}.rc"), rc)
+    sys.exit(rc)
+
+
+def supervised_runner(out, argv):
+    """The supervisor's runner in phase 16 (``chip_smoke.py
+    --supervised-leg OUT --cfg INI ...``): hands the leg to the first of
+    phase 16's leg processes that no leg has taken yet, waits for it and
+    exits with its code; with none left, runs the leg itself."""
+    for name in WARM[:2]:
+        try:
+            os.close(os.open(os.path.join(out, f"{name}.claim"),
+                             os.O_CREAT | os.O_EXCL))
+        except FileExistsError:
+            continue
+        ready = _wait_json(os.path.join(out, f"{name}.ready"))
+        if ready is None:
+            fail(f"phase 16's process {name} never got ready")
+        _put(os.path.join(out, f"{name}.go"), {"mode": "leg", "argv": argv})
+        rc = _wait_json(os.path.join(out, f"{name}.rc"), ready["pid"])
+        sys.exit(1 if rc is None else rc)
+    supervised_leg(out, argv)
+
+
+def supervised_leg(out, argv):
+    """One leg of phase 16: writes its pid to OUT/pids, runs
+    ``run.main(["--train", *argv])`` with the launch counters from 0 and
+    the main process's TF32 settings, and appends its launches, its steps
+    (it, G step, wall clock) and its validation and generate calls to
+    OUT/legs.jsonl."""
+    t_go = time.time()
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from gan_sr_wind_field_tpu_torch import run
+
+    with open(os.path.join(out, "pids"), "a") as f:
+        f.write(f"{os.getpid()}\n")
+    probe = LegProbe()
+    reset_counters()
+    t_main = time.time()
+    try:
+        state = run.main(["--train", *argv])
+    finally:
+        probe.close()
+    torch.cuda.synchronize()
+    rec = {"pid": os.getpid(), "it": state.it,
+           "t": {"go": t_go, "main": t_main, "end": time.time()},
+           "launches": list(counters()) + [int8_launches()],
+           "steps": [[s[0], bool(s[1]), s[4]] for s in probe.steps],
+           "calls": probe.calls,
+           "saves": [[secs, nbytes] for secs, nbytes in probe.saves]}
+    with open(os.path.join(out, "legs.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def checkpoint_trees(path, dev):
+    """A checkpoint's state.pt on ``dev`` as tree_diffs reads a state."""
+    import types
+
+    import torch
+
+    blob = torch.load(os.path.join(path, "state.pt"), map_location=dev,
+                      weights_only=True)
+    for opt in ("opt_state_G", "opt_state_D"):
+        blob[opt] = types.SimpleNamespace(**blob[opt])
+    return types.SimpleNamespace(**blob)
+
+
+def leg_prediction(its, cfg, val_batches, generates):
+    """Kernels 1 to 5's launches of a leg's iterations ``its`` with its
+    validation batches and generate calls, and its steps' kinds."""
+    period = cfg.training.d_g_train_period
+    kinds = [(it // period) % (cfg.training.d_g_train_ratio + 1) == 0
+             for it in its]
+    n_g = sum(kinds)
+    n_d = len(kinds) - n_g
+    return kinds, tuple(
+        n_g * a + n_d * b + val_batches * c + generates * e
+        for a, b, c, e in zip(G_STEP_LAUNCHES, D_STEP_LAUNCHES,
+                              VAL_LAUNCHES, GENERATE_LAUNCHES))
+
+
+def supervised_phase(dev, card, tmp, out):
+    """Phase 16: ``supervise()`` of the port's supervisor
+    (scripts/supervise_train.py) on a copy of milestone9k with niter 6008,
+    in phase 7's temporary directory on its data, each leg a process of
+    its own running run.main (``out``: the folder of the processes
+    start_warm started); leg 0 gets SIGTERM once its ckpt_6004 is
+    written, leg 1 resumes from the checkpoint leg 0 leaves. Then leg 1's
+    ckpt_6008 against phase 7's, the port's export_continuation on leg 1's
+    run folder (its own process, on the card) against phase 8's pack, and
+    summarize() on that folder. → each leg's launches."""
+    import configparser
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from gan_sr_wind_field_tpu_torch.scripts import supervise_train as sup
+    from gan_sr_wind_field_tpu_torch.scripts.summarize_longrun import (
+        summarize,
+    )
+    from gan_sr_wind_field_tpu_torch.train.continuation import (
+        bf16_bits_to_f32,
+    )
+
+    t_phase = time.monotonic()
+    t_wall = time.time()
+    cfg, ini = leg_config(tmp, "supervised", logger=True)
+    name, _, runs_dir = sup.read_run_meta(ini)
+    ready = {}
+    for proc in WARM:
+        ready[proc] = _wait_json(os.path.join(out, f"{proc}.ready"))
+        if ready[proc] is None:
+            fail(f"phase 16's process {proc} did not get ready")
+    log("  its three processes, started at phase 15's start: torch and "
+        "the port imported in " + ", ".join(
+            f"{p} {r['ready'] - r['start']:.1f} s" for p, r in ready.items())
+        + f"; ready {t_wall - max(r['ready'] for r in ready.values()):.1f} s"
+        " before this phase")
+    launched = []
+
+    def slog(msg):
+        if msg.startswith("[supervisor] leg ") and ": " in msg:
+            launched.append(time.time())
+        log(f"  {msg}")
+
+    # (a, b) the supervisor in a thread; this thread stops leg 0
+    runner = [sys.executable, os.path.abspath(__file__), "--supervised-leg",
+              out]
+    log(f"  (a) supervise({os.path.basename(ini)}: milestone9k with niter "
+        f"{LEG_TO}, schedule {LEG_SCHEDULE}, max_restarts "
+        f"{SUPERVISED_RESTARTS}, backoff_s 0), each leg run.main(['--train', "
+        f"'--synthetic', {', '.join(repr(a) for a in LEG_DATA)}, "
+        f"'--cfg', ...]) in a process of its own (the runner hands it to "
+        f"one of the processes above)")
+    pool = ThreadPoolExecutor(max_workers=1)
+    run = pool.submit(sup.supervise, ini, ["--synthetic", *LEG_DATA],
+                      max_restarts=SUPERVISED_RESTARTS, backoff_s=0,
+                      runner=runner, log=slog)
+    pool.shutdown(wait=False)
+    mid = None
+    while mid is None:
+        if run.done():
+            fail(f"(b) the supervisor returned {run.result()} before leg 0 "
+                 f"saved ckpt_{LEG_MID}")
+        for folder in os.listdir(runs_dir) if os.path.isdir(runs_dir) else ():
+            path = os.path.join(runs_dir, folder, f"ckpt_{LEG_MID}",
+                                "state.pt")
+            if os.path.isfile(path):
+                mid = path
+        time.sleep(0.01)
+    with open(os.path.join(out, "pids")) as f:
+        pid0 = int(f.readline())
+    try:
+        os.kill(pid0, signal.SIGTERM)
+    except ProcessLookupError:
+        fail("(b) leg 0 had ended before its SIGTERM")
+    t_kill = time.time()
+    log(f"  (b) ckpt_{LEG_MID}/state.pt written; SIGTERM sent to leg 0 "
+        f"(pid {pid0})")
+    legs = run.result(timeout=900)
+    with open(os.path.join(out, "legs.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(tmp, "supervised", "log", "status.log")) as f:
+        status = f.read()
+    log(f"  (b) the supervisor's legs {legs}")
+    if len(legs) != 2 or len(recs) != 2:
+        fail(f"(b) {len(legs)} legs ran, {len(recs)} recorded; 2 asked")
+    k = recs[0]["it"]
+    stopped = re.findall(r"SIGTERM at it (\d+)", status)
+    resume_ini = os.path.join(runs_dir, f"{name}_resume_leg1.ini")
+    resume = configparser.ConfigParser()
+    resume.read(resume_ini)
+    ckpt_k = resume.get("ENV", "state_load_path", fallback="")
+    log(f"  (b) leg 0: exit {legs[0]['rc']}, SIGTERM answered at it "
+        f"{stopped}, its newest checkpoint it {legs[0]['reached_it']}; "
+        f"{os.path.basename(resume_ini)}: state_load_path "
+        f"{os.path.relpath(ckpt_k, tmp)}, resume_training_from_save "
+        f"{resume.get('TRAINING', 'resume_training_from_save')}")
+    if not (legs[0]["rc"] == 0 and stopped == [str(k)]
+            and LEG_MID <= k < LEG_TO and legs[0]["reached_it"] == k
+            and ckpt_k.endswith(f"ckpt_{k}")
+            and resume.getboolean("TRAINING", "resume_training_from_save")
+            and resume.getboolean("DEFAULT", "load_model_from_save")):
+        fail("(b) leg 0 did not stop cleanly with a checkpoint in "
+             f"[{LEG_MID}, {LEG_TO})")
+    resumed = re.findall(r"resumed from (\S+) at it=(\d+)", status)
+    log(f"  (b) leg 1: exit {legs[1]['rc']}, resumed {resumed}, reached it "
+        f"{legs[1]['reached_it']}")
+    if not (legs[1]["rc"] == 0 and legs[1]["reached_it"] == LEG_TO
+            and resumed == [(ckpt_k, str(k))] and recs[1]["it"] == LEG_TO):
+        fail("(b) leg 1 did not resume at the leg 0's checkpoint and end "
+             f"at {LEG_TO}")
+
+    # (c) each leg's launches as its own steps and calls predict
+    n_val = int(re.search(r"datasets: train \d+ / test \d+ / val (\d+)",
+                          status).group(1))
+    val_batches = math.ceil(n_val / cfg.dataset_val.batch_size)
+    spans = (range(LEG_FROM + 1, k + 1), range(k + 1, LEG_TO + 1))
+    wants = ({"val_step": 0, "generate": 0},
+             {"val_step": val_batches, "generate": 1})
+    per_leg = []
+    for i, (rec, its, calls) in enumerate(zip(recs, spans, wants)):
+        kinds, predicted = leg_prediction(its, cfg, calls["val_step"],
+                                          calls["generate"])
+        got = tuple(rec["launches"])
+        t = rec["t"]
+        first = rec["steps"][0][2] if rec["steps"] else float("nan")
+        start_s = first - launched[i]
+        parts = (f"the runner's launch to the leg's go "
+                 f"{t['go'] - launched[i]:.1f} s, run.main to its first "
+                 f"step {first - t['main']:.1f} s, its first step to the "
+                 f"leg's exit {launched[i] + legs[i]['wall_s'] - first:.1f}"
+                 " s")
+        log(f"  (c) leg {i}: it {its.start - 1} -> {its.stop - 1}, "
+            f"{sum(kinds)} G steps, {len(kinds) - sum(kinds)} D steps, "
+            f"{calls['val_step']} validation batches, {calls['generate']} "
+            f"generate calls; launches {LAUNCH_LABELS}/conv_int8 {got}, "
+            f"predicted {predicted + (0,)}; wall {legs[i]['wall_s']} s, "
+            f"start-up to its first step {start_s:.1f} s ({parts}); saves "
+            f"{[round(s, 3) for s, _ in rec['saves']]} s ({card})")
+        if ([s[0] for s in rec["steps"]] != list(its)
+                or [s[1] for s in rec["steps"]] != kinds
+                or rec["calls"] != calls):
+            fail(f"(c) leg {i} ran {rec['steps']} with calls "
+                 f"{rec['calls']}, not the schedule's")
+        if got != predicted + (0,):
+            fail(f"(c) leg {i} launched {got}, predicted {predicted}")
+        per_leg.append(got)
+    log(f"  (b) SIGTERM {t_kill - launched[0]:.1f} s after leg 0's launch")
+
+    # (d) the export in a process of its own, on the card, beside (c)'s
+    # comparison and (e)
+    (folder1,) = re.findall(rf"saved checkpoint (\S+)/ckpt_{LEG_TO}$",
+                            status, re.M)
+    pack = os.path.join(tmp, "supervised_export.npz")
+    module = "gan_sr_wind_field_tpu_torch.scripts.export_continuation"
+    t_export = time.monotonic()
+    _put(os.path.join(out, "export.go"),
+         {"mode": "module", "module": module, "argv": [folder1, "--out",
+                                                      pack]})
+
+    # (c) leg 1's ckpt_6008 against phase 7's uninterrupted one
+    a = checkpoint_trees(os.path.join(folder1, f"ckpt_{LEG_TO}"), dev)
+    b = checkpoint_trees(os.path.join(cfg_run_folder(tmp, "leg"),
+                                      f"ckpt_{LEG_TO}"), dev)
+    diffs = tree_diffs(a, b)
+    exact = all(v[2] for v in diffs.values()) and torch.equal(
+        a.rng_state, b.rng_state) and a.it == b.it == LEG_TO
+    for tname, (mx, rel, bits) in diffs.items():
+        log(f"  (c) leg 1's ckpt_{LEG_TO} vs phase 7's {tname:<18} max abs "
+            f"{mx:.3e}, rel L2 {rel:.3e}, bit-exact {bits}")
+    log(f"  (c) SIGTERM at {k}, resumed by the supervisor, against phase "
+        f"7's uninterrupted leg: it {a.it}, generator state equal "
+        f"{torch.equal(a.rng_state, b.rng_state)}, bit-exact {exact}")
+    if a.it != LEG_TO or (not exact and not all(
+            v[1] <= RESUME_TOL for v in diffs.values())):
+        fail(f"(c) the supervised run is off by more than {RESUME_TOL:.0e}")
+    del a, b
+    torch.cuda.empty_cache()
+
+    # (e) the summary of leg 1's run folder
+    summary, _ = summarize(folder1)
+    tails = [summary[t] for t in ("val_PSNR_tail", "G_total_train_tail",
+                                  "G_val_total_tail", "D_val_loss_tail")]
+    log(f"  (e) summarize(leg 1's run folder): last_it {summary['last_it']}, "
+        f"checkpoints {summary['checkpoints']}, val_PSNR_tail "
+        f"{summary['val_PSNR_tail']}, G_total_train_tail "
+        f"{summary['G_total_train_tail']}")
+    if (summary["last_it"] != LEG_TO
+            or summary["checkpoints"] != [f"ckpt_{LEG_TO}"]
+            or any(t is None or not all(math.isfinite(v) for v in t.values())
+                   for t in tails)):
+        fail(f"(e) the summary: {summary}")
+
+    # (d) the export's pack against phase 8's pack of phase 7's live state
+    with np.load(os.path.join(tmp, "pack_bfloat16.npz")) as z:
+        want = {k: z[k] for k in z.files}
+    rc = _wait_json(os.path.join(out, "export.rc"),
+                    ready["export"]["pid"], timeout=600)
+    export_s = time.monotonic() - t_export
+    with open(os.path.join(out, "export.log")) as f:
+        text = f.read()
+    log("  (d) " + "\n  (d) ".join(text.strip().splitlines()[-3:]))
+    if rc != 0:
+        fail(f"(d) export_continuation exited {rc}:\n{text}")
+    with np.load(pack) as z:
+        got = {k: z[k] for k in z.files}
+    meta, meta_want = (json.loads(str(z.pop("__meta__"))) for z in (got, want))
+    keys = sorted(got)
+    # bit for bit after a bit-exact resume, else within (c)'s tolerance
+    equal = {k: k in want and got[k].dtype == want[k].dtype
+             and np.array_equal(got[k], want[k]) for k in keys}
+    same = keys == sorted(want) and all(equal.values())
+    worst = max([0.0] + [rel_l2(*(torch.from_numpy(bf16_bits_to_f32(z[k]))
+                                  for z in (got, want)))
+                         for k in keys if not equal[k] and k in want])
+    log(f"  (d) python -m gan_sr_wind_field_tpu_torch.scripts."
+        f"export_continuation (its own process, on the card, run as "
+        f"python -m runs it: runpy, as __main__): "
+        f"{os.path.getsize(pack)} bytes in {export_s:.1f} s; {len(keys)} "
+        f"arrays against phase 8's bf16 pack of phase 7's live state: "
+        f"equal bit for bit {same}, largest rel L2 {worst:.3e}; meta it "
+        f"{meta['it']}, name {meta.get('name')}, source "
+        f"{os.path.relpath(meta['source_ckpt'], tmp)}")
+    if (not (same if exact else worst <= RESUME_TOL) or meta["it"] != LEG_TO
+            or meta["trees"] != meta_want["trees"]):
+        fail("(d) the exported pack is not phase 8's")
+    took = time.monotonic() - t_phase
+    log(f"  phase 16 took {took:.1f} s")
+    return {"launches": per_leg, "seconds": took}
+
 
 def main():
     import torch
@@ -6448,7 +6869,7 @@ def main():
 
 
 def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
-    """Phases 3 to 12 and the result lines, with phase 7's temporary
+    """Phases 3 to 16 and the result lines, with phase 7's temporary
     directory ``tmp`` and the future of its data feed ``leg_data``."""
     import numpy as np
     import torch
@@ -6715,12 +7136,18 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             fail(f"a rank of phase 14 ended {proc.exitcode}")
     del started_sp, ref_sp
     phase_start(15)
+    # phase 16's processes import torch and the port beside phase 15
+    warm = os.path.join(tmp, "supervised_legs")
+    start_warm(warm)
     rd = real_data_phase(dev, card, tmp)
     packs.close()
     log(f"the 6k pack read from disk {len(packs.reads)} time(s) in phases 7 "
         f"to 15")
     if len(packs.reads) != 1:
         fail("the 6k pack was read from disk more than once")
+    # --------------------------- 16. the supervised long run, SIGTERM, resume
+    phase_start(16)
+    sv = supervised_phase(dev, card, tmp, warm)
 
     def row(name, src, replaces, launches, err, t, lib, **extra):
         return {"name": name, "route": "cuda", "source": f"{CSRC}/{src}",
@@ -6747,11 +7174,14 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     # phase 15's launches: the leg on the raw files' cache and its --test
     # (kernels 1 to 5, then conv_int8's, which stays 0)
     fl = rd["launches"]
+    # phase 16's launches, in each supervised leg's own process
+    sl = sv["launches"]
 
     def mesh_keys(i):
         # launches_model: the model-mesh ranks' own counts, phase 13 (e)'s
         # two and phase 14 (d)'s eight (kernels 1, 2 and 5 off there)
-        return dict(launches_mesh=ml[i], launches_mesh_ranks=[
+        return dict(launches_supervised_legs=[leg[i] for leg in sl],
+                    launches_mesh=ml[i], launches_mesh_ranks=[
             r[i] for r in mp_["rank_launches"]], launches_model={
                 "phase13e_ranks": [r[i] for r in mp_["model_launches"]],
                 "phase14d_ranks": [r[i] for r in sp["launches_model"]]})
@@ -6820,7 +7250,8 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
             backward_library_ms_b32=th["vjp"], mma=TC_MMA["hr_head"],
             sass_mma_count=mma_counts["hr_head"]),
         # the port's own kernels: the JAX package's int8 convs are XLA
-        *(int8_row(name, dp, replaces, launches_real_data=fl[5], **extra)
+        *(int8_row(name, dp, replaces, launches_real_data=fl[5],
+                   launches_supervised_legs=[leg[5] for leg in sl], **extra)
           for name, replaces, extra in (
             ("conv_int8_head_pair", "quant.py:87", dict(
                 library="bf16 cuDNN hr_conv0_x, the conv the pair replaces",
@@ -6849,6 +7280,10 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--stencils-of":
         stencils_of(sys.argv[2])
+    elif len(sys.argv) > 3 and sys.argv[1] == "--supervised-leg":
+        supervised_runner(sys.argv[2], sys.argv[3:])
+    elif len(sys.argv) == 4 and sys.argv[1] == "--warm":
+        warm_process(sys.argv[2], sys.argv[3])
     elif len(sys.argv) > 1:
         fail(f"usage: {sys.argv[0]} [--stencils-of ROOT]")
     else:

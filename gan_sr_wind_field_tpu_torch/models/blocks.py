@@ -53,6 +53,10 @@ def kaiming_scaled_(w: torch.Tensor, scale: float = 1.0,
     ``(W, O, I, kx, ky, kz)`` counts its windows too, W·I·kx·ky·kz, as
     flax's ``variance_scaling`` reads the whole (W, kx, ky, kz, I, O)
     kernel."""
+    if w.is_meta:
+        # no values to draw (models/generator.py:empty_generator), and a
+        # draw on the meta device imports torch._dynamo: seconds at start
+        return w
     if w.dim() == 6:
         fan_in = w.shape[0] * math.prod(w.shape[2:])
     else:

@@ -214,10 +214,20 @@ def empty_generator(cfg, device=None) -> Generator3D:
     a forward on them shows."""
     with torch.device("meta"):
         G = build_generator(cfg)
-    G = G.to_empty(device=resolve_device(device))
-    with torch.no_grad():
-        for p in G.parameters():
-            p.fill_(float("nan"))
+    # each tensor allocated anew on the device (Module.to_empty goes through
+    # torch's Python references of the meta device, which import sympy:
+    # seconds at start)
+    dev = resolve_device(device)
+    for mod in G.modules():
+        for name, p in mod._parameters.items():
+            if p is not None:
+                mod._parameters[name] = nn.Parameter(
+                    torch.full(p.shape, float("nan"), dtype=p.dtype,
+                               device=dev), requires_grad=p.requires_grad)
+        for name, b in mod._buffers.items():
+            if b is not None:
+                mod._buffers[name] = torch.empty(b.shape, dtype=b.dtype,
+                                                 device=dev)
     return G
 
 

@@ -16,7 +16,12 @@ float32 bits to nearest even, without ``ml_dtypes``.
 
 from __future__ import annotations
 
+import io
 import json
+import os
+import struct
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -78,21 +83,31 @@ def load_continuation(path: str, dtype: str = "float32") -> Dict[str, Any]:
     the pack lacks the tree), ``it``, and the raw ``meta`` dict."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__meta__"]))
-        if meta.get("format_version", 0) > FORMAT_VERSION:
-            raise ValueError(
-                f"continuation pack {path} has format "
-                f"{meta['format_version']} > supported {FORMAT_VERSION}"
-            )
-        store_bf16 = meta.get("store_dtype") == "bfloat16"
-        per_tree: Dict[str, Dict[str, np.ndarray]] = {t: {} for t in _TREES}
-        for key in z.files:
-            if key == "__meta__":
-                continue
-            tree_name, rest = key.split("/", 1)
-            leaf = z[key]
-            if store_bf16 and leaf.dtype == np.uint16:
-                leaf = bf16_bits_to_f32(leaf)
-            per_tree[tree_name][rest] = leaf.astype(dtype)
+        keys = [k for k in z.files if k != "__meta__"]
+    if meta.get("format_version", 0) > FORMAT_VERSION:
+        raise ValueError(
+            f"continuation pack {path} has format "
+            f"{meta['format_version']} > supported {FORMAT_VERSION}"
+        )
+    store_bf16 = meta.get("store_dtype") == "bfloat16"
+
+    def read(share):
+        # a reader of its own per thread (zlib inflates without the GIL)
+        with np.load(path, allow_pickle=False) as z:
+            return [(key, z[key]) for key in share]
+
+    n = min(8, os.cpu_count() or 1, max(len(keys), 1))
+    with ThreadPoolExecutor(max_workers=n) as pool:
+        leaves = dict(kv for part in pool.map(read, [keys[i::n]
+                                                     for i in range(n)])
+                      for kv in part)
+    per_tree: Dict[str, Dict[str, np.ndarray]] = {t: {} for t in _TREES}
+    for key in keys:  # the archive's order, as the trees were flattened
+        tree_name, rest = key.split("/", 1)
+        leaf = leaves[key]
+        if store_bf16 and leaf.dtype == np.uint16:
+            leaf = bf16_bits_to_f32(leaf)
+        per_tree[tree_name][rest] = leaf.astype(dtype)
     out: Dict[str, Any] = {"it": int(meta.get("it", 0)), "meta": meta}
     for tree_name, out_key in _TREES.items():
         flat = per_tree[tree_name]
@@ -129,8 +144,60 @@ def save_continuation(path: str, params_G, params_D=None, batch_stats_D=None,
     if extra_meta:
         meta.update(extra_meta)
     arrays["__meta__"] = np.asarray(json.dumps(meta))
-    np.savez_compressed(path, **arrays)
+    _savez_deflated(path, arrays)
     return path
+
+
+# the zip records np.savez_compressed writes through zipfile: a local
+# header before each member, the central directory, its end record
+_LOCAL = struct.Struct("<4s2B4HL2L2H")
+_CENTRAL = struct.Struct("<4s4B4HL2L5H2L")
+_END = struct.Struct("<4s4H2LH")
+_DOS_DATE = (1 << 5) | 1  # 1980-01-01, 00:00
+_ZIP32 = 0xFFFFFFFF
+
+
+def _deflated_member(item):
+    """(name, crc, size, deflated bytes) of one array's .npy member, at
+    zlib's default level, as np.savez_compressed stores it."""
+    name, array = item
+    buf = io.BytesIO()
+    np.lib.format.write_array(buf, np.asanyarray(array), allow_pickle=False)
+    raw = buf.getbuffer()
+    comp = zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION, zlib.DEFLATED, -15)
+    return (f"{name}.npy".encode(), zlib.crc32(raw), raw.nbytes,
+            comp.compress(raw) + comp.flush())
+
+
+def _savez_deflated(path: str, arrays: Dict[str, np.ndarray]) -> None:
+    """``np.savez_compressed(path, **arrays)``, each member deflated in a
+    thread of its own (zlib runs without the GIL): the same members at
+    the same level, several times faster on a pack of ~650 arrays.
+    np.load reads it as it reads np.savez_compressed's; an archive past
+    the 4 GiB of a zip without its 64-bit records goes through numpy."""
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        members = list(pool.map(_deflated_member, arrays.items()))
+    total = sum(_LOCAL.size + len(n) + len(d) for n, _, _, d in members)
+    if total >= _ZIP32 or max(size for _, _, size, _ in members) >= _ZIP32:
+        np.savez_compressed(path, **arrays)
+        return
+    central, offset = [], 0
+    with open(path, "wb") as f:
+        for name, crc, size, data in members:
+            f.write(_LOCAL.pack(b"PK\x03\x04", 20, 0, 0, zlib.DEFLATED, 0,
+                                _DOS_DATE, crc, len(data), size, len(name),
+                                0))
+            f.write(name)
+            f.write(data)
+            central.append(_CENTRAL.pack(
+                b"PK\x01\x02", 20, 3, 20, 0, 0, zlib.DEFLATED, 0, _DOS_DATE,
+                crc, len(data), size, len(name), 0, 0, 0, 0, 0o600 << 16,
+                offset) + name)
+            offset += _LOCAL.size + len(name) + len(data)
+        directory = b"".join(central)
+        f.write(directory)
+        f.write(_END.pack(b"PK\x05\x06", 0, 0, len(members), len(members),
+                          len(directory), offset, 0))
 
 
 def pack_from_state(path: str, state, it: Optional[int] = None,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from gan_sr_wind_field_tpu_torch.data.transform import reformat_sample
+from gan_sr_wind_field_tpu_torch.utils import spans
 
 # Jöhnk's Beta(a, a) sampler takes this many candidates per sample in one
 # draw; at a = 0.25 each is accepted with probability 0.927, so a sample
@@ -164,7 +165,8 @@ class DeviceBatcher:
     resumed leg that passes its iteration continues the stream instead of
     replaying it. With ``rows`` (a rank's of the data axis) each batch is
     those rows of the global batch of ``batch_size``: every rank holds the
-    volumes and draws the whole batch's offsets.
+    volumes and draws the whole batch's offsets. Each batch's cut is the
+    span ``data.batch`` (``utils/spans.py``).
     """
 
     def __init__(self, dataset, batch_size: int, device, seed: int = 0,
@@ -201,7 +203,9 @@ class DeviceBatcher:
                     enable_slicing=self.enable_slicing)
 
     def __next__(self):
-        batch = batch_at(self.full, self.zraw, self.seed, self.count,
-                         self._gen, **self.slice_kwargs(), rows=self.rows)
+        with spans.span("data.batch"):
+            batch = batch_at(self.full, self.zraw, self.seed, self.count,
+                             self._gen, **self.slice_kwargs(),
+                             rows=self.rows)
         self.count += 1
         return batch

@@ -44,6 +44,10 @@ JAX's does.
 kernel) on representative LR fields; every later ``upscale``,
 ``upscale_tiled`` and ``upscale_physical`` runs the quantized forward until
 ``dequantize``. Both are opt-in, as in the JAX package.
+
+``upscale`` is three spans (``utils/spans.py``): ``serve.h2d`` (the
+upload), ``serve.generate`` (the forward's launches, also of each batch of
+tiles) and ``serve.d2h`` (the download, which waits for the device).
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ from gan_sr_wind_field_tpu_torch.parallel.model import sharded_keys
 from gan_sr_wind_field_tpu_torch.train.checkpoint import load_generator_state
 from gan_sr_wind_field_tpu_torch.train.continuation import load_continuation
 from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+from gan_sr_wind_field_tpu_torch.utils import spans
 from gan_sr_wind_field_tpu_torch.utils.jax_params import params_from_jax
 
 
@@ -277,16 +282,18 @@ class WindFieldSR:
 
     @torch.inference_mode()
     def _generate(self, lr: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        if self.qhead is not None or self.qtrunk is not None:
+        with spans.span("serve.generate"):
+            if self.qhead is not None or self.qtrunk is not None:
+                return generate_fused(self.G, lr, z, self.packed,
+                                      qhead=self.qhead, qtrunk=self.qtrunk)
+            if self.slab is not None:
+                return gather_x(self.G(*(self.slab.cut(t) for t in (lr, z)),
+                                       slab=self.slab), self.slab)
+            if self.packed is None:
+                return self.G(lr, z)
             return generate_fused(self.G, lr, z, self.packed,
-                                  qhead=self.qhead, qtrunk=self.qtrunk)
-        if self.slab is not None:
-            return gather_x(self.G(*(self.slab.cut(t) for t in (lr, z)),
-                                   slab=self.slab), self.slab)
-        if self.packed is None:
-            return self.G(lr, z)
-        return generate_fused(self.G, lr, z, self.packed, self.head_packed,
-                              head=self.head_packed is not None)
+                                  self.head_packed,
+                                  head=self.head_packed is not None)
 
     def upscale(self, lr, z_terrain) -> np.ndarray:
         """lr: (x, y, zl, C) or batched; returns (X, Y, zl, 3) float32. On
@@ -297,8 +304,10 @@ class WindFieldSR:
         if squeeze:
             lr, z_terrain = lr[None], z_terrain[None]
         if self.mesh is None:
-            out = self._generate(torch.from_numpy(lr).to(self.device),
-                                 torch.from_numpy(z_terrain).to(self.device))
+            with spans.span("serve.h2d"):
+                lr_d = torch.from_numpy(lr).to(self.device)
+                z_d = torch.from_numpy(z_terrain).to(self.device)
+            out = self._generate(lr_d, z_d)
         else:
             lr, n = pad_batch_to(lr, self.mesh.size)
             z_terrain, _ = pad_batch_to(z_terrain, self.mesh.size)
@@ -308,7 +317,8 @@ class WindFieldSR:
                 torch.from_numpy(z_terrain[rows]).to(self.device))
             out = gather_rows(mine, self.mesh.data_group, rows,
                               lr.shape[0])[:n]
-        out = out.cpu().numpy()
+        with spans.span("serve.d2h"):  # waits for the device too
+            out = out.cpu().numpy()
         return out[0] if squeeze else out
 
     def upscale_physical(self, lr_uvw, z, pressure=None,

@@ -17,7 +17,18 @@ Protocol (numpy ``.npz`` both directions):
                                 -> npz ``sr`` in m/s (needs norm_stats)
     POST /v1/upscale_tiled      ONE volume of any horizontal extent, tiled
                                 server-side through the micro-batcher
-    GET  /v1/health, /v1/stats  JSON
+    GET  /v1/health             JSON
+    GET  /v1/stats              JSON: the batching counters; with spans on
+                                (``--spans``) also the percentiles of the
+                                recent spans below, each request's wait
+                                (``http.wait``) among them
+
+Spans (``utils/spans.py``; off unless ``--spans`` or a profiler runs):
+``http.decode``, ``http.wait`` and ``http.encode`` in each request's
+handler thread (attribute ``n``, samples); ``batcher.queue`` for each job
+(from its enqueue to the start of its batch), ``batcher.collect`` (the
+batch window), ``batcher.stack`` and ``batcher.batch`` (attributes ``n``
+and ``pad_to``) on the dispatcher thread ``windsr-dispatch``.
 
 Serve a continuation pack, or a checkpoint of a port run, on the card:
 
@@ -34,6 +45,10 @@ or an exported artifact (``eval/export.py``), with no config:
 
     python -m gan_sr_wind_field_tpu_torch.eval.server \
         --artifact generator.wsrx [--tile 16 --tile-overlap 4]
+
+``--spans`` turns the program's spans on, for ``/v1/stats``'s percentiles
+(``span_ms``, one entry for each span named above and each of
+``eval/serve.py``'s ``serve.h2d``, ``serve.generate`` and ``serve.d2h``).
 """
 
 from __future__ import annotations
@@ -49,7 +64,14 @@ from typing import Optional
 
 import numpy as np
 
+from gan_sr_wind_field_tpu_torch.utils import spans
+
 _MAX_BODY = 1 << 30  # 1 GiB request cap
+# the spans whose percentiles /v1/stats reports while spans are on, in a
+# request's order: http.wait is the server-side latency from the enqueue
+_STATS_SPANS = ("http.decode", "batcher.queue", "http.wait",
+                "batcher.collect", "batcher.stack", "batcher.batch",
+                "serve.h2d", "serve.generate", "serve.d2h", "http.encode")
 
 
 class _Job:
@@ -61,7 +83,7 @@ class _Job:
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
-        self.t0 = time.monotonic()  # enqueue time, for latency stats
+        self.t0 = time.perf_counter()  # enqueue: its batcher.queue start
 
 
 class MicroBatcher:
@@ -88,9 +110,6 @@ class MicroBatcher:
             "requests": 0, "batches": 0, "batched_samples": 0,
             "padded_samples": 0, "max_batch_seen": 0, "errors": 0,
         }
-        # bounded recent-window timings for the /v1/stats percentiles
-        self._req_lat_s = collections.deque(maxlen=2048)  # enqueue -> done
-        self._batch_s = collections.deque(maxlen=512)     # backend call
         self._lock = threading.Lock()
         self._thread = threading.Thread(
             target=self._run, name="windsr-dispatch", daemon=True
@@ -120,9 +139,10 @@ class MicroBatcher:
         for job in jobs:
             self._q.put(job)
         deadline = time.monotonic() + timeout
-        for job in jobs:
-            if not job.event.wait(max(0.0, deadline - time.monotonic())):
-                raise TimeoutError("inference did not complete in time")
+        with spans.span("http.wait", n=len(jobs)):
+            for job in jobs:
+                if not job.event.wait(max(0.0, deadline - time.monotonic())):
+                    raise TimeoutError("inference did not complete in time")
         for job in jobs:
             if job.error is not None:
                 raise job.error
@@ -181,7 +201,9 @@ class MicroBatcher:
                     job = self._q.get(timeout=0.05)
                 except queue.Empty:
                     continue
-            self._process(self._collect(job))
+            with spans.span("batcher.collect"):
+                jobs = self._collect(job)
+            self._process(jobs)
 
     def _process(self, jobs: list) -> None:
         n = len(jobs)
@@ -189,13 +211,18 @@ class MicroBatcher:
         if self.pad_pow2 and n > 1:
             pad_to = 1 << (n - 1).bit_length()
         pad_to = min(pad_to, self.max_batch)
-        t_call = time.monotonic()
+        if spans.active():
+            start = time.perf_counter()
+            for j in jobs:
+                spans.mark("batcher.queue", j.t0, start)
         try:
-            lr = np.stack([j.lr for j in jobs]
-                          + [jobs[-1].lr] * (pad_to - n))
-            z = np.stack([j.z for j in jobs]
-                         + [jobs[-1].z] * (pad_to - n))
-            out = np.asarray(self.backend.upscale(lr, z))
+            with spans.span("batcher.batch", n=n, pad_to=pad_to):
+                with spans.span("batcher.stack"):
+                    lr = np.stack([j.lr for j in jobs]
+                                  + [jobs[-1].lr] * (pad_to - n))
+                    z = np.stack([j.z for j in jobs]
+                                 + [jobs[-1].z] * (pad_to - n))
+                out = np.asarray(self.backend.upscale(lr, z))
             for i, j in enumerate(jobs):
                 j.result = out[i]
         except BaseException as e:  # propagate to every waiter
@@ -204,7 +231,6 @@ class MicroBatcher:
             with self._lock:
                 self.stats["errors"] += 1
         finally:
-            done = time.monotonic()
             with self._lock:
                 self.stats["batches"] += 1
                 self.stats["batched_samples"] += n
@@ -212,35 +238,36 @@ class MicroBatcher:
                 self.stats["max_batch_seen"] = max(
                     self.stats["max_batch_seen"], n
                 )
-                self._batch_s.append(done - t_call)
-                for j in jobs:
-                    self._req_lat_s.append(done - j.t0)
             for j in jobs:
                 j.event.set()
 
     # ------------------------------------------------------------- stats
     def stats_snapshot(self) -> dict:
-        """Counters + recent-window latency percentiles (ms). Cheap under
-        the lock (copies only); percentile math happens outside it."""
+        """The counters and, while spans are on, ``span_ms``: the
+        percentiles (ms) of the HTTP tier's, the batcher's and the backend's
+        spans (``_STATS_SPANS``) in the process's ring (its last ``spans.RING`` spans). Cheap under the
+        lock (a copy); the rest happens outside it."""
         with self._lock:
             snap = dict(self.stats)
-            lat = list(self._req_lat_s)
-            bat = list(self._batch_s)
+        if not spans.active():
+            return snap
+        ms = collections.defaultdict(list)
+        for s in spans.read(names=_STATS_SPANS):
+            ms[s.name].append(1e3 * (s.t1 - s.t0))
 
         def pct(xs):
             if not xs:
                 return {"count": 0}
-            q = np.percentile(np.asarray(xs) * 1e3, [50, 95, 99])
+            q = np.percentile(xs, [50, 95, 99])
             return {
                 "count": len(xs),
                 "p50_ms": round(float(q[0]), 3),
                 "p95_ms": round(float(q[1]), 3),
                 "p99_ms": round(float(q[2]), 3),
-                "mean_ms": round(float(np.mean(xs)) * 1e3, 3),
+                "mean_ms": round(float(np.mean(xs)), 3),
             }
 
-        snap["request_latency"] = pct(lat)
-        snap["batch_duration"] = pct(bat)
+        snap["span_ms"] = {k: pct(ms[k]) for k in _STATS_SPANS}
         return snap
 
 
@@ -377,54 +404,57 @@ class _Handler(BaseHTTPRequestHandler):
             return
         body_read = False
         try:
-            length = int(self.headers.get("Content-Length", "0"))
-            if not 0 < length <= _MAX_BODY:
-                raise ValueError(f"bad Content-Length {length}")
-            body = self.rfile.read(length)
-            body_read = True
-            overlap = self.server.meta.get("tile_overlap", 16)
-            with np.load(io.BytesIO(body), allow_pickle=False) as npz:
+            with spans.span("http.decode") as decode:
+                length = int(self.headers.get("Content-Length", "0"))
+                if not 0 < length <= _MAX_BODY:
+                    raise ValueError(f"bad Content-Length {length}")
+                body = self.rfile.read(length)
+                body_read = True
+                overlap = self.server.meta.get("tile_overlap", 16)
+                with np.load(io.BytesIO(body), allow_pickle=False) as npz:
+                    if tiled:
+                        physical = "lr_uvw" in npz.files
+                        if "overlap" in npz.files:
+                            overlap = int(npz["overlap"])
+                    if physical:
+                        lr, z = self._physical_inputs(npz)
+                    else:
+                        lr = np.asarray(npz["lr"], np.float32)
+                        z = np.asarray(npz["z"], np.float32)
                 if tiled:
-                    physical = "lr_uvw" in npz.files
-                    if "overlap" in npz.files:
-                        overlap = int(npz["overlap"])
-                if physical:
-                    lr, z = self._physical_inputs(npz)
+                    if lr.ndim != 4 or z.ndim != 4:
+                        raise ValueError(
+                            f"/v1/upscale_tiled takes ONE volume (x,y,zl,C)/"
+                            f"(X,Y,zl,1); got {lr.shape} / {z.shape}"
+                        )
                 else:
-                    lr = np.asarray(npz["lr"], np.float32)
-                    z = np.asarray(npz["z"], np.float32)
-            if tiled:
-                if lr.ndim != 4 or z.ndim != 4:
+                    squeeze = lr.ndim == 4
+                    if squeeze:
+                        lr, z = lr[None], z[None]
+                    if (lr.ndim != 5 or z.ndim != 5
+                            or lr.shape[0] != z.shape[0]):
+                        raise ValueError(
+                            f"lr/z must be (x,y,zl,C)/(X,Y,zl,1) or batched; "
+                            f"got {lr.shape} / {z.shape}"
+                        )
+                # z geometry is fully determined by lr + the server scale —
+                # reject mismatches here (-> 400) instead of letting the
+                # backend trace error surface as an opaque 500. This also
+                # makes --serve_strict_shapes pin the z shape: allowed lr
+                # shapes + this consistency check leave exactly one z shape.
+                scale = self.server.meta.get("scale")
+                x, y, zl, _ = lr.shape[-4:]
+                zx, zy, zzl, zc = z.shape[-4:]
+                if zc != 1 or zzl != zl or (
+                    scale and (zx != x * scale or zy != y * scale)
+                ):
                     raise ValueError(
-                        f"/v1/upscale_tiled takes ONE volume (x,y,zl,C)/"
-                        f"(X,Y,zl,1); got {lr.shape} / {z.shape}"
+                        f"z sample shape {(zx, zy, zzl, zc)} inconsistent "
+                        f"with lr {(x, y, zl)} at scale {scale}: expected "
+                        f"({x * scale if scale else 'x*s'}, "
+                        f"{y * scale if scale else 'y*s'}, {zl}, 1)"
                     )
-            else:
-                squeeze = lr.ndim == 4
-                if squeeze:
-                    lr, z = lr[None], z[None]
-                if lr.ndim != 5 or z.ndim != 5 or lr.shape[0] != z.shape[0]:
-                    raise ValueError(
-                        f"lr/z must be (x,y,zl,C)/(X,Y,zl,1) or batched; "
-                        f"got {lr.shape} / {z.shape}"
-                    )
-            # z geometry is fully determined by lr + the server scale —
-            # reject mismatches here (-> 400) instead of letting the
-            # backend trace error surface as an opaque 500. This also
-            # makes --serve_strict_shapes pin the z shape: allowed lr
-            # shapes + this consistency check leave exactly one z shape.
-            scale = self.server.meta.get("scale")
-            x, y, zl, _ = lr.shape[-4:]
-            zx, zy, zzl, zc = z.shape[-4:]
-            if zc != 1 or zzl != zl or (
-                scale and (zx != x * scale or zy != y * scale)
-            ):
-                raise ValueError(
-                    f"z sample shape {(zx, zy, zzl, zc)} inconsistent "
-                    f"with lr {(x, y, zl)} at scale {scale}: expected "
-                    f"({x * scale if scale else 'x*s'}, "
-                    f"{y * scale if scale else 'y*s'}, {zl}, 1)"
-                )
+                decode.set(n=int(lr.shape[0]) if lr.ndim == 5 else 1)
         except Exception as e:
             if not body_read:
                 self.close_connection = True
@@ -466,14 +496,15 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:
             self._json(500, {"error": str(e)})
             return
-        buf = io.BytesIO()
-        np.savez(buf, sr=sr[0] if squeeze else sr)
-        body = buf.getvalue()
-        self.send_response(200)
-        self.send_header("Content-Type", "application/octet-stream")
-        self.send_header("Content-Length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
+        with spans.span("http.encode", n=len(sr)):
+            buf = io.BytesIO()
+            np.savez(buf, sr=sr[0] if squeeze else sr)
+            body = buf.getvalue()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
 
 class WindFieldServer(ThreadingHTTPServer):
@@ -638,7 +669,13 @@ def main(argv=None) -> int:
     p.add_argument("--tile-overlap", type=int, default=None,
                    help="/v1/upscale_tiled overlap in LR pixels; default a "
                         "quarter of the tile")
+    p.add_argument("--spans", action="store_true",
+                   help="record the program's spans (utils/spans.py): "
+                        "/v1/stats then reports the percentiles of the "
+                        "HTTP, queue, batch and backend spans")
     args = p.parse_args(argv)
+    if args.spans:
+        spans.enable()
     if (args.cfg is None) == (args.artifact is None):
         p.error("--artifact serves without --cfg; --continuation and "
                 "--checkpoint need it")

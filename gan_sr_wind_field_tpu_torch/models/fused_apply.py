@@ -19,6 +19,8 @@ Serving may swap in calibrated int8: ``qhead`` runs hr_conv0's x-part as
 ``trunk_input_features`` and ``head_features_fused`` are their calibration
 probes. A ``conv_mode="horizontal_3D"`` generator runs its one unsplit
 hr_conv0 on the concat of x and t, with neither head function nor int8.
+Whichever computes it, the head (hr_conv0, its LeakyReLU and dropout) is
+the device span ``G.hr_head`` (``utils/spans.py``), forward and backward.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     rrdb_trunk,
 )
 from gan_sr_wind_field_tpu_torch.ops.resize import upsample_nearest_xy
+from gan_sr_wind_field_tpu_torch.utils import spans
 
 
 def _x_features(G, lr: torch.Tensor, trunk_fn: Callable,
@@ -89,27 +92,33 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
                          "(the terrain part stays exact)")
     x, t = _head_features(G, lr, z_terrain, trunk_fn, slab)
     p = G.dropout_probability if train else 0.0
-    if G.conv_mode != "3D":
-        # one unsplit hr_conv0 on the concat (JAX generator.py:191-204)
-        x = F.leaky_relu(G.hr_conv0(torch.cat([x, t], dim=-1), slab=slab),
-                         G.negative_slope)
-        if p > 0.0:
-            x = channel_dropout(x, p, dropout_mask, generator)
-    elif qhead is not None:
-        cx = split_head_conv_int8(x, qhead, (G.hr_kern_size - 1) // 2,
-                                  out_dtype=G.dtype)
-        x = F.leaky_relu(cx + G.hr_conv0_t(t), G.negative_slope)
-    elif head_fn is None:
-        x = F.leaky_relu(G.hr_conv0_x(x, slab=slab)
-                         + G.hr_conv0_t(t, slab=slab), G.negative_slope)
-        if p > 0.0:
-            x = channel_dropout(x, p, dropout_mask, generator)
-    else:
-        scale = None
-        if p > 0.0:
-            scale = dropout_scale(x.shape[0], G.hr_conv0_x.weight.shape[0], p,
-                                  G.dtype, x.device, dropout_mask, generator)
-        x = head_fn(x, t.to(G.dtype), scale)
+    # the HR head, whichever computes it, and its backward: one span
+    with spans.device_span("G.hr_head") as head:
+        x, t = head.inputs(x, t)
+        if G.conv_mode != "3D":
+            # one unsplit hr_conv0 on the concat (JAX generator.py:191-204)
+            x = F.leaky_relu(G.hr_conv0(torch.cat([x, t], dim=-1),
+                                        slab=slab), G.negative_slope)
+            if p > 0.0:
+                x = channel_dropout(x, p, dropout_mask, generator)
+        elif qhead is not None:
+            cx = split_head_conv_int8(x, qhead, (G.hr_kern_size - 1) // 2,
+                                      out_dtype=G.dtype)
+            x = F.leaky_relu(cx + G.hr_conv0_t(t), G.negative_slope)
+        elif head_fn is None:
+            x = F.leaky_relu(G.hr_conv0_x(x, slab=slab)
+                             + G.hr_conv0_t(t, slab=slab), G.negative_slope)
+            if p > 0.0:
+                x = channel_dropout(x, p, dropout_mask, generator)
+        else:
+            scale = None
+            if p > 0.0:
+                scale = dropout_scale(x.shape[0],
+                                      G.hr_conv0_x.weight.shape[0], p,
+                                      G.dtype, x.device, dropout_mask,
+                                      generator)
+            x = head_fn(x, t.to(G.dtype), scale)
+        x = head.output(x)
     return G.hr_conv1(x, slab=slab).float()
 
 

@@ -95,6 +95,12 @@ JAX package) runs G on its modules: the trunk and head kernels need "3D"
 and the stencil kernels stay under ``use_pallas_stencil``. A D with
 instance norm has no running statistics but its slicing head's, and none
 at all without slicing: ``batch_stats_D`` is then empty.
+
+A step's phases are spans (``utils/spans.py``; off unless enabled or a
+profiler runs): ``train.step`` (attribute ``kind``, G or D) around
+``train.begin``, ``train.augment`` and, on a G step, ``G.losses``,
+``G.grad``, ``G.adam`` and ``G.ema``, on a D step ``D.forward_G``,
+``D.losses``, ``D.grad`` and ``D.adam``.
 """
 
 from __future__ import annotations
@@ -149,6 +155,7 @@ from gan_sr_wind_field_tpu_torch.train.schedule import (
     label_values,
     multistep_lr,
 )
+from gan_sr_wind_field_tpu_torch.utils import spans
 from gan_sr_wind_field_tpu_torch.utils.jax_params import (
     d_params_from_jax,
     params_from_jax,
@@ -870,10 +877,12 @@ class WindFieldGAN:
                  dropout_mask=None):
         params = {k: v.detach().requires_grad_() for k, v in
                   state.params_G.items()}
-        loss, (losses, _) = self._g_losses(params, state, lr, hr, z, None,
-                                           generator, True, weights,
-                                           dropout_mask)
-        grads = self._grads(loss, params, state.sharded)
+        with spans.span("G.losses"):
+            loss, (losses, _) = self._g_losses(params, state, lr, hr, z,
+                                               None, generator, True,
+                                               weights, dropout_mask)
+        with spans.span("G.grad"):
+            grads = self._grads(loss, params, state.sharded)
         return (losses["total"].detach(),
                 {k: v.detach() for k, v in losses.items()}, grads)
 
@@ -881,10 +890,11 @@ class WindFieldGAN:
         loss, metrics, grads = self._g_grads(state, lr, hr, z, state.rng, w)
         # a non-finite loss skips the whole optimizer step, Adam's count
         # included
-        norm = self._adam_step(state.params_G, grads, state.opt_state_G,
-                               self._sc["lr_G"], *self.opt_G,
-                               finite=torch.isfinite(loss), gen=state.rng,
-                               sharded=state.sharded)
+        with spans.span("G.adam"):
+            norm = self._adam_step(state.params_G, grads, state.opt_state_G,
+                                   self._sc["lr_G"], *self.opt_G,
+                                   finite=torch.isfinite(loss),
+                                   gen=state.rng, sharded=state.sharded)
         metrics["D_train_loss"] = torch.zeros((), device=self.device)
         if self.clip_norm is not None:
             metrics["G_grad_norm"] = norm
@@ -892,14 +902,19 @@ class WindFieldGAN:
 
     def _d_branch(self, state: GANTrainState, lr, hr, z):
         # G eval, no dropout, no gradient: the trunk kernel if enabled
-        fake = self._g_forward_nograd(state.params_G, lr, z)
+        with spans.span("D.forward_G"):
+            fake = self._g_forward_nograd(state.params_G, lr, z)
         params = {k: v.detach().requires_grad_() for k, v in
                   state.params_D.items()}
-        loss_D, _, _ = self._d_loss(params, state.batch_stats_D,
-                                    hr[..., :3], fake, None, state.rng, True)
-        grads = self._grads(loss_D, params)
-        self._adam_step(state.params_D, grads, state.opt_state_D,
-                        self._sc["lr_D"], *self.opt_D, gen=state.rng)
+        with spans.span("D.losses"):
+            loss_D, _, _ = self._d_loss(params, state.batch_stats_D,
+                                        hr[..., :3], fake, None, state.rng,
+                                        True)
+        with spans.span("D.grad"):
+            grads = self._grads(loss_D, params)
+        with spans.span("D.adam"):
+            self._adam_step(state.params_D, grads, state.opt_state_D,
+                            self._sc["lr_D"], *self.opt_D, gen=state.rng)
         zero = torch.zeros((), device=self.device)
         metrics = {k: zero for k in _LOSS_KEYS}
         metrics["D_train_loss"] = self._reduce({"D": loss_D})["D"].detach()
@@ -929,10 +944,12 @@ class WindFieldGAN:
         is first rotated and mirrored per sample (``data/augment.py``),
         with draws from ``state.rng`` before any other of the step's. On a
         mesh, ``lr``, ``hr`` and ``z`` are this rank's rows."""
-        lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
-        it = self._begin_step(state)
-        metrics = self._step(state, lr, hr, z, augment, self.is_g_step(it),
-                             weights)
+        with spans.span("train.step") as step:
+            lr, hr, z = (self._as_input(a) for a in (lr, hr, z))
+            it = self._begin_step(state)
+            g_step = self.is_g_step(it)
+            step.set(kind="G" if g_step else "D")
+            metrics = self._step(state, lr, hr, z, augment, g_step, weights)
         state.it = it
         return state, metrics
 
@@ -940,17 +957,18 @@ class WindFieldGAN:
         """The host's part of iteration ``state.it + 1``, before its device
         work: the schedules' values, and the frozen feature extractor's
         refresh (copied in place). Returns the iteration."""
-        self._placed(state)
-        it = state.it + 1
-        self._set_iteration(it)
-        if self.use_feature_D:
-            frozen = state.params_D_frozen
-            if frozen.keys() != state.params_D.keys():
-                state.params_D_frozen = _clone(state.params_D)
-            elif it % self.feature_D_update_period == 0:
-                with torch.no_grad():
-                    for k, v in state.params_D.items():
-                        frozen[k].copy_(v)
+        with spans.span("train.begin"):
+            self._placed(state)
+            it = state.it + 1
+            self._set_iteration(it)
+            if self.use_feature_D:
+                frozen = state.params_D_frozen
+                if frozen.keys() != state.params_D.keys():
+                    state.params_D_frozen = _clone(state.params_D)
+                elif it % self.feature_D_update_period == 0:
+                    with torch.no_grad():
+                        for k, v in state.params_D.items():
+                            frozen[k].copy_(v)
         return it
 
     def _step(self, state: GANTrainState, lr, hr, z, augment: bool,
@@ -960,9 +978,11 @@ class WindFieldGAN:
         of ``state`` in place, no host sync, so a CUDA graph can capture
         it. Returns the metrics."""
         if augment:
-            draws = augment_draws(self._n(lr.shape[0]), state.rng, lr.device)
-            lr, hr, z = augment_batch_with(lr, hr, z,
-                                           *(self._rows(d) for d in draws))
+            with spans.span("train.augment"):
+                draws = augment_draws(self._n(lr.shape[0]), state.rng,
+                                      lr.device)
+                lr, hr, z = augment_batch_with(
+                    lr, hr, z, *(self._rows(d) for d in draws))
         # on a spatial axis the slab is cut last, after augmentation
         lr, hr, z = self._cut(lr, hr, z)
         w = weights or self.default_weights
@@ -972,7 +992,7 @@ class WindFieldGAN:
             metrics = self._d_branch(state, lr, hr, z)
         # the EMA moves on G steps only (params_G is unchanged on D steps)
         if g_step and self.ema_decay > 0.0 and state.params_G_ema is not None:
-            with torch.no_grad():
+            with spans.span("G.ema"), torch.no_grad():
                 ema = list(state.params_G_ema.values())
                 step = torch._foreach_sub(
                     [state.params_G[k] for k in state.params_G_ema], ema)

@@ -42,6 +42,7 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     rrdb_trunk_bwd_reference,
     rrdb_trunk_reference,
 )
+from gan_sr_wind_field_tpu_torch.utils import spans
 
 
 @pytest.fixture
@@ -689,3 +690,42 @@ def test_conv_int8_requant_refuses_a_pitch_or_offset(cuda_device):
         int8_mod.conv3d_int8_requant(buf[..., :48], 32, wq, 1, s, s, 0.2,
                                      buf, 48)
     assert int8_mod.requant_launches == before
+
+
+@pytest.mark.cuda
+def test_device_span_times_forward_and_backward_on_the_stream(cuda_device):
+    """A device span records one event pair around its body and one
+    around the backward of what it wraps, and none while the stream
+    captures a CUDA graph."""
+    spans.enable()
+    spans.clear()
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        x, w = (torch.randn(2048, 2048, device=cuda_device, generator=gen,
+                            requires_grad=True) for _ in range(2))
+        (x @ w).sum().backward()  # cuBLAS's set-up, outside the span
+        with spans.device_span("s") as s:
+            (u,) = s.inputs(x)
+            y = s.output(u @ w)
+        y.sum().backward()
+        (got,) = spans.read(names=("s",))
+        assert len(spans._ring[-1].events) == 2
+        # three 2048^3 products at well under the card's peak
+        assert 0.0 < got.device_ms < 100.0, got.device_ms
+        static = torch.zeros(1024, device=cuda_device)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            static.add_(1.0)  # warm up outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            with spans.device_span("captured"):
+                static.add_(1.0)
+        graph.replay()
+        (cap,) = spans.read(names=("captured",))
+        assert cap.device_ms is None
+        assert float(static[0]) == 2.0
+    finally:
+        spans.enable(False)
+        spans.clear()

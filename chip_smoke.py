@@ -47,11 +47,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
   4. serve configs/milestone9k.ini (seeded random weights, bf16) through
      WindFieldServer on 127.0.0.1: 4 single-sample and one 8-sample HTTP
      request plus 6 concurrent MicroBatcher.submit calls; every output
-     (64, 64, 10, 3) and finite, the trunk kernel's launch count rose and
-     the head kernel's did not; then one batch against the same model
-     with the plain trunk, <= 3e-2; then a copy with
-     use_pallas_head_nograd serves one batch of 8 through the head kernel
-     (one launch), within 3e-2 of the module head;
+     (64, 64, 10, 3) and finite, the trunk and head kernels launched once
+     a batch (on the card in bf16 milestone9k takes the head kernel,
+     models/generator.py:choose_head); then one batch with the module head
+     against the same model with the plain trunk, <= 3e-2; then one batch
+     of 8 as committed (one launch of each kernel) within 3e-2 of the
+     module head;
   5. train configs/milestone9k.ini as it stands (seeded weights at the
      config's init scales, bf16, batch 32): one G step's gradients through
      the kernels against the same step with the RRDB modules and the plain
@@ -60,15 +61,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      then from it = 47 four train_steps (48, 49 G; 50, 51 D) and one
      val_step: finite losses and metrics, G and its EMA move on G steps
      only, D and its batch statistics on D steps only, and each kernel's
-     launch count rises by what one step predicts (no head launches);
-     then the same on a copy with use_pallas_head, after its G step's
-     gradients against the module head's (<= 2e-2);
+     launch count rises by what one step predicts (one head launch a
+     step); then the committed G step's gradients against the same step
+     with the module head (<= 2e-2);
   6. CUDA-event times (1 warm-up, 5 repeats; 2 for a call over 0.1 s,
      1 over 0.2 s):
      the serving forward at batch
      8 with each layer alone, the trunk kernel, its plain version and a
      bf16 cuDNN chain; at batch 32 the G and D steps with their parts
-     (the rest of the G step split into its layers, D, losses and Adam),
+     (the rest of the G step split into its layers, the head as HRHead
+     runs it, D, losses and Adam),
      and each training kernel beside its plain version, its bound and a
      bf16 cuDNN/cuBLAS chain (for the residual mode one that keeps its
      states and growths); the stencil pair (kernels 3 and 4) with the
@@ -88,8 +90,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      training batch (<= 1e-2), its time at batch 8 and 32 beside its plain
      version, bound and bf16 cuDNN (with cudnn.benchmark off and on; the
      kernel is compared with the faster), the time of the head's cuDNN
-     backward (hr_head_vjp) at batch 32, and the head path's serving
-     forward and G and D steps;
+     backward (hr_head_vjp) at batch 32, and the committed (head
+     kernel) serving forward and G and D steps;
   7. train as a user does: python -m gan_sr_wind_field_tpu_torch.run
      --train --synthetic --synthetic_hours 240 --synthetic_size 128 (its
      main, in process) on a copy of configs/milestone9k.ini in a temporary
@@ -127,25 +129,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (docs/evidence/milestone6k_test_averages.csv; raw G above trilinear),
      the largest per-field PSNR gap printed; the trunk kernel on the
      trunk input of the first test field (batch 1 at LR 32x32x10) against
-     its plain version (increment <= 3e-2); the same --test on a copy with
-     use_pallas_head_nograd (23 head launches, average PSNR within 0.05 dB
-     and each field's SR within 3e-2 relative L2 of the module head's);
-     --use writes 23 finite LR/SR dumps; each pass launches the trunk
-     kernel once per generate call; times of one 128x128x10 generate with
-     either head and each pass's wall seconds;
+     its plain version (increment <= 3e-2); --use writes 23 finite LR/SR
+     dumps; each pass launches the trunk and head kernels once per
+     generate call; the first test field with the module head within 3e-2
+     relative L2 of the pass's (the head kernel), times of one 128x128x10
+     generate with either head and each pass's wall seconds;
   9. the long runs' loop and SR of any extent, in phase 7's temporary
      directory on its data: (a) phase 7's leg with steps_per_dispatch 4
      and --profile, 6000 -> 6008 in two chunks (6001-6004 G, G, G, D;
      6005-6008 D, D, D, G) through CUDA graphs of the step, each kind
      warmed up and captured on its first use and then replayed (6
-     replays): launches (10, 4, 10, 4, 0) with the replays counted, the
+     replays): launches (10, 4, 10, 4, 10) with the replays counted, the
      state at 6008 against phase 7's ckpt_6008 tree by tree (bit-exact,
      or within 1e-3 relative L2), the capture seconds, the pool's bytes,
      the chunked loop's G and D step beside phase 7's, and from the trace
      the card's busy share over the window, the top 5 device operations
      and the names of kernels 1-4; (b) the host data path
      (device_resident_data off), 6000 -> 6004 per step: launches (4, 3, 6,
-     3, 0), finite losses, the G step beside phase 7's and the seconds the
+     3, 4), finite losses, the G step beside phase 7's and the seconds the
      loop waited on the prefetch queue; (c) WindFieldSR.upscale_tiled of
      the 6k pack at tile 16 (the server's), overlap 4, batch 8: the first
      test field of phase 8 (9 tiles, 2 batches) against _upscale_tiled_host
@@ -171,7 +172,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      keep the backend) calibrates on the first 8 test fields; one batch
      of 8 other test fields through the exact bf16 path, the int8 head,
      the int8 trunk and both, within JAX's 2e-2 / 3e-2 / 4e-2 relative L2
-     of the exact path, their PSNR against it, their launches as
+     of the exact path (its module head), their PSNR against it, their launches as
      predicted (trunk kernel / conv_int8: (1, 0), (1, 1), (0, 240), (0,
      241)), every entry point launched, each int8 path's output equal bit
      for bit to the same batch through the entry points' plain versions
@@ -212,7 +213,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (c) run.py --train on a copy of fullvol8x3k warm-started from G.pth,
      4 G steps at batch 8 (no-adv, as committed) and one validation:
      finite totals, G and its EMA at the first step the imported G,
-     launches 4 x (1, 1, 2, 1, 0) plus the validation batches' and one
+     launches 4 x (1, 1, 2, 1, 1) plus the validation batches' and one
      generate's, the G step's ms; (d) run.py --param_search on a copy of
      milestone9k at batch 8, niter 4, validation every 2 its,
      --num_samples 3 --asha_grace 2 --asha_eta 2: 3 records with finite
@@ -227,7 +228,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      train_step and through train_chunk (CUDA graphs, 2 replays) from
      copies of one state on the batches batch_at cuts: bit for bit,
      moments bf16 and their bytes against float32's, launches (4, 2, 4,
-     2, 0) each, the G step's ms (median of its 49 and the next two G
+     2, 4) each, the G step's ms (median of its 49 and the next two G
      steps) beside phase 6's float32 one.
   12. conv_mode = horizontal_3D and D's instance norm at full width: a
      copy of configs/milestone9k.ini with [GAN] conv_mode = horizontal_3D
@@ -341,10 +342,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      6004 with one validation and the save at 6004: finite logged losses,
      the resident volumes equal to the cached hours after
      reformat_sample, each of kernels 1 to 4 launched as the leg's G and
-     D steps, validation batches and generate calls predict, kernel 5 and
-     conv_int8 not at all; (d) run.py --test from its ckpt_6004 on the
-     held-out hours: one CSV row each and the averages row, finite PSNRs,
-     one kernel-1 launch per generate. Each part's seconds; the phase's
+     D steps, validation batches and generate calls predict, and so does
+     kernel 5, conv_int8 not at all; (d) run.py --test from its ckpt_6004
+     on the held-out hours: one CSV row each and the averages row, finite
+     PSNRs, one kernel-1 and one kernel-5 launch per generate. Each part's seconds; the phase's
      launches in the kernel line (launches_real_data).
   16. the long run as the configs' headers say to run it, alone on the
      card in phase 7's temporary directory on its data: (a) the port's
@@ -364,7 +365,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      supervisor writes ..._resume_leg1.ini with state_load_path at
      ckpt_k, leg 1 resumes at k, validates at 6008 and exits 0: two legs,
      the last at 6008; (c) each leg's launches as its own G and D steps,
-     validation batches and generate calls predict, kernel 5 and
+     validation batches and generate calls predict, kernel 5 too,
      conv_int8 none; leg 1's ckpt_6008 against phase 7's uninterrupted
      one tree by tree (G, EMA, D, D's statistics, both Adam states) and
      the generator state: bit-exact, or within 1e-3 relative L2, each
@@ -410,11 +411,10 @@ TIMEOUT_S = 120.0
 CSRC = "gan_sr_wind_field_tpu_torch/ops/kernels/csrc"
 TPU = "gan_sr_wind_field_tpu/ops/pallas"
 # one step's launches of (trunk, trunk backward, gradient, adjoint, head)
-# on milestone9k as committed (head flags off) and with use_pallas_head
-G_STEP_LAUNCHES = (1, 1, 2, 1, 0)
-D_STEP_LAUNCHES = (1, 0, 0, 0, 0)
-G_STEP_LAUNCHES_HEAD = (1, 1, 2, 1, 1)
-D_STEP_LAUNCHES_HEAD = (1, 0, 0, 0, 1)
+# on milestone9k as committed: on the card in bf16 every G forward takes the
+# head kernel (models/generator.py:choose_head)
+G_STEP_LAUNCHES = (1, 1, 2, 1, 1)
+D_STEP_LAUNCHES = (1, 0, 0, 0, 1)
 LAUNCH_LABELS = "trunk/bwd/gradient/adjoint/head"
 # phase 5's state's seed, the state phase 13's legs (b) to (d) start from
 TRAIN_SEED = 2001
@@ -701,6 +701,18 @@ def report_tc_kernels(built):
                 fail(f"{name} issues no wgmma (HGMMA) in its SASS")
             counts[lib] += n
     return counts
+
+
+def module_head(obj):
+    """``obj``, a WindFieldSR or WindFieldGAN, with hr_conv0 on its modules
+    in every forward: on the card in bf16 milestone9k takes the head
+    kernel wherever it fits (choose_head), and the smoke holds it against
+    the module head beside it."""
+    if hasattr(obj, "head_packed"):
+        obj.head_packed = None
+    else:
+        obj._head_train = obj._head_nograd = "modules"
+    return obj
 
 
 def counters():
@@ -1385,31 +1397,27 @@ def train_phase(cfg, dev, rng, card):
 
 
 def head_train_phase(cfg, gan, state, batch, dev, card):
-    """Phase 5, head path: a copy of milestone9k with use_pallas_head at
-    batch 32. One G step's gradients with the head kernel against the
-    same step with the module head (trunk kernels on both sides), then
-    two G and two D steps and a val step through the head kernel.
-    Returns the head-path gan, its state and its launch counts."""
+    """Phase 5, the head: one G step's gradients of milestone9k as
+    committed (the head kernel) against the same step with the module
+    head (trunk kernels on both sides), at batch 32."""
     import torch
 
     from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
 
-    hcfg = copy.deepcopy(cfg)
-    hcfg.use_pallas_head = True
-    gan_h = WindFieldGAN(hcfg, gan.x.cpu().numpy(), gan.y.cpu().numpy(),
-                         device=dev)
-    if (gan_h._head_train, gan_h._head_nograd) != ("kernel", "kernel"):
-        fail("use_pallas_head does not route milestone9k through the head")
+    if (gan._head_train, gan._head_nograd) != ("kernel", "kernel"):
+        fail("milestone9k as committed does not take the head kernel")
+    gan_m = module_head(WindFieldGAN(cfg, gan.x.cpu().numpy(),
+                                     gan.y.cpu().numpy(), device=dev))
     n = cfg.dataset_train.batch_size
-    log(f"train, head path: milestone9k with use_pallas_head, batch {n}, "
-        f"bf16")
-    gan_h.D = gan.D  # the same D module; its parameters come from the state
+    log(f"train, the head: milestone9k as committed against the module "
+        f"head, batch {n}, bf16")
+    gan_m.D = gan.D  # the same D module; its parameters come from the state
     lr, hr, z = batch()
     gen = torch.Generator(device=dev).manual_seed(13)
     keep = torch.rand((n, 1, 1, 1, gan.G.hr_conv1.weight.shape[1]),
                       generator=gen, device=dev) < 0.9
     res = []
-    for g in (gan_h, gan):
+    for g in (gan, gan_m):
         gen = torch.Generator(device=dev).manual_seed(14)
         res.append(g.g_grads(state, lr, hr, z, 48, gen, dropout_mask=keep))
         torch.cuda.synchronize()
@@ -1423,12 +1431,7 @@ def head_train_phase(cfg, gan, state, batch, dev, card):
         f"{worst[0]:.3e}")
     check("G gradients, head kernel vs module head (bf16)",
           rel_l2(flat_h, flat_m), 2e-2)
-    del res, grads_h, grads_m, flat_h, flat_m
-    state_h = gan_h.init_state(2001, (n,) + tuple(lr.shape[1:]),
-                               (n,) + tuple(hr.shape[1:]))
-    total = drive_steps(gan_h, state_h, batch, G_STEP_LAUNCHES_HEAD,
-                        D_STEP_LAUNCHES_HEAD, card, "head path")
-    return gan_h, state_h, total
+    del res, grads_h, grads_m, flat_h, flat_m, gan_m
 
 
 def time_training(gan, state, batch, geom, nf, gc, nconv, dev, card):
@@ -1594,10 +1597,11 @@ def g_step_rest_parts(gan, state, lr, hr, z):
     import torch
     import torch.nn.functional as F
 
-    from gan_sr_wind_field_tpu_torch.models.blocks import channel_dropout
+    from gan_sr_wind_field_tpu_torch.models.blocks import dropout_scale
     from gan_sr_wind_field_tpu_torch.models.fused_apply import (
         kernel_trunk_fn,
     )
+    from gan_sr_wind_field_tpu_torch.ops.hr_head import hr_head
     from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
         pack_trunk_weights,
         pack_trunk_weights_bwd,
@@ -1705,12 +1709,14 @@ def g_step_rest_parts(gan, state, lr, hr, z):
             for k, e in ema.items():
                 e.add_(0.01 * (params[k] - e))
 
+    scale = dropout_scale(lr.shape[0], a.shape[-1], p, dt, a.device, keep)
     parts = [
-        ("hr_conv0_x fwd+bwd", fwd_bwd(G.hr_conv0_x, [G.hr_conv0_x], h)),
-        ("hr_conv0_t fwd+bwd", fwd_bwd(G.hr_conv0_t, [G.hr_conv0_t], t)),
-        ("hr_conv0 sum, LeakyReLU, dropout fwd+bwd", fwd_bwd(
-            lambda u, v: channel_dropout(F.leaky_relu(u + v, slope), p,
-                                         keep), [], px, pt)),
+        # the committed G step's head: kernel 5 forward, cuDNN backward
+        ("HR head (kernel 5, HRHead) fwd+bwd", fwd_bwd(
+            lambda u, v: hr_head(G.hr_conv0_x.weight.to(dt),
+                                 G.hr_conv0_t.weight.to(dt), u, v, scale,
+                                 k=G.hr_kern_size, negative_slope=slope),
+            [G.hr_conv0_x, G.hr_conv0_t], h, t)),
         ("hr_conv1 fwd+bwd", fwd_bwd(lambda v: G.hr_conv1(v).float(),
                                      [G.hr_conv1], a)),
         ("upsampling convs fwd+bwd", fwd_bwd(ups, G.upconvs, h0)),
@@ -1867,8 +1873,8 @@ LEG_SCHEDULE = dict(niter=LEG_TO, log_period=4, val_period=8,
                     save_model_period=4, keep_checkpoints=2,
                     d_g_train_period=4)
 LEG_DATA = ("--synthetic_hours", "240", "--synthetic_size", "128")
-VAL_LAUNCHES = (1, 0, 2, 0, 0)       # one validation batch (val_step)
-GENERATE_LAUNCHES = (1, 0, 0, 0, 0)  # one generate call (the image dump)
+VAL_LAUNCHES = (1, 0, 2, 0, 1)       # one validation batch (val_step)
+GENERATE_LAUNCHES = (1, 0, 0, 0, 1)  # one generate call (the image dump)
 # a resumed leg's trees against the uninterrupted leg's, where the card's
 # step is not deterministic (PERF.md section 6)
 RESUME_TOL = 1e-3
@@ -2229,10 +2235,9 @@ JAX_TEST = os.path.join(REPO, "docs", "evidence", "milestone6k_test_{}.csv")
 TEST_FIELDS = 23
 # trilinear does not depend on the weights; the model rows allow for the
 # pack's bf16 rounding of the float32 ckpt_6000 and for bf16 convs on
-# another chip; the HR-head kernel against the module head on one pass
+# another chip; the HR-head kernel against the module head on one field
 TRILINEAR_TOL_DB = 1e-3
 MODEL_TOL_DB = 0.3
-HEAD_PSNR_TOL_DB = 0.05
 HEAD_FIELD_TOL = 3e-2
 
 
@@ -2361,8 +2366,8 @@ def cli_pass(label, cwd, *argv):
     launches = counters()
     log(f"  {label}: {len(probe.outputs)} generate calls in {secs:.3f} s "
         f"wall; launches {LAUNCH_LABELS} {launches}")
-    want = (len(probe.outputs), 0, 0, 0,
-            len(probe.outputs) if "head" in label else 0)
+    # one trunk and one head launch per generate call (choose_head)
+    want = (len(probe.outputs), 0, 0, 0, len(probe.outputs))
     if len(probe.outputs) != TEST_FIELDS or launches != want:
         fail(f"{label} made {len(probe.outputs)} generate calls and "
              f"launched {launches}, predicted {want}")
@@ -2534,7 +2539,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path, packs):
     reset_counters()
     got = sr.upscale(lr, z)
     serve_launches = counters()
-    if serve_launches != (1, 0, 0, 0, 0) or not np.isfinite(got).all():
+    if serve_launches != (1, 0, 0, 0, 1) or not np.isfinite(got).all():
         fail(f"from_checkpoint served with launches {serve_launches}")
     gan = WindFieldGAN(cfg, coords, coords, device=dev)
     ref = gan.generate(dataclasses.replace(state,
@@ -2618,21 +2623,7 @@ def eval_phase(dev, card, tmp, state, ckpt_path, packs):
     check_trunk_on_field(copy_ini, raw_probe, dev)
     done("--test and --test --test_ema")
 
-    # 4. the same pass through the HR-head kernel (use_pallas_head_nograd)
-    head_ini = test_copy(tmp, "test_head", use_pallas_head_nograd=True)
-    head, head_probe, head_launches, head_s = cli_pass(
-        "--test, head kernel", os.path.join(tmp, "cwd_head"), "--cfg",
-        head_ini, "--test")
-    field_err = max(rel_l2(a, b) for a, b in
-                    zip(head_probe.outputs, raw_probe.outputs))
-    log(f"  head kernel vs module head: average PSNR {head['PSNR']:.6f} vs "
-        f"{raw['PSNR']:.6f} dB (tol {HEAD_PSNR_TOL_DB}), largest per-field "
-        f"SR rel L2 {field_err:.3e} (tol {HEAD_FIELD_TOL:.0e})")
-    if not (abs(head["PSNR"] - raw["PSNR"]) <= HEAD_PSNR_TOL_DB
-            and field_err <= HEAD_FIELD_TOL):
-        fail("the head kernel's test pass disagrees with the module head")
-
-    # 5. --use: the SR field dumps of the test split
+    # 4. --use: the SR field dumps of the test split
     _, _, use_launches, use_s = cli_pass("--use", cwd, "--cfg", copy_ini,
                                          "--use")
     log(f"  the 6k pack read from disk {len(packs.reads)} time(s) so far: "
@@ -2659,23 +2650,29 @@ def eval_phase(dev, card, tmp, state, ckpt_path, packs):
         fail(f"--use wrote {len(dumps)} dumps")
 
     check_packs()
-    # 6. times of one full-volume generate, module head and head kernel
-    per_field = {}
-    for label, probe in (("module head", raw_probe),
-                         ("head kernel", head_probe)):
-        gan_p, state_p = probe.last
-        lr1, z1 = probe.first
+    # 5. the first test field as the pass ran it (the head kernel) and with
+    # the module head, and one full-volume generate's time with either
+    gan_p, state_p = raw_probe.last
+    lr1, z1 = raw_probe.first
+    per_field, outs = {}, {}
+    for label in ("head kernel", "module head"):
+        if label == "module head":
+            module_head(gan_p)
+        outs[label] = gan_p.generate(state_p, lr1, z1)
         per_field[label] = cuda_ms(lambda: gan_p.generate(state_p, lr1, z1))
+    field_err = rel_l2(outs["head kernel"], outs["module head"])
+    log(f"  the first test field, head kernel vs module head: SR rel L2 "
+        f"{field_err:.3e} (tol {HEAD_FIELD_TOL:.0e})")
+    if not field_err <= HEAD_FIELD_TOL:
+        fail("the head kernel's test field disagrees with the module head")
     field = tuple(torch.as_tensor(t).cpu().numpy()[0]
                   for t in raw_probe.first)
-    del raw_probe, head_probe, gan_p, state_p
+    del raw_probe, gan_p, state_p, outs
     log(f"  generate of one {size}x{size}x{zl} field: module head "
         f"{per_field['module head']:.3f} ms, head kernel "
         f"{per_field['head kernel']:.3f} ms; test pass {test_s:.3f} s, EMA "
-        f"pass {ema_s:.3f} s, head-kernel pass {head_s:.3f} s, --use "
-        f"{use_s:.3f} s wall ({card})")
-    passes = (serve_launches, raw_launches, ema_launches, head_launches,
-              use_launches)
+        f"pass {ema_s:.3f} s, --use {use_s:.3f} s wall ({card})")
+    passes = (serve_launches, raw_launches, ema_launches, use_launches)
     return {"trunk": sum(n[0] for n in passes),
             "head": sum(n[4] for n in passes), "ms_module_head":
             per_field["module head"], "ms_head_kernel":
@@ -2693,9 +2690,9 @@ def eval_phase(dev, card, tmp, state, ckpt_path, packs):
 # server's tile (the training LR patch)
 CHUNK_STEPS, CHUNK_TO, HOST_TO = 4, LEG_TO, LEG_MID
 # 4 G, 4 D, one validation batch and one generate
-CHUNK_LAUNCHES = (10, 4, 10, 4, 0)
+CHUNK_LAUNCHES = (10, 4, 10, 4, 10)
 CHUNK_REPLAYS = 6
-HOST_LAUNCHES = (4, 3, 6, 3, 0)      # 3 G, 1 D, no validation
+HOST_LAUNCHES = (4, 3, 6, 3, 4)      # 3 G, 1 D, no validation
 TILE, OVERLAP, TILE_BATCH = 16, 4, 8
 TILED_HOST_TOL = 1e-6  # the same kernel on the same tiles, blended apart
 # median |tiled - direct| / std(direct), JAX's bound (tests/test_serve.py)
@@ -2922,12 +2919,11 @@ def chunk_phase(dev, card, tmp, leg_ms, field):
 
     done("(b)")
     # (c) upscale_tiled at the server's tile, on the 6k pack
+    # the module head, and the head kernel as committed
     mcfg = load_config(CFG)
-    sr = WindFieldSR.from_continuation(mcfg, PACK_6K, use_ema=False,
-                                       device=dev)
-    hcfg = copy.deepcopy(mcfg)
-    hcfg.use_pallas_head_nograd = True
-    sr_h = WindFieldSR(hcfg, sr.G.state_dict(), device=dev)
+    sr = module_head(WindFieldSR.from_continuation(mcfg, PACK_6K,
+                                                   use_ema=False, device=dev))
+    sr_h = WindFieldSR(mcfg, sr.G.state_dict(), device=dev)
     lr, z = field
     X, Y = lr.shape[:2]
     tile, win, coords = _tiling(X, Y, TILE, OVERLAP, TILE_BATCH, sr.scale)
@@ -3484,6 +3480,9 @@ def _deploy(dev, card, tmp, cfg, ini, kernels, started):
     z = np.stack([f[2][s * o:s * (o + p), s * o:s * (o + p)]
                   for f in fields])
     qh, qt = sr.qhead, sr.qtrunk
+    # the exact path with the module head, the int8 paths' yardstick; kernel
+    # 5 (the exact path as committed) is timed beside them below
+    module_head(sr)
     paths = {"bf16 module head": (None, None), "int8 head": (qh, None),
              "int8 trunk": (None, qt), "both": (qh, qt)}
     J = 3 * cfg.generator.num_RRDB
@@ -3531,9 +3530,9 @@ def _deploy(dev, card, tmp, cfg, ini, kernels, started):
             f"{psnr_db(outs[name], exact):.1f} dB (the JAX package's int8 "
             f"head on a TPU: {JAX_INT8_PSNR_DB} dB)")
         check(f"{name} vs the exact bf16 path", err, tol)
-    hcfg = load_config(ini)
-    hcfg.use_pallas_head_nograd = True
-    sr_h = WindFieldSR(hcfg, sr.G.state_dict(), device=dev)
+    sr_h = WindFieldSR(load_config(ini), sr.G.state_dict(), device=dev)
+    if sr_h.head_packed is None:
+        fail("the exact path as committed does not take kernel 5")
     lr_d, z_d = (torch.from_numpy(v).to(dev) for v in (lr, z))
     lr32, z32 = (torch.cat([v] * 4) for v in (lr_d, z_d))
     serve_ms = {}
@@ -3811,7 +3810,7 @@ def reference_files(dev, card, tmp):
                 or not np.isfinite(got).all()):
             fail(f"the {s}x output is {got.shape}, finite "
                  f"{bool(np.isfinite(got).all())}")
-        if not exact or served != (1, 0, 0, 0, 0):
+        if not exact or served != (1, 0, 0, 0, 1):
             fail(f"the {s}x G.pth served with launches {served}, equal "
                  f"{exact}")
         launches = [a + b for a, b in zip(launches, served)]
@@ -6388,7 +6387,7 @@ def real_data_phase(dev, card, tmp):
                                            psnr.values())
             and math.isfinite(avgs["PSNR"])
             and len(gen_probe.outputs) == n_test
-            and test_launches == (n_test, 0, 0, 0, 0, 0)):
+            and test_launches == (n_test, 0, 0, 0, n_test, 0)):
         fail("(d) the test pass's rows, PSNRs or launches are off")
     took("d")
     shutil.rmtree(os.path.join(tmp, "real"))
@@ -6922,12 +6921,15 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     phase_start(4)
     G0 = generator_from_config(cfg, device=dev, seed=2001)
     params = G0.state_dict()
-    sr = WindFieldSR(cfg, params, device=dev)
+    # as committed (the head kernel), and the module head beside it
+    sr_h = WindFieldSR(cfg, params, device=dev)
+    sr = module_head(WindFieldSR(cfg, params, device=dev))
     del G0
-    if sr.packed is None:
+    if sr_h.packed is None:
         fail("milestone9k geometry does not take the trunk kernel")
-    if sr.head_packed is not None:
-        fail("milestone9k as committed takes the head kernel in serving")
+    if sr_h.head_packed is None:
+        fail("milestone9k as committed does not take the head kernel in "
+             "serving")
     rng = np.random.default_rng(2001)
     C = cfg.lr_num_channels
 
@@ -6937,7 +6939,8 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
 
     outs = []
     reset_counters()
-    srv = serve(sr, host="127.0.0.1", port=0, max_batch=8, max_wait_ms=20.0)
+    srv = serve(sr_h, host="127.0.0.1", port=0, max_batch=8,
+                max_wait_ms=20.0)
     pool = ThreadPoolExecutor(max_workers=6)
     try:
         url = f"http://127.0.0.1:{srv.server_address[1]}/v1/upscale"
@@ -6967,8 +6970,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
         f"(max batch {stats['max_batch_seen']}, errors {stats['errors']}); "
         f"trunk kernel launches {serve_launches}, head kernel launches "
         f"{head_launches}")
-    if head_launches:
-        fail("milestone9k as committed launched the head kernel in serving")
+    if head_launches != serve_launches:
+        fail("milestone9k as committed did not launch the head kernel once "
+             "a served batch")
     for o in outs:
         if o.shape != (hr_xy, hr_xy, zl, 3) or not np.isfinite(o).all():
             fail(f"bad output: shape {o.shape}, "
@@ -6991,13 +6995,7 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     if not err_srv <= 3e-2:
         fail(f"served output disagrees with the plain trunk: {err_srv:.3e}")
 
-    # the head path: a copy of milestone9k with use_pallas_head_nograd, the
-    # same weights, one batch of 8 against the module head
-    hcfg = copy.deepcopy(cfg)
-    hcfg.use_pallas_head_nograd = True
-    sr_h = WindFieldSR(hcfg, params, device=dev)
-    if sr_h.head_packed is None:
-        fail("use_pallas_head_nograd does not route serving through the head")
+    # the head path as committed, one batch of 8 against the module head
     lr, z = sample(np.random.default_rng(2002), 8, lr_xy, hr_xy, zl, C)
     reset_counters()
     got = sr_h.upscale(lr, z)
@@ -7017,8 +7015,9 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
     gan, state, batch, train_launches, p5_steps = train_phase(
         copy.deepcopy(cfg), dev, rng, card)
     done("the G-step comparison and four steps")
-    gan_h, state_h, head_train = head_train_phase(cfg, gan, state, batch,
-                                                  dev, card)
+    head_train_phase(cfg, gan, state, batch, dev, card)
+    # the head path is the committed one
+    gan_h, state_h, head_train = gan, state, train_launches
 
     # ------------------------------------------------------------ 6. times
     phase_start(6)
@@ -7233,10 +7232,11 @@ def _main_after_build(dev, card, built, mma_counts, tmp, leg_data):
               ("wind_gradient_adjoint", "stencil.py:166", 3, err_adj,
                tt["k4"]))),
         row("hr_head", "hr_head.cu", "hr_head.py:122",
-            head_serve[4] + head_train[4] + ll[4] + ev["head"] + cl[4]
-            + rl[4] + ml[4] + fl[4], err_head, th[8][:3], th[8][3],
-            **mesh_keys(4), launches_real_data=fl[4],
-            launches_serve=head_serve[4], launches_reference=rl[4],
+            head_launches + head_serve[4] + head_train[4] + ll[4]
+            + ev["head"] + cl[4] + rl[4] + ml[4] + fl[4], err_head,
+            th[8][:3], th[8][3], **mesh_keys(4), launches_real_data=fl[4],
+            launches_serve=head_launches + head_serve[4],
+            launches_reference=rl[4],
             launches_train=head_train[4], launches_loop=ll[4],
             launches_test=ev["head"], launches_tiled=ch["tiled"][4],
             generate_field_ms=ev["ms_head_kernel"],

@@ -296,13 +296,14 @@ class Config:
     # run no-grad G forwards (D train branch, validation SR, serving) through
     # the fused Pallas RRDB-trunk kernel (ops/pallas/rdb_trunk.py)
     use_fused_trunk: bool = False
-    # run hr_conv0 as the channel-split Pallas head kernel
-    # (ops/pallas/hr_head.py) on the fused forward paths; requires
-    # use_fused_trunk (the flax/GSPMD path keeps XLA)
+    # use_pallas_head and use_pallas_head_nograd are the JAX package's TPU
+    # scheduling knobs: there they run hr_conv0 as the Pallas head kernel
+    # in every fused G forward, or only in the no-grad ones (D steps,
+    # inference), both beside use_fused_trunk. The port reads them where
+    # its head kernel has no tensor-core tile (the CPU, float32); on the
+    # card in bf16 it runs the head kernel wherever the kernel fits,
+    # whatever they say (models/generator.py:choose_head)
     use_pallas_head: bool = False
-    # same, but ONLY on the no-grad forward (D steps / inference): the
-    # kernel regresses inside the G-train graph but the inference graph
-    # schedules differently (see CLAUDE.md perf facts)
     use_pallas_head_nograd: bool = False
     # hr_conv0 forward as full-lane main conv + tap-stacked remainder
     # (ops/tap_conv.py:conv3d_split_out) on the NO-GRAD forwards (D steps,

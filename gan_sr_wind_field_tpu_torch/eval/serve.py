@@ -9,9 +9,13 @@
 Counterpart of ``gan_sr_wind_field_tpu/eval/serve.py:WindFieldSR``. The
 forward runs the RRDB trunk as the trunk kernel (``models/fused_apply.py``)
 whenever the geometry allows it (3D convs, 1×1×1 LFF), and hr_conv0 as the
-HR-head kernel (``ops/hr_head.py``) when the configuration sets
-``use_pallas_head`` or ``use_pallas_head_nograd`` beside
-``use_fused_trunk``: serving is a forward without a gradient. On a CUDA
+HR-head kernel (``ops/hr_head.py``) where ``models/generator.py:
+choose_head`` puts the forwards without a gradient: on the card in bf16
+wherever the kernel's tensor-core tile fits, on the CPU and in float32
+under ``use_pallas_head`` or ``use_pallas_head_nograd``; both need
+``use_fused_trunk``. The weights are packed for it once, here: every
+reader of weights (``from_continuation``, ``from_checkpoint``, the EMA
+slot, ``eval/interp.py``, a ``.pth``) builds a new instance. On a CUDA
 device the constructor builds the kernels it will launch, so the first
 request pays no build.
 
@@ -66,10 +70,12 @@ from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     generate_fused,
     head_features_fused,
-    head_kernel_flags,
     trunk_input_features,
 )
-from gan_sr_wind_field_tpu_torch.models.generator import empty_generator
+from gan_sr_wind_field_tpu_torch.models.generator import (
+    choose_head,
+    empty_generator,
+)
 from gan_sr_wind_field_tpu_torch.ops.hr_head import pack_head_weights
 from gan_sr_wind_field_tpu_torch.ops.kernels import build
 from gan_sr_wind_field_tpu_torch.ops.quant import (
@@ -149,8 +155,9 @@ class WindFieldSR:
                 G.num_rdb_convs, G.lff_kern_size, G.conv_mode):
             self.packed = pack_trunk_weights(G.rrdbs, G.dtype, self.device)
         self.head_packed = None
-        if (self.packed is not None and head_kernel_flags(cfg)[1]
-                and G.negative_slope > 0):
+        head = choose_head(cfg, self.device, mesh)
+        logging.getLogger("status").info(head.status())
+        if self.packed is not None and head.nograd == "kernel":
             self.head_packed = pack_head_weights(
                 G.hr_conv0_x.weight, G.hr_conv0_t.weight, G.dtype,
                 self.device)

@@ -20,7 +20,9 @@ Serving may swap in calibrated int8: ``qhead`` runs hr_conv0's x-part as
 probes. A ``conv_mode="horizontal_3D"`` generator runs its one unsplit
 hr_conv0 on the concat of x and t, with neither head function nor int8.
 Whichever computes it, the head (hr_conv0, its LeakyReLU and dropout) is
-the device span ``G.hr_head`` (``utils/spans.py``), forward and backward.
+the device span ``G.hr_head`` (``utils/spans.py``), forward and backward,
+with the attribute ``impl``: "kernel", "modules" or "int8". Which forwards
+take the head kernel is ``models/generator.py:choose_head``'s decision.
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ def generator_forward(G, lr: torch.Tensor, z_terrain: torch.Tensor,
     p = G.dropout_probability if train else 0.0
     # the HR head, whichever computes it, and its backward: one span
     with spans.device_span("G.hr_head") as head:
+        head.set(impl="int8" if qhead is not None
+                 else "modules" if head_fn is None else "kernel")
         x, t = head.inputs(x, t)
         if G.conv_mode != "3D":
             # one unsplit hr_conv0 on the concat (JAX generator.py:191-204)
@@ -134,17 +138,6 @@ def kernel_head_fn(G, packed: Optional[torch.Tensor] = None) -> Callable:
                        negative_slope=G.negative_slope, packed=packed)
 
     return head_fn
-
-
-def head_kernel_flags(cfg) -> tuple:
-    """(differentiable forwards, no-grad forwards) that take the HR-head
-    kernel: ``use_pallas_head`` sets both, ``use_pallas_head_nograd`` the
-    no-grad ones (D steps, validation, generate, serving) only. Both need
-    ``use_fused_trunk``, as in the JAX package."""
-    fused = bool(getattr(cfg, "use_fused_trunk", False))
-    both = fused and bool(getattr(cfg, "use_pallas_head", False))
-    return both, both or (fused and bool(
-        getattr(cfg, "use_pallas_head_nograd", False)))
 
 
 def trunk_geometry(G) -> dict:

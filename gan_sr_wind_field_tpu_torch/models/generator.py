@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -45,6 +46,8 @@ from gan_sr_wind_field_tpu_torch.models.fused_apply import (
     kernel_head_fn,
 )
 from gan_sr_wind_field_tpu_torch.models.fused_train import trainable_trunk_fn
+from gan_sr_wind_field_tpu_torch.ops.hr_head import HEAD_TILES, plan_head_tc
+from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import trunk_fusable
 
 
 class Generator3D(nn.Module):
@@ -256,3 +259,75 @@ def build_generator(cfg, seed: int = 0) -> Generator3D:
         negative_slope=_act_slope(g.act_type),
         generator=torch.Generator().manual_seed(seed),
     )
+
+
+@dataclass(frozen=True)
+class HeadChoice:
+    """How hr_conv0, its LeakyReLU and the channel dropout run: ``train``
+    in G forwards with a gradient, ``nograd`` in those without (D steps,
+    validation, ``generate``, serving), each "kernel" (the HR-head kernel,
+    ``ops/hr_head.py``) or "modules"; ``why`` says why, for the status
+    log."""
+    train: str
+    nograd: str
+    why: str
+
+    def status(self) -> str:
+        """The status log's line."""
+        if self.train == self.nograd:
+            return f"HR head: {self.train} ({self.why})"
+        return (f"HR head: {self.train} with a gradient, {self.nograd} "
+                f"without ({self.why})")
+
+
+def choose_head(cfg, device, mesh=None) -> HeadChoice:
+    """How the configuration's G runs its head on ``device`` (a mesh's
+    spatial or model axis runs the modules).
+
+    The kernel rides on the trunk kernels, as in the JAX package: it needs
+    ``use_fused_trunk``, a trunk geometry they take (``trunk_fusable``:
+    conv_mode "3D"), a LeakyReLU slope > 0 (its backward reads the slope's
+    side from its output) and no spatial or model axis. On a CUDA device
+    in bfloat16 the kernel then runs every forward, with and without a
+    gradient, wherever its tensor-core tile computes the head (kernel
+    size 3 or 5, the HR depth ``number_of_z_layers`` within the tile's
+    shared memory, ``plan_head_tc``), and the modules elsewhere. The two
+    head flags are the JAX package's TPU scheduling knobs; they route the
+    head where there is no tensor-core tile, on the CPU (whose "kernel" is
+    the plain version) and in float32: ``use_pallas_head`` sets both
+    paths, ``use_pallas_head_nograd`` the forwards without a gradient."""
+    g, gen = cfg.gan_config, cfg.generator
+    if mesh is not None and (mesh.spatial > 1 or mesh.model > 1):
+        return HeadChoice("modules", "modules",
+                          "a spatial or model axis: one launch cannot take "
+                          "a halo or a channel gather")
+    if not getattr(cfg, "use_fused_trunk", False):
+        return HeadChoice("modules", "modules", "use_fused_trunk is off")
+    if not trunk_fusable(gen.num_RDB_convs, gen.lff_kern_size, g.conv_mode):
+        return HeadChoice("modules", "modules",
+                          f"conv_mode {g.conv_mode!r}: the trunk kernels do "
+                          "not take this geometry")
+    if not _act_slope(gen.act_type) > 0:
+        return HeadChoice("modules", "modules", "a LeakyReLU slope of 0")
+    k = gen.hr_kern_size
+    on_card = torch.device(device).type == "cuda"
+    if on_card and cfg.compute_dtype == "bfloat16":
+        if k not in HEAD_TILES:
+            return HeadChoice("modules", "modules",
+                              f"hr_kern_size {k}: the tensor-core tiles "
+                              f"take {sorted(HEAD_TILES)}")
+        nf, tc = gen.num_features, gen.terrain_number_of_features
+        zl = g.number_of_z_layers
+        try:
+            plan_head_tc((1, 1, 1, zl), nf, tc, nf + tc, k)
+        except ValueError as e:
+            return HeadChoice("modules", "modules", str(e))
+        return HeadChoice("kernel", "kernel",
+                          f"bf16 tensor-core tile, k = {k}, Zl = {zl}")
+    both = bool(getattr(cfg, "use_pallas_head", False))
+    nograd = both or bool(getattr(cfg, "use_pallas_head_nograd", False))
+    where = (f"{cfg.compute_dtype} (the tensor-core tile is bf16)"
+             if on_card else f"device {device}")
+    return HeadChoice("kernel" if both else "modules",
+                      "kernel" if nograd else "modules",
+                      f"{where}: the head flags route it")

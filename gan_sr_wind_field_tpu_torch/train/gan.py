@@ -32,9 +32,11 @@ step does.
 With ``use_fused_trunk`` (and a LeakyReLU slope > 0) the G step's trunk
 runs as the trunk kernel with residuals and the backward kernel
 (``models/fused_train.py``), and the D step's G forward as the trunk
-kernel. With ``use_pallas_head`` as well, hr_conv0 runs as the HR-head
-kernel (``ops/hr_head.py``) in every G forward; with
-``use_pallas_head_nograd`` only in those without a gradient (the D step,
+kernel. hr_conv0 runs as the HR-head kernel (``ops/hr_head.py``) where
+``models/generator.py:choose_head`` says: on the card in bf16 in every G
+forward wherever its tensor-core tile fits, on the CPU and in float32 as
+the head flags say (``use_pallas_head`` every G forward,
+``use_pallas_head_nograd`` those without a gradient: the D step,
 validation, ``generate``). The port has no rematerialisation:
 ``use_remat`` is read but changes nothing here. With
 ``use_pallas_stencil`` the physics gradients run as the stencil kernel
@@ -122,10 +124,10 @@ from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
 from gan_sr_wind_field_tpu_torch.device import resolve_device
 from gan_sr_wind_field_tpu_torch.models.blocks import _draw_keep
 from gan_sr_wind_field_tpu_torch.models.discriminator import Discriminator3D
-from gan_sr_wind_field_tpu_torch.models.fused_apply import head_kernel_flags
 from gan_sr_wind_field_tpu_torch.models.generator import (
     _act_slope,
     build_generator,
+    choose_head,
     empty_generator,
 )
 from gan_sr_wind_field_tpu_torch.ops import sr_cast
@@ -327,13 +329,10 @@ class WindFieldGAN:
             and trunk_fusable(G.num_rdb_convs, G.lff_kern_size, g.conv_mode)
         )
         self._trunk = "kernel" if self.use_fused_trunk else "modules"
-        # the HR-head kernel rides on the trunk kernels, as in the JAX
-        # package; with use_pallas_head_nograd alone only forwards without
-        # a gradient (D step, validation, generate) take it
-        head_train, head_nograd = head_kernel_flags(cfg)
+        head = choose_head(cfg, self.device, mesh)
+        self._head_train, self._head_nograd = head.train, head.nograd
+        logging.getLogger("status").info(head.status())
         fused = self.use_fused_trunk
-        self._head_train = "kernel" if fused and head_train else "modules"
-        self._head_nograd = "kernel" if fused and head_nograd else "modules"
         use_stencil = getattr(cfg, "use_pallas_stencil", False)
         self._wind_gradient = (WindFieldGradient.apply if use_stencil
                                else wind_field_gradient)
@@ -453,7 +452,7 @@ class WindFieldGAN:
 
     def _g_forward_nograd(self, params_G: Params, lr, z) -> torch.Tensor:
         """Eval-mode G forward, no gradient: the trunk kernel if enabled,
-        the HR-head kernel if either head flag is on."""
+        the HR-head kernel where ``choose_head`` puts it."""
         with torch.no_grad():
             return self._g_apply(params_G, lr, z, trunk=self._trunk,
                                  head=self._head_nograd)

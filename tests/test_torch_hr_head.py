@@ -11,6 +11,8 @@ the head under each flag, and the server's warm start. Float32, numpy
 seeds, weights through the bridge.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,10 @@ from gan_sr_wind_field_tpu.train.gan import WindFieldGAN as JaxGAN
 from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
 from gan_sr_wind_field_tpu_torch.eval.server import warmup
 from gan_sr_wind_field_tpu_torch.models.fused_apply import generate_fused
-from gan_sr_wind_field_tpu_torch.models.generator import Generator3D
+from gan_sr_wind_field_tpu_torch.models.generator import (
+    Generator3D,
+    choose_head,
+)
 from gan_sr_wind_field_tpu_torch.ops import hr_head as head_mod
 from gan_sr_wind_field_tpu_torch.ops.hr_head import (
     hr_head,
@@ -281,3 +286,61 @@ def test_served_head_and_warmup(head_calls, flag):
     lr, _, z = make_batch(8)
     out = sr.upscale(lr, z)
     assert out.shape == (2, 16, 16, 4, 3) and np.isfinite(out).all()
+
+
+def _card_cfg(**change):
+    """milestone9k's head on the card: bf16, conv_mode 3D, k = 5, Zl 10,
+    nf 128 and 16 terrain features, use_fused_trunk on, head flags off;
+    ``change`` sets attributes of the configuration or its groups
+    ("gan_config.conv_mode")."""
+    cfg = _head_cfg(True)
+    cfg.compute_dtype = "bfloat16"
+    cfg.gan_config.number_of_z_layers = 10
+    G = cfg.generator
+    G.num_features, G.terrain_number_of_features = 128, 16
+    G.num_RDB_convs, G.hr_kern_size = 5, 5
+    for key, v in change.items():
+        *group, name = key.split(".")
+        setattr(getattr(cfg, group[0]) if group else cfg, name, v)
+    return cfg
+
+
+_FLAGS = [{}, {"use_pallas_head": True}, {"use_pallas_head_nograd": True},
+          {"use_pallas_head": True, "use_pallas_head_nograd": True}]
+
+
+@pytest.mark.parametrize("change,mesh,device,want", [
+    *(({**flags}, None, "cuda", ("kernel", "kernel")) for flags in _FLAGS),
+    ({"generator.hr_kern_size": 3}, None, "cuda", ("kernel", "kernel")),
+    ({"compute_dtype": "float32"}, None, "cuda", ("modules", "modules")),
+    ({"compute_dtype": "float32", "use_pallas_head_nograd": True}, None,
+     "cuda", ("modules", "kernel")),
+    ({"gan_config.conv_mode": "horizontal_3D"}, None, "cuda",
+     ("modules", "modules")),
+    ({"generator.hr_kern_size": 7}, None, "cuda", ("modules", "modules")),
+    ({"gan_config.number_of_z_layers": 200}, None, "cuda",
+     ("modules", "modules")),
+    ({}, (2, 1), "cuda", ("modules", "modules")),
+    ({}, (1, 2), "cuda", ("modules", "modules")),
+    ({}, (1, 1), "cuda", ("kernel", "kernel")),
+    ({"use_fused_trunk": False}, None, "cuda", ("modules", "modules")),
+    ({"generator.act_type": "relu"}, None, "cuda", ("modules", "modules")),
+    *((flags, None, "cpu", ("kernel" if "use_pallas_head" in flags
+                            else "modules",
+                            "kernel" if flags else "modules"))
+      for flags in _FLAGS),
+    ({"use_pallas_head": True, "use_fused_trunk": False}, None, "cpu",
+     ("modules", "modules")),
+])
+def test_choose_head_decides_from_what_it_sees(change, mesh, device, want):
+    """choose_head on a CUDA device given as an argument (no card needed):
+    bf16 in 3D with k 3 or 5, a Zl the tile's shared memory takes, no
+    spatial or model axis, use_fused_trunk and a slope > 0 take the kernel
+    in both paths whatever the flags say; anything else on the card runs
+    the modules, but float32, where the flags still route; on the CPU the
+    flags route as ``test_head_flags_route_forwards`` counts."""
+    mesh = (None if mesh is None
+            else SimpleNamespace(spatial=mesh[0], model=mesh[1]))
+    choice = choose_head(_card_cfg(**change), torch.device(device), mesh)
+    assert (choice.train, choice.nograd) == want
+    assert choice.why and choice.status().startswith("HR head: ")

@@ -7,6 +7,8 @@ with a card and no JAX:
 Each test skips where there is no card.
 """
 
+from pathlib import Path
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -43,6 +45,8 @@ from gan_sr_wind_field_tpu_torch.ops.rdb_trunk import (
     rrdb_trunk_reference,
 )
 from gan_sr_wind_field_tpu_torch.utils import spans
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -539,6 +543,15 @@ def test_captured_steps_equal_eager_steps_on_card(cuda_device, monkeypatch,
     assert per_step[True][4] == per_step[False][4] == int(head)
     assert state.it == eager.it == 6
     assert torch.equal(state.rng.get_state(), eager.rng.get_state())
+    pairs = _state_pairs(state, eager)
+    pairs += [(f"metrics/{k}", v, want[k]) for k, v in metrics.items()]
+    differ = [(n, _rel(a, b)) for n, a, b in pairs if not torch.equal(a, b)]
+    assert differ == []
+
+
+def _state_pairs(state, eager):
+    """(name, tensor of ``state``, the same of ``eager``) for every tree
+    and Adam state a step updates."""
     pairs = [(f"{t}/{k}", v, getattr(eager, t)[k])
              for t in ("params_G", "params_D", "batch_stats_D",
                        "params_G_ema") for k, v in getattr(state, t).items()]
@@ -547,8 +560,117 @@ def test_captured_steps_equal_eager_steps_on_card(cuda_device, monkeypatch,
         pairs.append((f"{o}.count", mine.count, theirs.count))
         pairs += [(f"{o}.{m}/{k}", v, getattr(theirs, m)[k])
                   for m in ("mu", "nu") for k, v in getattr(mine, m).items()]
-    pairs += [(f"metrics/{k}", v, want[k]) for k, v in metrics.items()]
-    differ = [(n, _rel(a, b)) for n, a, b in pairs if not torch.equal(a, b)]
+    return pairs
+
+
+@pytest.mark.cuda
+def test_main_path_runs_the_head_kernel_on_card(cuda_device, monkeypatch):
+    """milestone9k as committed (head flags off) at its widths, batch 2:
+    ``choose_head`` puts the HR-head kernel on both paths; a G step, a D
+    step and a served batch launch it once each, and the served batch's
+    ``G.hr_head`` span says ``impl="kernel"``; one G step's loss and
+    gradients agree with the module head's within 3e-2 (bf16) on the
+    same dropout channels, drawn from one generator; two G steps through
+    ``train_chunk`` (the first warmed up and captured, the second
+    replayed) equal two eager steps bit for bit (cuDNN deterministic, no
+    TF32)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from gan_sr_wind_field_tpu_torch.config import Config
+    from gan_sr_wind_field_tpu_torch.data.device_data import batch_at
+    from gan_sr_wind_field_tpu_torch.eval.serve import WindFieldSR
+    from gan_sr_wind_field_tpu_torch.models import fused_apply
+    from gan_sr_wind_field_tpu_torch.train.gan import WindFieldGAN
+    from gan_sr_wind_field_tpu_torch.train.step_graphs import launch_counts
+
+    cfg = Config.from_ini(str(ROOT / "configs" / "milestone9k.ini"))
+    assert not (cfg.use_pallas_head or cfg.use_pallas_head_nograd)
+    coords = torch.arange(64, dtype=torch.float32) * 150
+    gan = WindFieldGAN(cfg, coords, coords, device=cuda_device)
+    assert (gan._head_train, gan._head_nograd) == ("kernel", "kernel")
+    n, zl = 2, cfg.gan_config.number_of_z_layers
+    state = gan.init_state(0, (n, 16, 16, zl, 4), (n, 64, 64, zl, 3))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    full = torch.rand((3, 96, 96, zl, 4), generator=gen, device=cuda_device)
+    zraw = torch.cumsum(1.0 + torch.rand((3, 96, 96, zl, 1), generator=gen,
+                                         device=cuda_device), dim=3) * 10
+    kw = dict(batch_size=n, patch=64, patch_y=64, cf=4, enable_slicing=True)
+    lr, hr, z = batch_at(full, zraw, 5, 0, **kw)
+
+    # the same G step with either head, each drawing its channels from a
+    # generator seeded alike: the kernel's scale and the modules' output
+    seen = {}
+
+    def spy(name, fn):
+        def call(*a, **k):
+            seen[name] = fn(*a, **k)
+            return seen[name]
+        return call
+
+    monkeypatch.setattr(fused_apply, "dropout_scale",
+                        spy("kernel", fused_apply.dropout_scale))
+    monkeypatch.setattr(fused_apply, "channel_dropout",
+                        spy("modules", fused_apply.channel_dropout))
+    res = {}
+    for impl in ("kernel", "modules"):
+        gan._head_train = impl
+        res[impl] = gan.g_grads(
+            state, lr, hr, z, 1,
+            torch.Generator(device=cuda_device).manual_seed(14))
+    gan._head_train = "kernel"
+    keep_k = seen["kernel"] != 0
+    keep_m = (seen["modules"] != 0).flatten(1, 3).any(1)
+    assert torch.equal(keep_k, keep_m)
+    assert 0 < int(keep_k.sum()) < keep_k.numel()
+    (loss_k, _, grads_k), (loss_m, _, grads_m) = res["kernel"], res["modules"]
+    assert _rel(loss_k, loss_m) <= 3e-2
+    flat = [torch.cat([g.flatten() for g in gs]) for gs in (grads_k, grads_m)]
+    assert _rel(*flat) <= 3e-2
+
+    # one launch a G step, a D step and a served batch
+    counts = []
+    for it in (1, 50):
+        assert gan.is_g_step(it) == (it == 1)
+        state.it = it - 1
+        before = head_mod.launches
+        gan.train_step(state, lr, hr, z)
+        torch.cuda.synchronize()
+        counts.append(head_mod.launches - before)
+    sr = WindFieldSR(cfg, state.params_G, device=cuda_device)
+    assert sr.head_packed is not None
+    before = head_mod.launches
+    spans.clear()
+    spans.enable()
+    try:
+        out = sr.upscale(lr.cpu().numpy(), z.cpu().numpy())
+        heads = spans.read(names=["G.hr_head"])
+    finally:
+        spans.enable(False)
+        spans.clear()
+    counts.append(head_mod.launches - before)
+    assert counts == [1, 1, 1]
+    assert [s.attrs["impl"] for s in heads] == ["kernel"]
+    assert out.shape == (n, 64, 64, zl, 3) and bool(torch.isfinite(
+        torch.from_numpy(out)).all())
+
+    # two G steps as CUDA graphs (capture, replay) against two eager steps
+    state.it = 0
+    eager = _clone_state(state)
+    before = launch_counts()
+    state, _ = gan.train_chunk(state, full, zraw, 5, n_steps=2, augment=True,
+                               **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()[4] - before[4] == 2
+    assert gan._graphs.replays == 1 and list(gan._graphs.graphs) == [True]
+    for _ in range(2):
+        eager, _ = gan.train_step(
+            eager, *batch_at(full, zraw, 5, eager.it, **kw), augment=True)
+    torch.cuda.synchronize()
+    assert state.it == eager.it == 2
+    assert torch.equal(state.rng.get_state(), eager.rng.get_state())
+    differ = [(name, _rel(a, b)) for name, a, b in _state_pairs(state, eager)
+              if not torch.equal(a, b)]
     assert differ == []
 
 
